@@ -1,0 +1,200 @@
+"""Fused ray MLP + k projection + logits for the unbanked pose scoring.
+
+For ray inputs x [R, 141] (``id_module.ray_mlp_inputs``) the chain is the
+ray MLP (141 -> 256 -> 256, skip concat ``[h, x]`` -> 397 -> 256 -> 384),
+the k projection (384 -> 384) and the logits against the queries, which
+carry the 1/sqrt(D) scale. Every layer accumulates in float32, adds the
+bias, applies its ReLU and rounds to the working dtype. The softmax over
+the ray axis then gives the scores:
+
+    scores[r] = sum_p valid[p] * exp(l[r, p] - m[p]) / d[p]
+
+``fused_ray_scores`` launches the kernel of ``csrc/fused_ray_attention.cu``
+for CUDA tensors (it replaces the TPU kernel ``_kernel`` of the JAX
+package's ``ops/fused_ray_attention.py``; the source says what bounds it
+on an H100 and how it is built), which writes the logits and the softmax
+statistics: bf16 on the tensor cores (``mma.sync``, from transposed copies
+of the weights, made once per set of parameters), float32 on FMAs. The
+epilogue ``exp(l - m) @ w`` stays in torch, as it stayed outside the TPU
+kernel. CPU tensors take ``fused_ray_scores_plain``. Any ray count runs
+through the kernel: the last tile is masked.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from iffnerf_tpu_torch.ops import _build
+from iffnerf_tpu_torch.ops.banked_attention import PATCHES, softmax_scores
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "iff_fused_ray_scores_f32": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P,
+                                 _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P,
+                                 _P, _I, _P, _P, _P, _P],
+    "iff_fused_ray_scores_bf16": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P,
+                                  _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P,
+                                  _P, _P, _I, _P, _P, _P, _P],
+}
+BF16_WIDTHS = (128, 256, 384, 512)  # layer widths of the bf16 kernel
+TILE_RAYS = 64  # rays per tile of either kernel (kTileRays, kRows)
+_LAYERS = (("ray_mlp", 0), ("ray_mlp", 1), ("ray_mlp2", 0), ("ray_mlp2", 1),
+           ("k_proj", None))
+_NET = {}  # the kernel's weights for the last params seen, see _kernel_net
+
+
+def _sources(params):
+    return [params[n] if i is None else params[n][i] for n, i in _LAYERS]
+
+
+def _layers(params, dt):
+    """[(w [in, out], b [out])] of the five ray-side layers in ``dt``."""
+    return [(layer["w"].to(dt).contiguous(), layer["b"].to(dt).contiguous())
+            for layer in _sources(params)]
+
+
+def _transposed(w, k_pad):
+    """w [K, N] -> w^T [N, k_pad], zero past K: the bf16 kernel's layout."""
+    out = torch.zeros((w.shape[1], k_pad), dtype=w.dtype, device=w.device)
+    out[:, :w.shape[0]] = w.T
+    return out
+
+
+def _kernel_net(params, dt):
+    """(layers, transposed) for the kernel: the five layers in ``dt`` and,
+    for bf16, their transposed, depth-padded copies (else None). Built once
+    for a set of parameter tensors and reused while the same tensors,
+    unmodified in place, come back: per image only the rays change."""
+    src = [t for layer in _sources(params) for t in (layer["w"], layer["b"])]
+    versions = (dt,) + tuple(t._version for t in src)
+    if (_NET.get("versions") != versions
+            or any(a is not b for a, b in zip(_NET["src"], src))):
+        layers = _layers(params, dt)
+        _check_widths(layers, dt == torch.bfloat16)
+        transposed = None
+        if dt == torch.bfloat16:
+            (w1, _), (w2, _), (w3, _), (w4, _), (wk, _) = layers
+            in_pad = -(-w1.shape[0] // 16) * 16
+            transposed = (_transposed(w1, in_pad),
+                          _transposed(w2, w1.shape[1]),
+                          _transposed(w3, w2.shape[1] + in_pad),
+                          _transposed(w4, w3.shape[1]),
+                          _transposed(wk, w4.shape[1]))
+        _NET.update(src=src, versions=versions, net=(layers, transposed))
+    return _NET["net"]
+
+
+def scaled_queries(q: torch.Tensor, dt) -> torch.Tensor:
+    """qs [D, P] = (q / sqrt(D)).T in ``dt``. The divisor is rounded to
+    q's dtype first: the JAX package divides a bf16 q by a weakly typed
+    Python float, which it casts to bf16 (sqrt(384) -> 19.625)."""
+    div = torch.tensor(math.sqrt(q.shape[1]), dtype=q.dtype, device=q.device)
+    return (q / div).T.to(dt).contiguous()
+
+
+def _check_widths(layers, bf16):
+    (w1, _), (w2, _), (w3, _), (w4, _), _ = layers
+    in_dim, h1, h2, h3, dk = (w1.shape[0], w1.shape[1], w2.shape[1],
+                              w3.shape[1], w4.shape[1])
+    expect = [(in_dim, h1), (h1, h2), (h2 + in_dim, h3), (h3, dk), (dk, dk)]
+    if [tuple(w.shape) for w, _ in layers] != expect:
+        raise ValueError(f"layer shapes {[tuple(w.shape) for w, _ in layers]} "
+                         f"do not chain")
+    if bf16 and any(n not in BF16_WIDTHS for n in (h1, h2, h3, dk)):
+        raise ValueError(f"unsupported widths {(h1, h2, h3, dk)}: the bf16 "
+                         f"kernel takes {BF16_WIDTHS}")
+    if not bf16 and (any(n % 128 for n in (h1, h2, h3, dk))
+                     or in_dim + max(h1, h3) < dk):
+        raise ValueError(f"unsupported widths {(in_dim, h1, h2, h3, dk)}")
+
+
+def fused_ray_scores_plain(params, q, patch_valid, x):
+    """The kernel's function in plain torch: scores [R] float32."""
+    dt = x.dtype
+    (w1, b1), (w2, b2), (w3, b3), (w4, b4), (wk, bk) = _layers(params, dt)
+
+    def layer(h, w, b, relu):
+        y = h.float() @ w.float() + b.float()
+        return (torch.relu(y) if relu else y).to(dt)
+
+    h = layer(x, w1, b1, True)
+    h = layer(h, w2, b2, True)
+    h = layer(torch.cat([h, x], dim=-1), w3, b3, True)
+    h = layer(h, w4, b4, False)
+    k = layer(h, wk, bk, False)
+    logits = k.float() @ scaled_queries(q, dt).float()           # [R, P]
+    return softmax_scores(logits, patch_valid)
+
+
+def fused_ray_scores(params, q, patch_valid, x):
+    """Scores [R] float32 for all candidate rays.
+
+    params: the id-module parameter dict (ray_mlp / ray_mlp2 / k_proj).
+    q: [256, D] image queries in the compute dtype; patch_valid: [256] bool.
+    x: [R, 141] ray-MLP inputs in the compute dtype (float32 or bfloat16).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (two launches, then the torch epilogue) or raise."""
+    if x.device.type == "cpu":
+        return fused_ray_scores_plain(params, q, patch_valid, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused ray-scoring kernel for {x.device}")
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16) or x.dim() != 2:
+        raise ValueError(f"x must be [R, in] float32 or bfloat16, got "
+                         f"{dt} {tuple(x.shape)}")
+    if q.shape[0] != PATCHES or patch_valid.shape != (PATCHES,):
+        raise ValueError(f"q must be [{PATCHES}, D] and patch_valid "
+                         f"[{PATCHES}], got {tuple(q.shape)} and "
+                         f"{tuple(patch_valid.shape)}")
+    if not x.is_contiguous() or x.shape[0] == 0:
+        raise ValueError("x must be contiguous and hold at least one ray")
+    layers, transposed = _kernel_net(params, dt)
+    (w1, b1), (w2, b2), (w3, b3), (w4, b4), (wk, bk) = layers
+    r, in_dim = x.shape
+    h1, h2, h3, dk = w1.shape[1], w2.shape[1], w3.shape[1], w4.shape[1]
+    if w1.shape[0] != in_dim or q.shape[1] != dk:
+        raise ValueError(f"the ray layers take {w1.shape[0]} inputs and give "
+                         f"{dk} features; got x {tuple(x.shape)} and q "
+                         f"{tuple(q.shape)}")
+    bf16 = dt == torch.bfloat16
+    dev = x.device
+    if any(t.device != dev for t in (q, patch_valid, w1)):
+        raise ValueError("params, q, patch_valid and x must share one device")
+    lib = _build.load("fused_ray_attention", _SIGNATURES)
+    qs = scaled_queries(q, dt)                                  # [D, P]
+    valid = patch_valid.to(torch.uint8).contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblocks = min(-(-r // TILE_RAYS), (1 if bf16 else 2) * sms)
+    f32 = dict(dtype=torch.float32, device=dev)
+    logits = torch.empty((r, PATCHES), **f32)
+    part_m = torch.empty((nblocks, PATCHES), **f32)
+    part_d = torch.empty((nblocks, PATCHES), **f32)
+    m, dsum, w = (torch.empty(PATCHES, **f32) for _ in range(3))
+    out = (valid.data_ptr(), logits.data_ptr(), part_m.data_ptr(),
+           part_d.data_ptr(), nblocks, m.data_ptr(), dsum.data_ptr(),
+           w.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if bf16:   # tensor-core tiles: transposed, depth-padded weights
+        w1t, w2t, w3t, w4t, wkt = transposed
+        in_pad = w1t.shape[1]
+        qt = qs.T.contiguous()                                    # q [P, D]
+        rc = lib.iff_fused_ray_scores_bf16(
+            x.data_ptr(), r, in_dim, in_pad, w1t.data_ptr(), b1.data_ptr(),
+            h1, w2t.data_ptr(), b2.data_ptr(), h2, w3t.data_ptr(),
+            b3.data_ptr(), h3, w4t.data_ptr(), b4.data_ptr(), dk,
+            wkt.data_ptr(), bk.data_ptr(), qt.data_ptr(), PATCHES, *out)
+    else:
+        rc = lib.iff_fused_ray_scores_f32(
+            x.data_ptr(), r, in_dim, w1.data_ptr(), b1.data_ptr(), h1,
+            w2.data_ptr(), b2.data_ptr(), h2, w3.data_ptr(), b3.data_ptr(),
+            h3, w4.data_ptr(), b4.data_ptr(), dk, wk.data_ptr(),
+            bk.data_ptr(), qs.data_ptr(), PATCHES, *out)
+    _build.check(rc, "fused_ray_scores kernel launch")
+    fused_ray_scores.launches += 1
+    return torch.exp(logits - m) @ w
+
+
+fused_ray_scores.launches = 0
