@@ -5,10 +5,16 @@ Builds the port's kernels from ``iffnerf_tpu_torch/csrc``, holds each
 against its plain PyTorch version at the main path's shapes, drives the
 single-image pose estimate at full width (ViT-S/14 depth 12, 224 crop,
 540 000 candidate rays, top-100; random weights from a seed, no
-checkpoint) through the entry points a user calls, checks what comes out,
-and times kernels and estimates with CUDA events. Each phase prints one
-JSON line; then come the card's name and power limit (as nvidia-smi gives
-them), the kernels line, and last ``{"ok": true, "device": {...}}``.
+checkpoint) through the entry points a user calls, then the object side:
+a field at lego's widths (TensorVMSplit, 300^3 grid, Ref shading, an 8 %
+occupied alpha mask; made from the seed, saved and loaded back) through
+``explore_field`` (20 000 surface points x 27 isocell directions) and
+``test_pose_estimation`` on four synthetic 800x800 frames held in memory
+(no image file is read). It checks what comes out, and times kernels,
+estimates and the object side with CUDA events and the host clock. Each
+phase prints one JSON line; then come the card's name and power limit (as
+nvidia-smi gives them), the kernels line, and last
+``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a run without CUDA or without the package beside it.
@@ -18,17 +24,32 @@ result; so does a run without CUDA or without the package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+import types
+from pathlib import Path
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
+from iffnerf_tpu_torch.checkpoint import save_field
 from iffnerf_tpu_torch.device import resolve_device
+from iffnerf_tpu_torch.models.field import (
+    MAT_MODE,
+    VEC_MODE,
+    FieldConfig,
+    compute_densityfeature,
+    make_alpha_mask,
+)
+from iffnerf_tpu_torch.models.render import compute_alpha
 from iffnerf_tpu_torch.ops import _build
+from iffnerf_tpu_torch.ops import grid_sample as grid_sample_module
 from iffnerf_tpu_torch.ops.banked_attention import (
     banked_scores_fused,
     banked_scores_plain,
@@ -38,6 +59,8 @@ from iffnerf_tpu_torch.ops.fused_ray_attention import (
     fused_ray_scores_plain,
     scaled_queries,
 )
+from iffnerf_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from iffnerf_tpu_torch.ops.ide import ide_output_dim
 from iffnerf_tpu_torch.ops.topk import exact_topk
 from iffnerf_tpu_torch.pose.id_module import (
     IDConfig,
@@ -46,11 +69,21 @@ from iffnerf_tpu_torch.pose.id_module import (
     ray_bank,
     ray_mlp_inputs,
 )
+from iffnerf_tpu_torch.pose.model_utils import load_model
+from iffnerf_tpu_torch.pose.sampling import (
+    evaluate_viewdirs_color,
+    explore_field,
+    generate_all_possible_rays,
+    iterative_surface_sampling_process,
+    sampling_epoch,
+    samples_points_normals,
+)
 from iffnerf_tpu_torch.pose.solve import (
     estimate_pose_single,
     estimate_pose_single_banked,
     solve_pose_from_topk,
 )
+from iffnerf_tpu_torch.pose.test import test_pose_estimation
 
 SEED = 0
 N_RAYS = 20000 * 27      # 20k surface points x 27 isocell directions
@@ -58,7 +91,8 @@ RAGGED = 1021            # a ray count no tile divides
 K_TOP = 100
 N_WARM, N_TIMED = 2, 10  # estimates per route: warm-up, then timed
 REPS = 10                # timed kernel calls (median)
-N_PROFILE = 3            # profiled estimates per route
+N_PROFILE = 3            # profiled estimates per route, colour chunks
+N_PROFILE_ITERATIONS = 10  # profiled sampler iterations
 # H100 SXM datasheet peaks (dense): bf16 tensor cores, float32 FMA, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -75,6 +109,17 @@ K2_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
 # own rounding flips (under 1e-3)
 PLAIN_ROUTE_RTOL = 3e-3
 PLAIN_ROUTE_OVERLAP = 90
+# the object side at configs/lego.txt's widths (pose/sampling.py defaults)
+GRID = 300
+GEN_POINTS, N_EPOCHS, MAX_RESAMPLING = 20000, 4, 200
+N_ISOCELL = 27
+CHUNK_POINTS = 10240 // N_ISOCELL   # points a colour chunk (379)
+CHUNK_SAMPLES = CHUNK_POINTS * N_ISOCELL * 20   # samples a colour chunk
+N_FRAMES = 4                         # synthetic 800x800 test frames
+# K3's own bench shape (extra/pallas_gather_bench.py:147-152)
+BENCH_ROWS, BENCH_COLS, BENCH_N = 90000, 256, 1 << 21
+N_FEATURE_SAMPLES = 10 ** 6
+WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 def check(ok, what: str) -> None:
@@ -297,11 +342,13 @@ def _drive(estimate, imgs):
 def _reset_counts():
     banked_scores_fused.launches = 0
     fused_ray_scores.launches = 0
+    gather_rows.launches = 0
 
 
 def _counts():
     return {"banked_scores": banked_scores_fused.launches,
-            "fused_ray_scores": fused_ray_scores.launches}
+            "fused_ray_scores": fused_ray_scores.launches,
+            "gather_rows": gather_rows.launches}
 
 
 def _compare_routes(outs, refs, tag, min_overlap=K_TOP, c2w_tol=1e-4):
@@ -419,46 +466,56 @@ def phase_fused_estimate(params, cfg, imgs, mask, rays):
     return counts, statistics.median(ms)
 
 
-def phase_profile(estimates, imgs):
-    """Where an estimate's time goes: torch.profiler over a few estimates
-    of each route -> host ms and kernel ms per image, the device's busy
-    share (kernel time over host time, profiler on) and the kernels that
-    take the most device time."""
+def _profiled(name, run):
+    """torch.profiler over ``run()``, which returns how many units of work
+    (images, iterations, chunks) it did -> host ms and kernel ms a unit,
+    the device's busy share (kernel time over host time, profiler on) and
+    the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        units = run()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / units
+    kernels = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)),
+        key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / units
+    check(dev_ms > 0, f"profile {name}: the profiler saw device time")
+    return {"units": units, "host_ms_per_unit": host_ms,
+            "device_ms_per_unit": dev_ms, "device_busy_share": dev_ms / host_ms,
+            "top_kernels_ms_per_unit": {
+                e.key[:80]: e.self_device_time_total / 1e3 / units
+                for e in kernels[:8]}}
+
+
+def phase_profile(estimates, imgs):
+    """Where an estimate's time goes: a few profiled estimates of each
+    route, after one unprofiled (a unit is an image)."""
     out = {}
     for name, fn in estimates.items():
         fn(imgs[0])
-        torch.cuda.synchronize()
         batch = imgs[1:1 + N_PROFILE]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+
+        def run(fn=fn):
             for img in batch:
                 fn(img)
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3 / len(batch)
-        kernels = sorted(
-            (e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)),
-            key=lambda e: -e.self_device_time_total)
-        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / len(batch)
-        check(dev_ms > 0, f"profile {name}: the profiler saw device time")
-        out[name] = {
-            "host_ms_per_image": host_ms, "device_ms_per_image": dev_ms,
-            "device_busy_share": dev_ms / host_ms,
-            "top_kernels_ms_per_image": {
-                e.key[:80]: e.self_device_time_total / 1e3 / len(batch)
-                for e in kernels[:8]}}
-    emit(phase="profile", images_per_route=N_PROFILE, routes=out)
+            return len(batch)
+
+        out[name] = _profiled(name, run)
+    emit(phase="profile", routes=out)
     return out
 
 
-def phase_times(params, cfgs, img, mask, rays):
+def phase_times(params, cfgs, img, mask, rays, field):
     """Kernel, plain and library times at the main path's shapes."""
-    rows = {}
+    rows = gather_times(field, img.device)
     for cfg in cfgs:
         bank = ray_bank(params, cfg, *rays)
         x = ray_mlp_inputs(cfg, *rays)
@@ -481,6 +538,343 @@ def phase_times(params, cfgs, img, mask, rays):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the object side: K3 and the field
+# ---------------------------------------------------------------------------
+
+
+def _gather_case(r, c, n, g, dev, aligned=True, edges=()):
+    """A random table [r, c] (rows off the 16-byte grid unless ``aligned``)
+    and n int32 indices, the first ones ``edges``."""
+    buf = torch.randn((r * c + 1,), generator=g, device=dev)
+    table = (buf[:-1] if aligned else buf[1:]).view(r, c)
+    idx = torch.randint(0, r, (n,), generator=g, device=dev, dtype=torch.int32)
+    idx[:len(edges)] = torch.tensor(edges, dtype=torch.int32, device=dev)
+    return table, idx
+
+
+def phase_gather_kernel(dev):
+    """K3 against its plain version, exactly: K3's bench shape, the field's
+    shapes in one colour chunk (planes [300^2, 16 | 48], a line [300, 48],
+    the mask [300^3, 1] with 8 corners a sample), a ragged count with row
+    R - 1, rows off the 16-byte grid, and out-of-range indices (NaN rows)."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    plane, line, mask = GRID * GRID, GRID, GRID ** 3
+    cases = {
+        "bench": (BENCH_ROWS, BENCH_COLS, BENCH_N, True, ()),
+        "density_plane": (plane, 16, CHUNK_SAMPLES, True, ()),
+        "app_plane": (plane, 48, CHUNK_SAMPLES, True, ()),
+        "app_line": (line, 48, CHUNK_SAMPLES, True, ()),
+        "mask": (mask, 1, 8 * CHUNK_SAMPLES, True, ()),
+        "ragged": (plane, 48, RAGGED, True, (plane - 1,)),
+        "unaligned": (plane, 48, CHUNK_SAMPLES, False, (plane - 1,)),
+        "edges": (plane, 16, RAGGED, True, (plane, -1, -plane, -plane - 1)),
+    }
+    out, worst = {}, 0.0
+    for name, (r, c, n, aligned, edges) in cases.items():
+        table, idx = _gather_case(r, c, n, g, dev, aligned, edges)
+        got = gather_rows(table, idx)
+        torch.cuda.synchronize()
+        want = gather_rows_plain(table, idx)
+        same_nan = torch.equal(got.isnan(), want.isnan())
+        err = float((torch.nan_to_num(got) - torch.nan_to_num(want)).abs().max())
+        check(same_nan and err == 0.0, f"K3 {name} {r}x{c} N={n}: err {err}")
+        worst = max(worst, err)
+        out[name] = {"rows": r, "cols": c, "n": n, "max_abs_err": err,
+                     "nan_rows": int(got.isnan().any(-1).sum())}
+        del table, idx, got, want
+    torch.cuda.empty_cache()
+    emit(phase="gather_kernel_check", results=out)
+    return worst
+
+
+@contextlib.contextmanager
+def plain_gathers():
+    """The grid samplers with K3's plain version in the kernel's place: the
+    same function, to hold the kernel's route to (a check of this script,
+    not an option of the port)."""
+    saved = grid_sample_module.gather_rows
+    grid_sample_module.gather_rows = gather_rows_plain
+    try:
+        yield
+    finally:
+        grid_sample_module.gather_rows = saved
+
+
+def make_lego_field(dev):
+    """A TensorVMSplit field at configs/lego.txt's widths, drawn from the
+    seed: 300^3 grid, density ranks 16, appearance ranks 48, app_dim 27,
+    Ref shading (feature_c 128, view_pe = fea_pe = 2), AABB +-1.5. The
+    density factors have mean 0.5, so the density feature is about 12 and
+    sigma = softplus(12 - 10) about 2 inside the mask: the colour pass sees
+    opaque surfaces, as on a trained field. The alpha mask is the test
+    fixture's cluster (tests/fixtures.py) scaled to fill the AABB, about 8 %
+    occupied, lego's share. -> (config, numpy params, mask)."""
+    rng = np.random.default_rng(SEED)
+    cfg = FieldConfig(model_name="TensorVMSplit", grid_size=(GRID,) * 3,
+                      density_n_comp=(16, 16, 16), app_n_comp=(48, 48, 48),
+                      app_dim=27, shading_mode="Ref", feature_c=128,
+                      view_pe=2, fea_pe=2)
+
+    def normal(shape, mean, std):
+        return (mean + std * rng.standard_normal(shape, dtype=np.float32))
+
+    def linear(i, o, bias=True):
+        b = 1.0 / math.sqrt(i)
+        layer = {"w": rng.uniform(-b, b, (i, o)).astype(np.float32)}
+        if bias:
+            layer["b"] = rng.uniform(-b, b, (o,)).astype(np.float32)
+        return layer
+
+    params = {}
+    for kind, comps, mean, std in (("density", cfg.density_n_comp, 0.5, 0.1),
+                                   ("app", cfg.app_n_comp, 0.0, 0.1)):
+        params[f"{kind}_plane"] = tuple(
+            normal((GRID, GRID, comps[i]), mean, std) for i in range(3))
+        params[f"{kind}_line"] = tuple(
+            normal((GRID, comps[i]), mean, std) for i in range(3))
+    params["basis_mat"] = linear(sum(cfg.app_n_comp), cfg.app_dim, bias=False)
+    a, fc = cfg.app_dim, cfg.feature_c
+    params["shading"] = {
+        "diffuse": linear(a, 3), "tint": linear(a, 3),
+        "roughness": linear(a, 1), "bottleneck": linear(a, fc),
+        "specular": linear(fc + ide_output_dim(4) + 1, 3),
+        "normal": linear(a, 3)}
+
+    lin = torch.linspace(-1.5, 1.5, GRID, device=dev)
+    z, y, x = torch.meshgrid(lin, lin, lin, indexing="ij")
+    balls = [((0.0, 0.0, 0.0), 0.22)] + [
+        (tuple(0.47 * s * (j == axis) for j in range(3)), 0.125)
+        for axis in range(3) for s in (1, -1)]
+    vol = torch.zeros((GRID,) * 3, dtype=torch.bool, device=dev)
+    for (cx, cy, cz), rad in balls:
+        vol |= ((x - 2.5 * cx) ** 2 + (y - 2.5 * cy) ** 2
+                + (z - 2.5 * cz) ** 2) < (2.85 * rad) ** 2
+    del x, y, z
+    mask = make_alpha_mask(vol.float(), cfg.aabb_np)
+    return cfg, params, mask
+
+
+def _look_at_c2w(campos):
+    """OpenCV-convention c2w of a camera at ``campos`` looking at the
+    origin, z up (tests/fixtures.py's cameras)."""
+    z = campos / np.linalg.norm(campos)
+    x = np.cross([0.0, 0.0, 1.0], z)
+    x /= np.linalg.norm(x)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = x, np.cross(z, x), z, campos
+    return (c2w @ np.diag([1.0, -1.0, -1.0, 1.0])).astype(np.float32)
+
+
+def synthetic_frames(dev):
+    """N_FRAMES 800x800 RGBA frames in device memory (random RGB, the blob
+    mask as alpha) with cameras on a sphere of radius 4 round the object."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rgb = torch.rand((N_FRAMES, 800, 800, 3), generator=g, device=dev)
+    alpha = blob_mask(800, 800, dev).float()[None, ..., None].expand(
+        N_FRAMES, 800, 800, 1)
+    poses = np.stack([_look_at_c2w(4.0 * np.array(
+        [math.cos(t) * math.cos(0.5), math.sin(t) * math.cos(0.5), math.sin(0.5)]))
+        for t in np.linspace(0, 2 * math.pi, N_FRAMES, endpoint=False)])
+    return types.SimpleNamespace(
+        all_rgbs=torch.cat([rgb, alpha], dim=-1), poses=poses,
+        img_wh=(800, 800), K=None)
+
+
+def _sync_s(t0):
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_object(id_params, id_cfg, dev):
+    """The object side at lego's widths through the entry points: the field
+    saved and loaded back with ``load_model``, ``explore_field`` (counts of
+    K3 launches read right after it), a step-by-step rerun for the time of
+    each step, one colour chunk and the sampler's alpha held to the same
+    functions on K3's plain version, the bank, and ``test_pose_estimation``
+    on synthetic frames."""
+    t0 = time.perf_counter()
+    cfg, np_params, mask = make_lego_field(dev)
+    occupancy = float(mask.volume.mean())
+    check(0.06 < occupancy < 0.10, f"mask occupancy {occupancy}")
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    path = WORK_DIR / "lego_field.npz"
+    save_field(str(path), cfg, np_params, mask)
+    del np_params, mask
+    build_s = _sync_s(t0)
+    t0 = time.perf_counter()
+    config, params, mask = load_model(str(path))
+    load_s = _sync_s(t0)
+    path.unlink()
+    check(config == cfg, "field config round-trips")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    ori, dirs, rgb = explore_field(gen, config, params, mask,
+                                   gen_points=GEN_POINTS, n_iteration=N_EPOCHS,
+                                   max_resampling_iterations=MAX_RESAMPLING)
+    explore_s = _sync_s(t0)
+    k3_launches = _counts()["gather_rows"]
+    explore_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = GEN_POINTS * N_ISOCELL
+    for name, a in (("ori", ori), ("dirs", dirs), ("rgb", rgb)):
+        check(a.shape == (n, 3), f"explore_field {name} shape {tuple(a.shape)}")
+        check(bool(torch.isfinite(a).all()), f"explore_field {name} finite")
+    check(k3_launches > 0, "explore_field launched K3")
+    norm_err = float((torch.linalg.norm(dirs, dim=-1) - 1).abs().max())
+    check(norm_err < 1e-4, f"unit directions ({norm_err})")
+    check(float(rgb.min()) >= 0 and float(rgb.max()) <= 1, "rgb in [0, 1]")
+    voxel = float(np.max(config.units))
+    aabb = torch.as_tensor(config.aabb_np, device=dev)
+    pts = ori[::N_ISOCELL]
+    check(bool(((pts >= aabb[0] - voxel) & (pts <= aabb[1] + voxel)).all()),
+          "surface samples inside the AABB")
+    alpha_pts = compute_alpha(config, params, mask, pts, 1.0)
+    uniform = torch.rand((GEN_POINTS, 3), generator=gen, device=dev) * 3 - 1.5
+    alpha_uni = compute_alpha(config, params, mask, uniform, 1.0)
+    check(float(alpha_pts.median()) > float(alpha_uni.median()),
+          "surface samples denser than uniform points")
+
+    # the same steps one by one, for the time of each
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    samples, epochs = iterative_surface_sampling_process(
+        gen, config, params, mask, gen_points=GEN_POINTS, n_iteration=N_EPOCHS,
+        max_resampling_iterations=MAX_RESAMPLING)
+    sampling_s = _sync_s(t0)
+    t0 = time.perf_counter()
+    normals = samples_points_normals(config, params, samples)
+    normals_s = _sync_s(t0)
+    t0 = time.perf_counter()
+    generate_all_possible_rays(config, params, mask, samples, normals)
+    colours_s = _sync_s(t0)
+
+    # one colour chunk and the sampler's alpha, K3 against its plain version
+    c_pts = ori[:CHUNK_POINTS * N_ISOCELL].reshape(CHUNK_POINTS, N_ISOCELL, 3)
+    c_dirs = dirs[:CHUNK_POINTS * N_ISOCELL].reshape(CHUNK_POINTS, N_ISOCELL, 3)
+    proposals = (pts[:, None] + 0.05 * torch.randn(
+        (GEN_POINTS, 5, 3), generator=gen, device=dev)).reshape(-1, 3)
+    got = (evaluate_viewdirs_color(config, params, mask, c_pts, c_dirs),
+           compute_alpha(config, params, mask, proposals, 1.0))
+    with plain_gathers():
+        want = (evaluate_viewdirs_color(config, params, mask, c_pts, c_dirs),
+                compute_alpha(config, params, mask, proposals, 1.0))
+    for name, a, b in zip(("colour chunk", "sampler alpha"), got, want):
+        check(torch.equal(a, b), f"{name}: K3 route bit-equal to plain gathers "
+              f"({float((a - b).abs().max())})")
+    alpha_pos = float((got[1] > 0).float().mean())
+    del got, want, proposals
+
+    # where the object side's time goes: sampler iterations (from the
+    # surface samples, where the loop runs to its cap) and colour chunks
+    rho = float(np.max(config.grid_size) * 0.1
+                * np.max(config.aabb_size / np.asarray(config.grid_size)))
+    object_profile = {
+        "sampler_iteration": _profiled("sampler", lambda: sampling_epoch(
+            gen, config, params, mask, pts, alpha_pts, rho,
+            max_iterations=N_PROFILE_ITERATIONS)[2]),
+        "colour_chunk": _profiled("colours", lambda: len([
+            evaluate_viewdirs_color(config, params, mask, c_pts, c_dirs)
+            for _ in range(N_PROFILE)]))}
+    emit(phase="object_profile", **object_profile)
+
+    t0 = time.perf_counter()
+    ray_bank(id_params, id_cfg, ori, -dirs, rgb)
+    bank_s = _sync_s(t0)
+    frames = synthetic_frames(dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    rows, t_err, a_err, loss, recall = test_pose_estimation(
+        frames, id_params, id_cfg, ori, dirs, rgb, torch.tensor(UP),
+        sequence_id="lego", log_fn=lambda *a: None)
+    pose_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    k1_launches = banked_scores_fused.launches
+    check(len(rows) == N_FRAMES, "a row per frame")
+    check(k1_launches == N_FRAMES + 1, f"K1 once per frame and warm-up: "
+          f"{k1_launches}")
+    for r in rows:
+        _check_pose(torch.tensor(r["pred_c2w"]), f"frame {r['frame_id']}")
+        check(0.0 <= r["recall"] <= 1.0 and math.isfinite(r["scores_loss"]),
+              f"frame {r['frame_id']} recall and loss")
+    frame_ms = [r["total_optimization_time_in_ms"] for r in rows]
+    emit(phase="object", grid=GRID, occupancy=occupancy, n_rays=n,
+         field_build_s=build_s, field_load_s=load_s, explore_field_s=explore_s,
+         gather_rows_launches=k3_launches, sampling_s=sampling_s,
+         sampler_iterations=[it for it, _ in epochs],
+         sampler_left_invalid=[k for _, k in epochs], normals_s=normals_s,
+         colours_s=colours_s, bank_s=bank_s,
+         proposal_alpha_positive_share=alpha_pos,
+         explore_peak_mem_gb=explore_peak_gb, pose_peak_mem_gb=pose_peak_gb,
+         frames=N_FRAMES, banked_scores_launches=k1_launches,
+         frame_ms=frame_ms, frame_ms_median=statistics.median(frame_ms),
+         translation_error=t_err, angular_error=a_err, scores_loss=loss,
+         recall=recall)
+    return k3_launches, (config, params)
+
+
+def gather_bound(table, idx):
+    """Bytes: each table row the indices touch read once, the indices, the
+    output written once."""
+    c = table.shape[1]
+    rows = torch.unique(idx).numel()
+    return bound(rows * c * 4 + idx.numel() * 4 + idx.numel() * c * 4, 0.0,
+                 torch.float32)
+
+
+def library_density(planes_lines, coords):
+    """compute_densityfeature from F.grid_sample (a timing yardstick; the
+    port never calls it): planes [1, R, H, W], lines [1, R, L, 1]."""
+    sigma = 0.0
+    zero = torch.zeros_like(coords[:, 0])
+    for i, (plane, line) in enumerate(planes_lines):
+        m0, m1 = MAT_MODE[i]
+        pc = torch.stack([coords[:, m0], coords[:, m1]], -1)[None, :, None]
+        lc = torch.stack([zero, coords[:, VEC_MODE[i]]], -1)[None, :, None]
+        pf = F.grid_sample(plane, pc, align_corners=True)[0, :, :, 0]
+        lf = F.grid_sample(line, lc, align_corners=True)[0, :, :, 0]
+        sigma = sigma + (pf * lf).sum(0)
+    return sigma
+
+
+def gather_times(field, dev):
+    """K3, its plain version and ``torch.index_select`` (the one PyTorch
+    call of the same function, timed only) at K3's bench shape and at the
+    colour pass's app-plane shape; beside them compute_densityfeature at
+    10^6 samples through K3 and through an F.grid_sample composition."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows = {}
+    for name, (r, c, n) in (("bench", (BENCH_ROWS, BENCH_COLS, BENCH_N)),
+                            ("app_plane", (GRID * GRID, 48, CHUNK_SAMPLES))):
+        table, idx = _gather_case(r, c, n, g, dev)
+        b_ms, b_by = gather_bound(table, idx)
+        rows[f"gather_rows/{name}"] = {
+            "rows": r, "cols": c, "n": n,
+            "ms": time_ms(lambda: gather_rows(table, idx)),
+            "plain_ms": time_ms(lambda: gather_rows_plain(table, idx)),
+            "library_ms": time_ms(lambda: torch.index_select(table, 0, idx)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del table, idx
+    config, params = field
+    coords = torch.rand((N_FEATURE_SAMPLES, 3), generator=g, device=dev) * 2 - 1
+    planes_lines = [
+        (params["density_plane"][i].permute(2, 0, 1)[None].contiguous(),
+         params["density_line"][i].T[None, :, :, None].contiguous())
+        for i in range(3)]
+    ours = compute_densityfeature(config, params, coords)
+    lib = library_density(planes_lines, coords)
+    diff = float((ours - lib).abs().max() / lib.abs().max())
+    check(diff < 1e-5, f"F.grid_sample yardstick computes the same ({diff})")
+    rows["compute_densityfeature"] = {
+        "n": N_FEATURE_SAMPLES,
+        "ms": time_ms(lambda: compute_densityfeature(config, params, coords)),
+        "library_ms": time_ms(lambda: library_density(planes_lines, coords)),
+        "max_rel_diff": diff}
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -498,10 +892,13 @@ def main() -> int:
 
     k1_errs = phase_banked_kernel(params, (cfg32, cfg16), img0, mask, rays)
     k2_errs = phase_fused_kernel(params, (cfg32, cfg16), img0, mask, rays)
+    k3_err = phase_gather_kernel(dev)
     k1_counts, banked_ms = phase_banked_estimate(params, cfg16, imgs, mask, rays)
     k2_counts, fused_ms = phase_fused_estimate(params, cfg16, imgs, mask, rays)
     phase_fused_estimate(params, cfg32, imgs[:N_WARM + 3], mask, rays)
-    rows = phase_times(params, (cfg16, cfg32), img0, mask, rays)
+    k3_launches, field = phase_object(params, cfg16, dev)
+    rows = phase_times(params, (cfg16, cfg32), img0, mask, rays, field)
+    del field
     bank = ray_bank(params, cfg16, ro, rd, rr)
     fused16 = IDConfig(compute_dtype="bfloat16", fused_scoring=True)
     phase_profile({
@@ -527,6 +924,11 @@ def main() -> int:
              launches_per_estimate=k2_counts["fused_ray_scores"] / n_est,
              max_abs_err=k2_errs[f"bfloat16/{N_RAYS}"]["max_abs_err"],
              **rows["fused_ray_scores/bfloat16"]),
+        dict(name="gather_rows", route="cuda",
+             source="iffnerf_tpu_torch/csrc/gather_rows.cu",
+             replaces="extra/pallas_gather_bench.py:46",
+             launches=k3_launches, max_abs_err=k3_err,
+             **rows["gather_rows/app_plane"]),
     ]
     emit(phase="latency", banked_ms_per_image=banked_ms,
          fused_ms_per_image=fused_ms)

@@ -1,0 +1,5 @@
+"""Dataset loaders of the port: host numpy, as in the JAX package."""
+
+from iffnerf_tpu_torch.data.blender import load_blender
+
+dataset_dict = {"blender": load_blender}

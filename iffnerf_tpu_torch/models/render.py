@@ -1,0 +1,155 @@
+"""Volume-rendering forward pass, dense inference
+(reference models/tensorBase.py:494-536, :623-638, :698-917).
+
+As in the JAX package, the reference's boolean-mask gathers become masked
+dense compute: every sample's density and appearance is evaluated and
+invalid ones are zeroed. Only the AABB and point-colour samplers are
+ported; NDC and infinity sampling, and training-time jitter, come with the
+training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from iffnerf_tpu_torch.models.field import (
+    AlphaMask,
+    FieldConfig,
+    compute_appfeature,
+    compute_densityfeature,
+    feature2density,
+    normalize_coord,
+    sample_alpha,
+)
+from iffnerf_tpu_torch.models.shading import apply_shading
+from iffnerf_tpu_torch.ops.ray_march import raw2alpha
+
+
+def _aabb(config: FieldConfig, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(config.aabb_np, device=like.device)
+
+
+def _aabb_t_range(aabb, rays_o, rays_d):
+    """Entry/exit t of each ray w.r.t. the AABB (slab test)."""
+    vec = torch.where(rays_d == 0, 1e-6, rays_d)
+    rate_a = (aabb[1] - rays_o) / vec
+    rate_b = (aabb[0] - rays_o) / vec
+    t_min = torch.amax(torch.minimum(rate_a, rate_b), dim=-1)
+    t_max = torch.amin(torch.maximum(rate_a, rate_b), dim=-1)
+    return t_min, t_max
+
+
+def _in_aabb(aabb, xyz):
+    return ~torch.any((aabb[0] > xyz) | (xyz > aabb[1]), dim=-1)
+
+
+def sample_ray(config: FieldConfig, rays_o, rays_d, n_samples: int = -1):
+    """Equidistant samples from the AABB entry point, without training
+    jitter (reference sample_ray, tensorBase.py:494-536).
+
+    Returns (xyz [N, S, 3], z_vals [N, S], valid [N, S])."""
+    if config.contraction_type == "unisphere":
+        raise NotImplementedError("unisphere sampling is not ported")
+    n = n_samples if n_samples > 0 else config.n_samples
+    near, far = config.near_far
+    aabb = _aabb(config, rays_o)
+    t_min, _ = _aabb_t_range(aabb, rays_o, rays_d)
+    t_min = torch.clamp(t_min, near, far)
+    rng = torch.arange(n, dtype=rays_o.dtype, device=rays_o.device)[None, :]
+    z_vals = t_min[:, None] + config.step_size * rng
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    return xyz, z_vals, _in_aabb(aabb, xyz)
+
+
+def sample_point_color_fn(config: FieldConfig, rays_o, rays_d,
+                          n_samples: int = 20):
+    """Samples centred on the ray origin (a surface point): +-N/2 steps
+    (reference sample_point_color, tensorBase.py:623-638)."""
+    before = n_samples // 2
+    after = n_samples - before
+    aabb = _aabb(config, rays_o)
+    rng = torch.arange(-before, after, dtype=rays_o.dtype,
+                       device=rays_o.device)[None, :]
+    step = config.step_size * rng
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * step[..., None]
+    return xyz, step, _in_aabb(aabb, xyz)
+
+
+def compute_alpha(config: FieldConfig, params, mask: AlphaMask | None,
+                  xyz: torch.Tensor, length) -> torch.Tensor:
+    """Opacity of points xyz [..., 3] over a step ``length``
+    (reference compute_alpha, tensorBase.py:756-773)."""
+    sigma = feature2density(
+        config, compute_densityfeature(config, params,
+                                       normalize_coord(config, xyz)))
+    if mask is not None:
+        sigma = torch.where(sample_alpha(mask, xyz) > 0, sigma, 0.0)
+    return 1.0 - torch.exp(-sigma * length)
+
+
+def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
+                rays_chunk: torch.Tensor, *, white_bg: bool = False,
+                bg_color=None, sample_mode: str = "aabb",
+                n_samples: int = -1):
+    """Volumetric forward at inference (reference TensorBase.forward,
+    tensorBase.py:775-917):
+
+      * appearance features are accumulated along the ray first and the
+        shading head runs once per ray on the accumulated feature;
+      * appearance only where ``weight > rayMarch_weight_thres``;
+      * depth = sum(w*z) + (1-acc) * rays_chunk[..., -1];
+      * rgb composited as rgb*acc + bg*(1-acc), clipped.
+
+    ``sample_mode`` is "aabb" or "point_color"; rays_chunk is [N, 6|7]
+    (ori, dir, optional mip radius). Returns (rgb [N,3], depth [N],
+    acc [N], alpha [N,S], z_vals [N,S], dists [N,S])."""
+    rays_o = rays_chunk[:, :3]
+    viewdirs = rays_chunk[:, 3:6]
+    if sample_mode == "point_color":
+        xyz, z_vals, ray_valid = sample_point_color_fn(
+            config, rays_o, viewdirs,
+            n_samples=n_samples if n_samples > 0 else 20)
+    elif sample_mode == "aabb":
+        xyz, z_vals, ray_valid = sample_ray(config, rays_o, viewdirs,
+                                            n_samples=n_samples)
+    else:
+        raise NotImplementedError(f"sample_mode {sample_mode!r} is not ported")
+
+    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                       torch.zeros_like(z_vals[:, :1])], dim=-1)
+    if mask is not None:
+        ray_valid = ray_valid & (sample_alpha(mask, xyz) > 0)
+
+    coords = normalize_coord(config, xyz)
+    sigma_feature = compute_densityfeature(config, params, coords)
+    app_features = compute_appfeature(config, params, coords)
+    sigma = torch.where(ray_valid, feature2density(config, sigma_feature), 0.0)
+    alpha, weight, _ = raw2alpha(sigma, dists * config.distance_scale)
+
+    app_mask = weight > config.ray_march_weight_thres
+    app_features = torch.where(app_mask[..., None], app_features, 0.0)
+    acc_map = torch.sum(weight, dim=-1)
+    cum_app_features = torch.sum(weight[..., None] * app_features, dim=-2)
+    rays_to_consider = torch.any(app_mask, dim=-1)
+
+    rgb, _ = apply_shading(
+        params["shading"], config.shading_mode, None, viewdirs,
+        cum_app_features, view_pe=config.view_pe, pos_pe=config.pos_pe,
+        fea_pe=config.fea_pe)
+    rgb_map = torch.where(rays_to_consider[..., None], rgb, 0.0)
+    if bg_color is None:
+        bg_color = 1.0 if white_bg else 0.0
+    rgb_map = rgb_map * acc_map[..., None] + bg_color * (1.0 - acc_map[..., None])
+    rgb_map = torch.clamp(rgb_map, 0.0, 1.0)
+
+    depth_map = (torch.sum(weight * z_vals, dim=-1)
+                 + (1.0 - acc_map) * rays_chunk[..., -1])
+    return rgb_map, depth_map, acc_map, alpha, z_vals, dists
+
+
+def filtering_rays_bbox(config: FieldConfig, rays: torch.Tensor) -> torch.Tensor:
+    """Per-ray AABB hit mask (reference filtering_rays bbox_only branch,
+    tensorBase.py:718-728)."""
+    aabb = _aabb(config, rays)
+    t_min, t_max = _aabb_t_range(aabb, rays[..., :3], rays[..., 3:6])
+    return t_max > t_min

@@ -1,4 +1,5 @@
-"""Single-image pose estimation against a per-object ray bank."""
+"""Pose pipeline: the object side (surface sampling, isocell rays) and the
+single-image estimate against a per-object ray bank."""
 
 from iffnerf_tpu_torch.pose.geometry import (
     compute_angular_error,
@@ -15,9 +16,17 @@ from iffnerf_tpu_torch.pose.id_module import (
     run_attention,
     test_image,
 )
+from iffnerf_tpu_torch.pose.isocell import isocell_distribution, rotate_isocell
+from iffnerf_tpu_torch.pose.sampling import (
+    explore_field,
+    generate_all_possible_rays,
+    iterative_surface_sampling_process,
+    samples_points_normals,
+)
 from iffnerf_tpu_torch.pose.solve import (
     estimate_pose_single,
     estimate_pose_single_banked,
     solve_pose_from_topk,
 )
+from iffnerf_tpu_torch.pose.test import test_pose_estimation
 from iffnerf_tpu_torch.pose.vit import ViTConfig

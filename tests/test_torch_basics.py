@@ -177,19 +177,39 @@ def test_port_imports_no_jax():
         import sys
         import iffnerf_tpu_torch
         import iffnerf_tpu_torch.checkpoint
+        import iffnerf_tpu_torch.data
+        import iffnerf_tpu_torch.data.base
+        import iffnerf_tpu_torch.data.blender
+        import iffnerf_tpu_torch.data.rays_np
         import iffnerf_tpu_torch.device
+        import iffnerf_tpu_torch.models
+        import iffnerf_tpu_torch.models.field
+        import iffnerf_tpu_torch.models.render
+        import iffnerf_tpu_torch.models.shading
         import iffnerf_tpu_torch.nn
         import iffnerf_tpu_torch.ops
         import iffnerf_tpu_torch.ops._build
         import iffnerf_tpu_torch.ops.banked_attention
         import iffnerf_tpu_torch.ops.encoding
         import iffnerf_tpu_torch.ops.fused_ray_attention
+        import iffnerf_tpu_torch.ops.gather
+        import iffnerf_tpu_torch.ops.grid_sample
+        import iffnerf_tpu_torch.ops.ide
+        import iffnerf_tpu_torch.ops.image
+        import iffnerf_tpu_torch.ops.ray_march
+        import iffnerf_tpu_torch.ops.sh
         import iffnerf_tpu_torch.ops.topk
         import iffnerf_tpu_torch.pose
+        import iffnerf_tpu_torch.pose.eval_utils
         import iffnerf_tpu_torch.pose.geometry
         import iffnerf_tpu_torch.pose.id_module
+        import iffnerf_tpu_torch.pose.isocell
+        import iffnerf_tpu_torch.pose.model_utils
+        import iffnerf_tpu_torch.pose.sampling
         import iffnerf_tpu_torch.pose.solve
+        import iffnerf_tpu_torch.pose.test
         import iffnerf_tpu_torch.pose.vit
+        import iffnerf_tpu_torch.pose_cli
         import chip_smoke
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")

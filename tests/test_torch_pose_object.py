@@ -1,0 +1,328 @@
+"""Port parity for the object side of pose: isocell directions, the surface
+sampler (one epoch with the JAX package's own draws handed to the port),
+normals, ray colours, ``explore_field``, the per-frame evaluation
+``test_pose_estimation``, the Blender loader and the pose CLI. The field
+is made by the JAX package and reaches the port through ``load_field``."""
+
+import json
+import os
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from iffnerf_tpu.checkpoint import save_field, save_pytree
+from iffnerf_tpu.data.blender import load_blender as jload_blender
+from iffnerf_tpu.models import render as jrender
+from iffnerf_tpu.models.field import make_alpha_mask as jmake_alpha_mask
+from iffnerf_tpu.pose import isocell as jiso
+from iffnerf_tpu.pose import sampling as jsamp
+from iffnerf_tpu.pose.test import test_pose_estimation as jtest_pose_estimation
+from iffnerf_tpu_torch import pose_cli
+from iffnerf_tpu_torch.data.blender import load_blender as tload_blender
+from iffnerf_tpu_torch.models import field as tfield
+from iffnerf_tpu_torch.models import render as trender
+from iffnerf_tpu_torch.pose import isocell as tiso
+from iffnerf_tpu_torch.pose import sampling as tsamp
+from iffnerf_tpu_torch.pose.test import test_pose_estimation as ttest_pose_estimation
+
+from fixtures import make_blender_fixture
+from torch_parity import configs, field, near_mask_points, params, t, unit
+
+ROW_KEYS = {"sequence_id", "category_name", "frame_id", "loss", "scores_loss",
+            "recall", "total_optimization_time_in_ms", "pred_c2w", "gt_c2w"}
+
+
+@pytest.fixture(scope="module")
+def vm(tmp_path_factory):
+    return field(tmp_path_factory.mktemp("vm"), seed=5)
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("scene") / "lego")
+    return make_blender_fixture(root, n_train=2, n_test=2, wh=40, n_steps=64)
+
+
+@pytest.fixture(scope="module")
+def jax_rays(vm):
+    """One candidate-ray set, made by the JAX package's explore_field."""
+    (jcfg, jp, jmask), _ = vm
+    rays = jsamp.explore_field(jax.random.PRNGKey(1), jcfg, jp, jmask,
+                               gen_points=64, n_iteration=1,
+                               max_resampling_iterations=10)
+    return tuple(np.asarray(a) for a in rays)
+
+
+# ---------------------------------------------------------------------------
+# isocell
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("isrand", [-1, 0, 1, 2, 3, 4])
+def test_isocell_distribution_is_bit_equal(isrand):
+    want = jiso.isocell_distribution(27, N0=3, isrand=isrand,
+                                     rng=np.random.default_rng(3))
+    got = tiso.isocell_distribution(27, N0=3, isrand=isrand,
+                                    rng=np.random.default_rng(3))
+    assert got.shape == (27, 3) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_rotate_isocell_matches():
+    """Random normals plus the poles: +z (the antiparallel guard) and -z."""
+    dirs = jiso.isocell_distribution(27, N0=3, isrand=-1)
+    rng = np.random.default_rng(4)
+    normals = np.concatenate([rng.standard_normal((61, 3)),
+                              [[0, 0, 1], [0, 0, -1], [1e-7, 0, 1]]])
+    normals = unit(normals)
+    want = np.asarray(jiso.rotate_isocell(jnp.asarray(dirs), jnp.asarray(normals)))
+    got = tiso.rotate_isocell(t(dirs), t(normals)).numpy()
+    assert got.shape == (64, 27, 3) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the sampler, with the JAX package's draws
+# ---------------------------------------------------------------------------
+
+
+def test_sampling_epoch_step_matches_with_jax_draws(vm):
+    """JAX _sampling_epoch at max_iterations=1 against the port's one step,
+    fed the draws the JAX loop body makes from the same key."""
+    (jcfg, jp, jmask), (tcfg, tp, tmask) = vm
+    n = 300
+    samples = near_mask_points(jmask.volume, jcfg.aabb_np, n, 6, spread=0.2)
+    alpha = jrender.compute_alpha(jcfg, jp, jmask, jnp.asarray(samples), 1.0)
+    rho = jnp.float32(0.3)
+    key = jax.random.PRNGKey(7)
+    s_j, a_j, it, n_invalid = jsamp._sampling_epoch(
+        jcfg, jp, jmask, True, jnp.asarray(samples), alpha, rho, key,
+        max_iterations=1)
+    assert int(it) == 1
+
+    # the loop body's draws (sampling.py:111-121)
+    _, jit_key, sel_key = jax.random.split(key, 3)
+    jitter = jsamp._sphere_jitter(jit_key, (n, 5), rho)
+    u = jax.random.uniform(sel_key, (n, 5))
+
+    alpha_t = t(alpha)
+    thresh = torch.quantile(alpha_t, 0.6)
+    np.testing.assert_allclose(float(thresh), float(jnp.quantile(alpha, 0.6)),
+                               rtol=1e-6)
+    s_t, a_t, invalid_t = tsamp.sampling_step(
+        tcfg, tp, tmask, t(samples), alpha_t,
+        torch.ones(n, dtype=torch.bool), thresh, t(jitter), t(u))
+
+    accepted_j = np.any(np.asarray(s_j) != samples, axis=-1)
+    np.testing.assert_array_equal(~invalid_t.numpy(), accepted_j)
+    assert int(n_invalid) == int(invalid_t.sum())
+    assert 0 < accepted_j.sum() < n
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), atol=1e-6, rtol=0)
+
+
+def test_sphere_jitter_statistics():
+    """The port's own draws: |N(0, rho)| radii along uniform directions."""
+    gen = torch.Generator().manual_seed(0)
+    j = tsamp.sphere_jitter(gen, (20000, 5), 0.3, torch.device("cpu")).numpy()
+    r = np.linalg.norm(j, axis=-1)
+    # E|N(0, rho)| = rho * sqrt(2 / pi); a uniform direction averages to 0
+    assert abs(r.mean() - 0.3 * np.sqrt(2 / np.pi)) < 0.005
+    assert np.abs((j / r[..., None]).mean(axis=(0, 1))).max() < 0.01
+
+
+@pytest.mark.parametrize("empty", [False, True])
+def test_occupancy_samples_match_with_jax_draws(vm, empty):
+    """generate_samples_from_occupancy_grid against the port's inverse-CDF
+    step fed the same randint and jitter draws; an all-empty mask clamps
+    every pick to the last voxel (tests/test_pose_pipeline.py)."""
+    (jcfg, _, jmask), (_, _, tmask) = vm
+    if empty:
+        aabb = np.array([[-1.5, -1.5, -1.5], [1.5, 1.5, 1.5]], np.float32)
+        jmask = jmake_alpha_mask(jnp.zeros((8, 9, 10)), aabb)
+        tmask = tfield.make_alpha_mask(torch.zeros((8, 9, 10)), aabb)
+    n = 257
+    key = jax.random.PRNGKey(8)
+    want = np.asarray(jsamp.generate_samples_from_occupancy_grid(key, jmask, n))
+    k1, k2 = jax.random.split(key)
+    total = max(int((np.asarray(jmask.volume) > 0).sum()), 1)
+    u = jax.random.randint(k1, (n,), 0, total)
+    jitter = jax.random.uniform(k2, (n, 3))
+    got = tsamp.samples_from_occupancy(tmask, t(u), t(jitter)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    if empty:
+        voxel = 3.0 / (np.array([10, 9, 8]) - 1.0)
+        assert np.all(got >= 1.5 - 1e-5) and np.all(got <= 1.5 + voxel + 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# normals, ray colours, explore_field
+# ---------------------------------------------------------------------------
+
+
+def test_normals_and_ray_colours_match(vm):
+    """samples_points_normals, evaluate_viewdirs_color and
+    generate_all_possible_rays (ragged colour chunks) on the same points."""
+    (jcfg, jp, jmask), (tcfg, tp, tmask) = vm
+    pts = near_mask_points(jmask.volume, jcfg.aabb_np, 64, 9, spread=0.05)
+    want_n = np.asarray(jsamp.samples_points_normals(jcfg, jp, jnp.asarray(pts)))
+    got_n = tsamp.samples_points_normals(tcfg, tp, t(pts)).numpy()
+    np.testing.assert_allclose(got_n, want_n, atol=1e-5, rtol=1e-5)
+
+    dirs = unit(np.random.default_rng(10).standard_normal((64, 27, 3)))
+    pts_b = np.broadcast_to(pts[:, None], dirs.shape).copy()
+    want_c = np.asarray(jsamp.evaluate_viewdirs_color(
+        jcfg, jp, jmask, jnp.asarray(pts_b), jnp.asarray(dirs)))
+    got_c = tsamp.evaluate_viewdirs_color(tcfg, tp, tmask, t(pts_b),
+                                          t(dirs)).numpy()
+    # exp and cumprod along the ray in another order (test_torch_field.py)
+    np.testing.assert_allclose(got_c, want_c, atol=1e-5, rtol=1e-5)
+    assert np.ptp(got_c) > 0.01, "the rays must see the field"
+
+    chunk = 27 * 10  # 10 points a chunk: 7 chunks, the last ragged
+    want = jsamp.generate_all_possible_rays(
+        jcfg, jp, jmask, jnp.asarray(pts), jnp.asarray(want_n),
+        num_viewdirs_per_chunk=chunk)
+    got = tsamp.generate_all_possible_rays(
+        tcfg, tp, tmask, t(pts), t(want_n), num_viewdirs_per_chunk=chunk)
+    for name, g, w in zip(("ori", "dirs", "rgb"), got, want):
+        assert g.shape == (64 * 27, 3), name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+def test_explore_field_statistics(vm):
+    """The port's own draws: 64 points x 27 isocell directions, unit
+    directions, colours in [0, 1], samples in the AABB (up to the in-voxel
+    jitter's one voxel) and denser than uniform points."""
+    (jcfg, _, _), (tcfg, tp, tmask) = vm
+    gen = torch.Generator().manual_seed(0)
+    ori, dirs, rgb = tsamp.explore_field(
+        gen, tcfg, tp, tmask, gen_points=64, n_iteration=1,
+        max_resampling_iterations=10, device="cpu")
+    for a in (ori, dirs, rgb):
+        assert a.shape == (64 * 27, 3) and torch.isfinite(a).all()
+    np.testing.assert_allclose(torch.linalg.norm(dirs, dim=-1).numpy(), 1.0,
+                               atol=1e-4)
+    assert rgb.min() >= 0.0 and rgb.max() <= 1.0
+    voxel = float(np.max(tcfg.units))
+    aabb = tcfg.aabb_np
+    pts = ori[::27]
+    assert torch.equal(ori.reshape(64, 27, 3), pts[:, None].expand(64, 27, 3))
+    assert (pts.numpy() >= aabb[0] - voxel).all()
+    assert (pts.numpy() <= aabb[1] + voxel).all()
+    uniform = tsamp.generate_uniform_samples(torch.Generator().manual_seed(1),
+                                             tcfg, 2000, torch.device("cpu"))
+    a_s = trender.compute_alpha(tcfg, tp, tmask, pts, 1.0)
+    a_u = trender.compute_alpha(tcfg, tp, tmask, uniform, 1.0)
+    assert a_s.median() > a_u.median()
+
+    samples, epochs = tsamp.iterative_surface_sampling_process(
+        torch.Generator().manual_seed(2), tcfg, tp, tmask, gen_points=32,
+        n_iteration=2, max_resampling_iterations=10, device="cpu")
+    assert samples.shape == (32, 3) and len(epochs) == 2
+    for it, n_invalid in epochs:
+        assert 1 <= it <= 10 and 0 <= n_invalid <= 32
+        assert it == 10 or n_invalid == 0
+
+
+# ---------------------------------------------------------------------------
+# the evaluation harness, the loader and the CLI
+# ---------------------------------------------------------------------------
+
+
+def test_blender_loader_matches(scene):
+    for split in ("train", "test"):
+        want = jload_blender(scene, split=split, is_stack=True)
+        got = tload_blender(scene, split=split, is_stack=True)
+        for name in ("all_rays", "all_rgbs", "poses", "K", "scene_bbox",
+                     "directions"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(want, name), err_msg=name)
+        assert (got.img_wh, got.near_far, got.white_bg) == (
+            want.img_wh, want.near_far, want.white_bg)
+
+
+def test_pose_estimation_harness_matches(scene, jax_rays, tmp_path):
+    """test_pose_estimation on 2 frames, float32, depth-1 ViT, the same
+    rays: poses to 1e-4, equal recall, score loss to 1e-4, the same row
+    keys and the same debug-dump fields."""
+    jcfg, tcfg = configs(depth=1)
+    jp, tp = params(12, jcfg)
+    ds_j = jload_blender(scene, split="test", is_stack=True)
+    ds_t = tload_blender(scene, split="test", is_stack=True)
+    up = np.asarray(ds_j.poses)[:, :3, 1].mean(axis=0)
+    quiet = dict(log_fn=lambda *a: None, save=True, save_all=True)
+    want, *want_avg = jtest_pose_estimation(
+        ds_j, jp, jcfg, *(jnp.asarray(a) for a in jax_rays), jnp.asarray(up),
+        sequence_id="lego", save_dir=str(tmp_path / "jax"), **quiet)
+    got, *got_avg = ttest_pose_estimation(
+        ds_t, tp, tcfg, *jax_rays, up, sequence_id="lego",
+        save_dir=str(tmp_path / "port"), device="cpu", **quiet)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert set(g) == set(w) == ROW_KEYS
+        assert g["recall"] == w["recall"]
+        np.testing.assert_allclose(g["scores_loss"], w["scores_loss"], rtol=1e-4)
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4)
+        np.testing.assert_allclose(g["pred_c2w"], w["pred_c2w"], atol=1e-4,
+                                   rtol=1e-4)
+        np.testing.assert_array_equal(g["gt_c2w"], w["gt_c2w"])
+        assert (g["frame_id"], g["sequence_id"], g["category_name"]) == (
+            w["frame_id"], w["sequence_id"], w["category_name"])
+        assert g["total_optimization_time_in_ms"] > 0
+    np.testing.assert_allclose(got_avg, want_avg, rtol=1e-4, atol=1e-6)
+    for i in range(2):
+        with np.load(tmp_path / "jax" / f"sample_results_{i}.npz") as dj, \
+                np.load(tmp_path / "port" / f"sample_results_{i}.npz") as dt:
+            assert sorted(dt.files) == sorted(dj.files)
+            np.testing.assert_allclose(dt["pred_c2w_matrix"],
+                                       dj["pred_c2w_matrix"], atol=1e-4)
+            np.testing.assert_array_equal(np.sort(dt["topk_unique_ray_idx"]),
+                                          np.sort(dj["topk_unique_ray_idx"]))
+
+
+def test_pose_estimation_refuses_what_is_not_ported(scene):
+    _, tcfg = configs(depth=1)
+    ds = tload_blender(scene, split="test", is_stack=True)
+    rays = [np.zeros((4, 3), np.float32)] * 3
+    with pytest.raises(NotImplementedError, match="sharded"):
+        ttest_pose_estimation(ds, {}, tcfg, *rays, np.ones(3), mesh=object(),
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="iNeRF"):
+        ttest_pose_estimation(ds, {}, tcfg, *rays, np.ones(3),
+                              inerf_refinement=True, device="cpu")
+
+
+def test_pose_cli_on_the_fixture(scene, vm, tmp_path):
+    """The pose CLI over one tensorf_<obj>_VM run with a field checkpoint
+    and an id_module.npz written by the JAX package; without the
+    id_module.npz it raises."""
+    jcfg, _ = configs(depth=1)
+    jp, _ = params(13, jcfg)
+    run = tmp_path / "log" / "tensorf_lego_VM"
+    run.mkdir(parents=True)
+    save_field(str(run / "tensorf_lego_VM.npz"), *vm[0])
+    argv = ["--datadir", os.path.dirname(scene), "--exp_patch",
+            str(tmp_path / "log"), "--out_path", str(tmp_path / "out.json"),
+            "--gen_points", "32", "--id_backbone_depth", "1",
+            "--device", "cpu"]
+    with pytest.raises(FileNotFoundError, match="id_module.npz"):
+        pose_cli.main(argv)
+    save_pytree(str(run / "id_module.npz"),
+                jax.tree_util.tree_map(np.asarray, jp), {"epoch": 1})
+    pose_cli.main(argv + ["--save_debug", "1"])
+    with open(tmp_path / "out.json") as fh:
+        rows = json.load(fh)
+    assert len(rows) == 2
+    for i, row in enumerate(rows):
+        assert set(row) == ROW_KEYS
+        assert (row["sequence_id"], row["frame_id"]) == ("lego", i)
+        assert np.isfinite(row["pred_c2w"]).all()
+        assert np.asarray(row["pred_c2w"]).shape == (4, 4)
+        assert 0.0 <= row["recall"] <= 1.0
+    assert (tmp_path / "sample_results_0.npz").exists()
+    assert not (tmp_path / "sample_results_1.npz").exists()

@@ -71,3 +71,44 @@ def f32(a):
 
 
 replace = dataclasses.replace
+
+
+def field(tmp_path, model_name="TensorVMSplit", seed=0, **kw):
+    """A small field made by the JAX package (``init_field`` at 20^3, Ref
+    shading, PE 2, a 30 % occupied alpha mask over a numpy-seeded
+    [16, 18, 20] volume), written with its ``save_field`` and read back by
+    the port's ``load_field``: -> ((config, params, mask) of JAX,
+    (config, params, mask) of the port). ``density_shift`` -1 keeps the
+    alphas of random weights well away from 0 and 1."""
+    from iffnerf_tpu.checkpoint import save_field
+    from iffnerf_tpu.models.field import FieldConfig, init_field, make_alpha_mask
+    from iffnerf_tpu_torch.checkpoint import load_field
+
+    vm = model_name == "TensorVMSplit"
+    cfg = FieldConfig(
+        model_name=model_name, grid_size=(20, 20, 20),
+        density_n_comp=(4, 4, 4) if vm else (8, 8, 8), app_n_comp=(8, 8, 8),
+        app_dim=27, shading_mode="Ref", view_pe=2, fea_pe=2, pos_pe=2,
+        density_shift=-1.0, **kw)
+    params = init_field(jax.random.PRNGKey(seed), cfg)
+    vol = (np.random.default_rng(seed).random((16, 18, 20)) < 0.3)
+    mask = make_alpha_mask(jax.numpy.asarray(vol, np.float32), cfg.aabb_np)
+    path = str(tmp_path / f"field_{model_name}_{seed}.npz")
+    save_field(path, cfg, params, mask)
+    return (cfg, params, mask), load_field(path, device="cpu")
+
+
+def near_mask_points(mask_volume, aabb, n, seed, spread=0.05):
+    """[n, 3] float32 world points around occupied voxel centres of a
+    [D, H, W] volume over ``aabb``, jittered by ``spread``."""
+    rng = np.random.default_rng(seed)
+    zyx = np.argwhere(np.asarray(mask_volume) > 0)
+    pick = zyx[rng.integers(0, len(zyx), n)][:, ::-1].astype(np.float64)
+    shape = np.asarray(mask_volume.shape[::-1], np.float64)
+    aabb = np.asarray(aabb, np.float64)
+    pts = aabb[0] + pick / (shape - 1) * (aabb[1] - aabb[0])
+    return (pts + rng.normal(0, spread, pts.shape)).astype(np.float32)
+
+
+def unit(x):
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
