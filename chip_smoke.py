@@ -25,6 +25,7 @@ result; so does a run without CUDA or without the package beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -41,18 +42,25 @@ import torch.nn.functional as F
 from iffnerf_tpu_torch.checkpoint import save_field
 from iffnerf_tpu_torch.device import resolve_device
 from iffnerf_tpu_torch.models.field import (
-    MAT_MODE,
-    VEC_MODE,
     FieldConfig,
-    compute_densityfeature,
     make_alpha_mask,
+    normalize_coord,
+    sample_alpha,
 )
-from iffnerf_tpu_torch.models.render import compute_alpha
+from iffnerf_tpu_torch.models.render import compute_alpha, sample_point_color_fn
 from iffnerf_tpu_torch.ops import _build
+from iffnerf_tpu_torch.ops import field_features as field_features_module
 from iffnerf_tpu_torch.ops import grid_sample as grid_sample_module
 from iffnerf_tpu_torch.ops.banked_attention import (
     banked_scores_fused,
     banked_scores_plain,
+)
+from iffnerf_tpu_torch.ops.field_features import (
+    MAT_MODE,
+    VEC_MODE,
+    field_features,
+    field_features_plain,
+    kernel_layout,
 )
 from iffnerf_tpu_torch.ops.fused_ray_attention import (
     fused_ray_scores,
@@ -60,6 +68,7 @@ from iffnerf_tpu_torch.ops.fused_ray_attention import (
     scaled_queries,
 )
 from iffnerf_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from iffnerf_tpu_torch.ops.grid_sample import corners_1d, corners_2d, corners_3d
 from iffnerf_tpu_torch.ops.ide import ide_output_dim
 from iffnerf_tpu_torch.ops.topk import exact_topk
 from iffnerf_tpu_torch.pose.id_module import (
@@ -90,7 +99,8 @@ N_RAYS = 20000 * 27      # 20k surface points x 27 isocell directions
 RAGGED = 1021            # a ray count no tile divides
 K_TOP = 100
 N_WARM, N_TIMED = 2, 10  # estimates per route: warm-up, then timed
-REPS = 10                # timed kernel calls (median)
+REPS = 10                # timed batches of kernel calls (median)
+BATCH_MAX = 50           # calls a timed batch
 N_PROFILE = 3            # profiled estimates per route, colour chunks
 N_PROFILE_ITERATIONS = 10  # profiled sampler iterations
 # H100 SXM datasheet peaks (dense): bf16 tensor cores, float32 FMA, HBM3
@@ -119,6 +129,16 @@ N_FRAMES = 4                         # synthetic 800x800 test frames
 # K3's own bench shape (extra/pallas_gather_bench.py:147-152)
 BENCH_ROWS, BENCH_COLS, BENCH_N = 90000, 256, 1 << 21
 N_FEATURE_SAMPLES = 10 ** 6
+# the fused field kernel against its plain version: float32 in another
+# order (sigma's sum over ranks), rtol 1e-5 and an atol of 1e-6 x max|plain|
+FIELD_RTOL, FIELD_ATOL = 1e-5, 1e-6
+# a colour chunk through both kernels against the all-plain route: a
+# sample whose ray weight sits at the 1e-4 appearance threshold can flip
+# with sigma's rounding and move its ray's rgb by about 1e-4 x |feature|
+COLOUR_ATOL = 1e-4
+# non-cubic grids with unequal ranks: float4 words, and 4-byte words
+NON_CUBIC = {"non_cubic": ((160, 170, 180), (16, 12, 8), (48, 40, 24)),
+             "non_cubic_scalar": ((16, 17, 18), (2, 3, 4), (3, 4, 5))}
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
@@ -138,20 +158,39 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = REPS) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after two warm-ups."""
+def time_ms(fn, reps: int = REPS, graph: bool = False) -> float:
+    """Median over ``reps`` CUDA-event timings of a batch of back-to-back
+    calls of ``fn``, per call, after two warm-ups. A batch holds as many
+    calls as fill about a millisecond (at most BATCH_MAX). With ``graph``
+    the batch is captured once in a CUDA graph and its replays are timed:
+    the device time of the calls' kernels, without the host's launch cost,
+    which is larger than a short kernel's own time."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    batch = max(1, min(BATCH_MAX, int(1e-3 / (time.perf_counter() - t0))))
+
+    def run():
+        for _ in range(batch):
+            fn()
+
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            run()
+        run = captured.replay
     ts = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        run()
         end.record()
         end.synchronize()
-        ts.append(start.elapsed_time(end))
+        ts.append(start.elapsed_time(end) / batch)
     return statistics.median(ts)
 
 
@@ -343,12 +382,14 @@ def _reset_counts():
     banked_scores_fused.launches = 0
     fused_ray_scores.launches = 0
     gather_rows.launches = 0
+    field_features.launches = 0
 
 
 def _counts():
     return {"banked_scores": banked_scores_fused.launches,
             "fused_ray_scores": fused_ray_scores.launches,
-            "gather_rows": gather_rows.launches}
+            "gather_rows": gather_rows.launches,
+            "field_features": field_features.launches}
 
 
 def _compare_routes(outs, refs, tag, min_overlap=K_TOP, c2w_tol=1e-4):
@@ -513,9 +554,9 @@ def phase_profile(estimates, imgs):
     return out
 
 
-def phase_times(params, cfgs, img, mask, rays, field):
+def phase_times(params, cfgs, img, mask, rays, field, chunk_coords):
     """Kernel, plain and library times at the main path's shapes."""
-    rows = gather_times(field, img.device)
+    rows = gather_times(field, chunk_coords, img.device)
     for cfg in cfgs:
         bank = ray_bank(params, cfg, *rays)
         x = ray_mlp_inputs(cfg, *rays)
@@ -553,11 +594,21 @@ def _gather_case(r, c, n, g, dev, aligned=True, edges=()):
     return table, idx
 
 
+def stacked_mask_corners(n, g, dev):
+    """The index array of one mask lookup at ``n`` random points in and
+    just beyond the grid: grid_sample_3d's 8 stacked trilinear corners of
+    the [300^3, 1] mask volume, corner-major -> [8 n] int32."""
+    coords = torch.rand((n, 3), generator=g, device=dev) * 2.1 - 1.05
+    return corners_3d(GRID, GRID, GRID, coords)[0].reshape(-1)
+
+
 def phase_gather_kernel(dev):
     """K3 against its plain version, exactly: K3's bench shape, the field's
     shapes in one colour chunk (planes [300^2, 16 | 48], a line [300, 48],
-    the mask [300^3, 1] with 8 corners a sample), a ragged count with row
-    R - 1, rows off the 16-byte grid, and out-of-range indices (NaN rows)."""
+    the mask [300^3, 1] with 8 random corners a sample, and the mask
+    lookup's own stacked corners, one launch a lookup), a ragged count with
+    row R - 1, rows off the 16-byte grid, and out-of-range indices (NaN
+    rows)."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     plane, line, mask = GRID * GRID, GRID, GRID ** 3
     cases = {
@@ -566,6 +617,7 @@ def phase_gather_kernel(dev):
         "app_plane": (plane, 48, CHUNK_SAMPLES, True, ()),
         "app_line": (line, 48, CHUNK_SAMPLES, True, ()),
         "mask": (mask, 1, 8 * CHUNK_SAMPLES, True, ()),
+        "mask_stacked": (mask, 1, 8 * CHUNK_SAMPLES, True, ()),
         "ragged": (plane, 48, RAGGED, True, (plane - 1,)),
         "unaligned": (plane, 48, CHUNK_SAMPLES, False, (plane - 1,)),
         "edges": (plane, 16, RAGGED, True, (plane, -1, -plane, -plane - 1)),
@@ -573,6 +625,8 @@ def phase_gather_kernel(dev):
     out, worst = {}, 0.0
     for name, (r, c, n, aligned, edges) in cases.items():
         table, idx = _gather_case(r, c, n, g, dev, aligned, edges)
+        if name == "mask_stacked":
+            idx = stacked_mask_corners(CHUNK_SAMPLES, g, dev)
         got = gather_rows(table, idx)
         torch.cuda.synchronize()
         want = gather_rows_plain(table, idx)
@@ -599,6 +653,29 @@ def plain_gathers():
         yield
     finally:
         grid_sample_module.gather_rows = saved
+
+
+@contextlib.contextmanager
+def count_torch_lerps():
+    """Counts the calls of the 1-D and 2-D grid samplers of the field's
+    dense route (texel lerps in torch) while open -> {"n": calls}."""
+    calls = {"n": 0}
+    names = ("grid_sample_1d", "grid_sample_2d")
+    saved = {name: getattr(field_features_module, name) for name in names}
+
+    def counted(fn):
+        def run(*args):
+            calls["n"] += 1
+            return fn(*args)
+        return run
+
+    for name, fn in saved.items():
+        setattr(field_features_module, name, counted(fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(field_features_module, name, fn)
 
 
 def make_lego_field(dev):
@@ -689,10 +766,13 @@ def _sync_s(t0):
 def phase_object(id_params, id_cfg, dev):
     """The object side at lego's widths through the entry points: the field
     saved and loaded back with ``load_model``, ``explore_field`` (counts of
-    K3 launches read right after it), a step-by-step rerun for the time of
-    each step, one colour chunk and the sampler's alpha held to the same
-    functions on K3's plain version, the bank, and ``test_pose_estimation``
-    on synthetic frames."""
+    K3 and field_features launches read right after it, and of the torch
+    lerps of the dense route, which must stay 0), a step-by-step rerun for
+    the time of each step, the mask lookup held bit-equal to plain gathers,
+    one colour chunk and the sampler's alpha through both kernels held to
+    the all-plain route, the bank, and ``test_pose_estimation`` on
+    synthetic frames. -> (launch counts of ``explore_field``, (config,
+    params), the colour chunk's normalized sample coords [204 660, 3])."""
     t0 = time.perf_counter()
     cfg, np_params, mask = make_lego_field(dev)
     occupancy = float(mask.volume.mean())
@@ -710,19 +790,25 @@ def phase_object(id_params, id_cfg, dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    t0 = time.perf_counter()
-    ori, dirs, rgb = explore_field(gen, config, params, mask,
-                                   gen_points=GEN_POINTS, n_iteration=N_EPOCHS,
-                                   max_resampling_iterations=MAX_RESAMPLING)
-    explore_s = _sync_s(t0)
-    k3_launches = _counts()["gather_rows"]
+    with count_torch_lerps() as torch_lerps:
+        _reset_counts()
+        t0 = time.perf_counter()
+        ori, dirs, rgb = explore_field(
+            gen, config, params, mask, gen_points=GEN_POINTS,
+            n_iteration=N_EPOCHS, max_resampling_iterations=MAX_RESAMPLING)
+        explore_s = _sync_s(t0)
+        counts = _counts()
     explore_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     n = GEN_POINTS * N_ISOCELL
     for name, a in (("ori", ori), ("dirs", dirs), ("rgb", rgb)):
         check(a.shape == (n, 3), f"explore_field {name} shape {tuple(a.shape)}")
         check(bool(torch.isfinite(a).all()), f"explore_field {name} finite")
-    check(k3_launches > 0, "explore_field launched K3")
+    check(counts["field_features"] > 0, f"explore_field launched "
+          f"field_features: {counts}")
+    check(0 < counts["gather_rows"] < 1000, f"explore_field launched K3, "
+          f"once a mask lookup: {counts}")
+    check(torch_lerps["n"] == 0, f"no texel lerp of the VM field in torch "
+          f"({torch_lerps['n']} sampler calls)")
     norm_err = float((torch.linalg.norm(dirs, dim=-1) - 1).abs().max())
     check(norm_err < 1e-4, f"unit directions ({norm_err})")
     check(float(rgb.min()) >= 0 and float(rgb.max()) <= 1, "rgb in [0, 1]")
@@ -751,21 +837,38 @@ def phase_object(id_params, id_cfg, dev):
     generate_all_possible_rays(config, params, mask, samples, normals)
     colours_s = _sync_s(t0)
 
-    # one colour chunk and the sampler's alpha, K3 against its plain version
+    # one colour chunk and the sampler's proposals: the mask lookup through
+    # K3 bit-equal to plain gathers; rgb and alpha through both kernels
+    # against the all-plain route (plain gathers, fused_eval "off")
     c_pts = ori[:CHUNK_POINTS * N_ISOCELL].reshape(CHUNK_POINTS, N_ISOCELL, 3)
     c_dirs = dirs[:CHUNK_POINTS * N_ISOCELL].reshape(CHUNK_POINTS, N_ISOCELL, 3)
+    chunk_xyz = sample_point_color_fn(config, c_pts.reshape(-1, 3),
+                                      c_dirs.reshape(-1, 3), n_samples=20)[0]
     proposals = (pts[:, None] + 0.05 * torch.randn(
         (GEN_POINTS, 5, 3), generator=gen, device=dev)).reshape(-1, 3)
+    for name, xyz in (("colour chunk", chunk_xyz), ("proposals", proposals)):
+        got = sample_alpha(mask, xyz)
+        with plain_gathers():
+            want = sample_alpha(mask, xyz)
+        check(torch.equal(got, want), f"mask lookup at the {name}: K3 "
+              f"bit-equal to plain gathers ({float((got - want).abs().max())})")
+    plain_cfg = dataclasses.replace(config, fused_eval="off")
     got = (evaluate_viewdirs_color(config, params, mask, c_pts, c_dirs),
            compute_alpha(config, params, mask, proposals, 1.0))
     with plain_gathers():
-        want = (evaluate_viewdirs_color(config, params, mask, c_pts, c_dirs),
-                compute_alpha(config, params, mask, proposals, 1.0))
-    for name, a, b in zip(("colour chunk", "sampler alpha"), got, want):
-        check(torch.equal(a, b), f"{name}: K3 route bit-equal to plain gathers "
-              f"({float((a - b).abs().max())})")
+        want = (evaluate_viewdirs_color(plain_cfg, params, mask, c_pts, c_dirs),
+                compute_alpha(plain_cfg, params, mask, proposals, 1.0))
+    route_errs = {}
+    for name, a, b, atol in (("rgb", got[0], want[0], COLOUR_ATOL),
+                             ("alpha", got[1], want[1], FIELD_ATOL)):
+        route_errs[f"{name}_max_abs_err"] = float((a - b).abs().max())
+        route_errs[f"{name}_bit_equal"] = bool(torch.equal(a, b))
+        check(torch.allclose(a, b, rtol=FIELD_RTOL, atol=atol),
+              f"{name} through both kernels vs the all-plain route: "
+              f"{route_errs}")
     alpha_pos = float((got[1] > 0).float().mean())
-    del got, want, proposals
+    chunk_coords = normalize_coord(config, chunk_xyz).reshape(-1, 3)
+    del got, want, proposals, chunk_xyz
 
     # where the object side's time goes: sampler iterations (from the
     # surface samples, where the loop runs to its cap) and colour chunks
@@ -801,7 +904,8 @@ def phase_object(id_params, id_cfg, dev):
     frame_ms = [r["total_optimization_time_in_ms"] for r in rows]
     emit(phase="object", grid=GRID, occupancy=occupancy, n_rays=n,
          field_build_s=build_s, field_load_s=load_s, explore_field_s=explore_s,
-         gather_rows_launches=k3_launches, sampling_s=sampling_s,
+         launches=counts, torch_lerp_calls=torch_lerps["n"],
+         chunk_vs_all_plain=route_errs, sampling_s=sampling_s,
          sampler_iterations=[it for it, _ in epochs],
          sampler_left_invalid=[k for _, k in epochs], normals_s=normals_s,
          colours_s=colours_s, bank_s=bank_s,
@@ -811,7 +915,7 @@ def phase_object(id_params, id_cfg, dev):
          frame_ms=frame_ms, frame_ms_median=statistics.median(frame_ms),
          translation_error=t_err, angular_error=a_err, scores_loss=loss,
          recall=recall)
-    return k3_launches, (config, params)
+    return counts, (config, params), chunk_coords
 
 
 def gather_bound(table, idx):
@@ -823,55 +927,184 @@ def gather_bound(table, idx):
                  torch.float32)
 
 
-def library_density(planes_lines, coords):
-    """compute_densityfeature from F.grid_sample (a timing yardstick; the
-    port never calls it): planes [1, R, H, W], lines [1, R, L, 1]."""
-    sigma = 0.0
-    zero = torch.zeros_like(coords[:, 0])
-    for i, (plane, line) in enumerate(planes_lines):
+def random_vm_field(grid, ranks_density, ranks_app, g, dev):
+    """A TensorVMSplit field of the given grid (x, y, z) and ranks, drawn
+    from ``g`` -> (config, params): planes [g[m1], g[m0], R], lines
+    [g[vec], R]."""
+    config = FieldConfig(grid_size=grid, density_n_comp=ranks_density,
+                         app_n_comp=ranks_app)
+    params = {}
+    for kind, ranks in (("density", ranks_density), ("app", ranks_app)):
+        params[f"{kind}_plane"] = tuple(
+            0.5 + 0.1 * torch.randn((grid[m1], grid[m0], ranks[i]),
+                                    generator=g, device=dev)
+            for i, (m0, m1) in enumerate(MAT_MODE))
+        params[f"{kind}_line"] = tuple(
+            0.5 + 0.1 * torch.randn((grid[VEC_MODE[i]], ranks[i]),
+                                    generator=g, device=dev)
+            for i in range(3))
+    return config, params
+
+
+def random_coords(n, spread, g, dev):
+    """[n, 3] normalized coords uniform in [-spread, spread], the first
+    ones on the grid's faces, corners and centre."""
+    xyz = (torch.rand((n, 3), generator=g, device=dev) * 2 - 1) * spread
+    edges = torch.tensor([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0], [0.0, 0.0, 0.0],
+                          [1.0, -1.0, 0.5], [-1.0, 1.0, -0.25]], device=dev)
+    xyz[:min(n, 5)] = edges[:min(n, 5)]
+    return xyz
+
+
+def _field_errors(config, params, xyz, with_app):
+    """field_features against its plain version on plain gathers (the grid
+    samplers in pure torch): max abs errors, max |plain|, bit-equality;
+    raises beyond FIELD_RTOL and FIELD_ATOL x max|plain|."""
+    got = field_features(config, params, xyz, with_app)
+    torch.cuda.synchronize()
+    with plain_gathers():
+        want = field_features_plain(params, xyz, with_app)
+    out = {}
+    for name, a, b in zip(("sigma", "app"), got, want):
+        if b is None:
+            continue
+        check(a.shape == b.shape, f"field_features {name} shape {a.shape}")
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        out[name] = {"max_abs_err": float((a - b).abs().max()) if b.numel() else 0.0,
+                     "max_abs_plain": scale, "bit_equal": bool(torch.equal(a, b))}
+        check(torch.allclose(a, b, rtol=FIELD_RTOL, atol=FIELD_ATOL * scale),
+              f"field_features {name} vs plain: {out[name]}")
+    return out
+
+
+def phase_field_kernel(field, chunk_coords, dev):
+    """field_features against its plain version, density-only and with
+    appearance: a colour chunk's samples on the lego-width field, 10^6
+    random samples in and beyond [-1, 1], and non-cubic grids with unequal
+    ranks (float4 words, and 4-byte words). -> the largest abs error at
+    the colour chunk."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    config, params = field
+    cases = {"colour_chunk": (config, params, chunk_coords),
+             "uniform_1e6": (config, params,
+                             random_coords(N_FEATURE_SAMPLES, 1.2, g, dev))}
+    for name, (grid, rd, ra) in NON_CUBIC.items():
+        cfg, p = random_vm_field(grid, rd, ra, g, dev)
+        cases[name] = (cfg, p, random_coords(100_000, 1.1, g, dev))
+    out = {}
+    for name, (cfg, p, xyz) in cases.items():
+        out[name] = {"n": xyz.shape[0],
+                     "density": _field_errors(cfg, p, xyz, False),
+                     "both": _field_errors(cfg, p, xyz, True)}
+    emit(phase="field_kernel_check", rtol=FIELD_RTOL,
+         atol_per_max_plain=FIELD_ATOL, results=out)
+    chunk = out["colour_chunk"]["both"]
+    return max(chunk["sigma"]["max_abs_err"], chunk["app"]["max_abs_err"])
+
+
+def field_bound(params, xyz, with_app):
+    """Bytes: the coordinates read and the features written once, each
+    plane and line row the samples touch read once -> (bound ms, bound_by,
+    the bytes of the corner reads that L1 and L2 serve)."""
+    n = xyz.shape[0]
+    _, dims = kernel_layout(params, with_app)
+    touched = corner = 0
+    for i in range(3):
+        h, w, length, rd, ra = dims[5 * i:5 * i + 5]
         m0, m1 = MAT_MODE[i]
-        pc = torch.stack([coords[:, m0], coords[:, m1]], -1)[None, :, None]
-        lc = torch.stack([zero, coords[:, VEC_MODE[i]]], -1)[None, :, None]
-        pf = F.grid_sample(plane, pc, align_corners=True)[0, :, :, 0]
-        lf = F.grid_sample(line, lc, align_corners=True)[0, :, :, 0]
-        sigma = sigma + (pf * lf).sum(0)
-    return sigma
+        plane_idx = corners_2d(h, w, torch.stack([xyz[:, m0], xyz[:, m1]], -1))[0]
+        line_idx = corners_1d(length, xyz[:, VEC_MODE[i]])[0]
+        row = (rd + ra) * 4
+        touched += (torch.unique(plane_idx).numel()
+                    + torch.unique(line_idx).numel()) * row
+        corner += n * 6 * row
+    ms, by = bound(n * 12 + n * 4 + n * dims[-1] * 4 + touched, 0.0,
+                   torch.float32)
+    return ms, by, corner
 
 
-def gather_times(field, dev):
+def library_tables(params):
+    """The planes as [1, R, H, W] and the lines as [1, R, L, 1], the layout
+    F.grid_sample takes."""
+    return {kind: [(params[f"{kind}_plane"][i].permute(2, 0, 1)[None].contiguous(),
+                    params[f"{kind}_line"][i].T[None, :, :, None].contiguous())
+                   for i in range(3)]
+            for kind in ("density", "app")}
+
+
+def library_features(tables, coords, with_app):
+    """field_features' function from F.grid_sample (a timing yardstick; the
+    port never calls it) -> (sigma feature [N], app products [N, sum(R)]
+    or None)."""
+    zero = torch.zeros_like(coords[:, 0])
+    grids = [(torch.stack([coords[:, m0], coords[:, m1]], -1)[None, :, None],
+              torch.stack([zero, coords[:, VEC_MODE[i]]], -1)[None, :, None])
+             for i, (m0, m1) in enumerate(MAT_MODE)]
+
+    def products(kind):
+        return [F.grid_sample(plane, pc, align_corners=True)[0, :, :, 0]
+                * F.grid_sample(line, lc, align_corners=True)[0, :, :, 0]
+                for (plane, line), (pc, lc) in zip(tables[kind], grids)]
+
+    sigma = sum(p.sum(0) for p in products("density"))
+    return sigma, torch.cat(products("app"), 0).T if with_app else None
+
+
+def gather_times(field, chunk_coords, dev):
     """K3, its plain version and ``torch.index_select`` (the one PyTorch
-    call of the same function, timed only) at K3's bench shape and at the
-    colour pass's app-plane shape; beside them compute_densityfeature at
-    10^6 samples through K3 and through an F.grid_sample composition."""
+    call of the same function, timed only) at K3's bench shape, at the
+    mask lookup's stacked corners (the shape K3 serves on the path) and at
+    the app-plane shape of the dense route. field_features, its plain
+    version (pure torch), the dense route through K3 and an F.grid_sample
+    composition at a colour chunk and at 10^6 random samples, density-only
+    and with appearance."""
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows = {}
     for name, (r, c, n) in (("bench", (BENCH_ROWS, BENCH_COLS, BENCH_N)),
+                            ("mask_stacked", (GRID ** 3, 1, 8 * CHUNK_SAMPLES)),
                             ("app_plane", (GRID * GRID, 48, CHUNK_SAMPLES))):
         table, idx = _gather_case(r, c, n, g, dev)
+        if name == "mask_stacked":
+            idx = stacked_mask_corners(CHUNK_SAMPLES, g, dev)
         b_ms, b_by = gather_bound(table, idx)
         rows[f"gather_rows/{name}"] = {
             "rows": r, "cols": c, "n": n,
-            "ms": time_ms(lambda: gather_rows(table, idx)),
+            "ms": time_ms(lambda: gather_rows(table, idx), graph=True),
+            "eager_ms": time_ms(lambda: gather_rows(table, idx)),
             "plain_ms": time_ms(lambda: gather_rows_plain(table, idx)),
-            "library_ms": time_ms(lambda: torch.index_select(table, 0, idx)),
+            "library_ms": time_ms(lambda: torch.index_select(table, 0, idx),
+                                  graph=True),
             "bound_ms": b_ms, "bound_by": b_by}
         del table, idx
+
     config, params = field
-    coords = torch.rand((N_FEATURE_SAMPLES, 3), generator=g, device=dev) * 2 - 1
-    planes_lines = [
-        (params["density_plane"][i].permute(2, 0, 1)[None].contiguous(),
-         params["density_line"][i].T[None, :, :, None].contiguous())
-        for i in range(3)]
-    ours = compute_densityfeature(config, params, coords)
-    lib = library_density(planes_lines, coords)
-    diff = float((ours - lib).abs().max() / lib.abs().max())
-    check(diff < 1e-5, f"F.grid_sample yardstick computes the same ({diff})")
-    rows["compute_densityfeature"] = {
-        "n": N_FEATURE_SAMPLES,
-        "ms": time_ms(lambda: compute_densityfeature(config, params, coords)),
-        "library_ms": time_ms(lambda: library_density(planes_lines, coords)),
-        "max_rel_diff": diff}
-    torch.cuda.empty_cache()
+    tables = library_tables(params)
+    coords = random_coords(N_FEATURE_SAMPLES, 1.0, g, dev)
+    for name, xyz in (("colour_chunk", chunk_coords), ("uniform_1e6", coords)):
+        for mode, with_app in (("density", False), ("both", True)):
+            ours = field_features(config, params, xyz, with_app)
+            lib = library_features(tables, xyz, with_app)
+            diff = max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip(ours, lib) if b is not None)
+            check(diff < 1e-5, f"F.grid_sample yardstick computes the same "
+                  f"({diff})")
+            del ours, lib
+            b_ms, b_by, corner_bytes = field_bound(params, xyz, with_app)
+            row = {"n": xyz.shape[0],
+                   "ms": time_ms(lambda: field_features(config, params, xyz,
+                                                        with_app), graph=True),
+                   "eager_ms": time_ms(lambda: field_features(
+                       config, params, xyz, with_app)),
+                   "dense_k3_ms": time_ms(lambda: field_features_plain(
+                       params, xyz, with_app))}
+            with plain_gathers():
+                row["plain_ms"] = time_ms(lambda: field_features_plain(
+                    params, xyz, with_app))
+            row.update(library_ms=time_ms(lambda: library_features(
+                tables, xyz, with_app), graph=True), bound_ms=b_ms, bound_by=b_by,
+                corner_read_bytes=corner_bytes, library_max_rel_diff=diff)
+            rows[f"field_features/{name}/{mode}"] = row
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -896,9 +1129,11 @@ def main() -> int:
     k1_counts, banked_ms = phase_banked_estimate(params, cfg16, imgs, mask, rays)
     k2_counts, fused_ms = phase_fused_estimate(params, cfg16, imgs, mask, rays)
     phase_fused_estimate(params, cfg32, imgs[:N_WARM + 3], mask, rays)
-    k3_launches, field = phase_object(params, cfg16, dev)
-    rows = phase_times(params, (cfg16, cfg32), img0, mask, rays, field)
-    del field
+    obj_counts, field, chunk_coords = phase_object(params, cfg16, dev)
+    ff_err = phase_field_kernel(field, chunk_coords, dev)
+    rows = phase_times(params, (cfg16, cfg32), img0, mask, rays, field,
+                       chunk_coords)
+    del field, chunk_coords
     bank = ray_bank(params, cfg16, ro, rd, rr)
     fused16 = IDConfig(compute_dtype="bfloat16", fused_scoring=True)
     phase_profile({
@@ -927,8 +1162,16 @@ def main() -> int:
         dict(name="gather_rows", route="cuda",
              source="iffnerf_tpu_torch/csrc/gather_rows.cu",
              replaces="extra/pallas_gather_bench.py:46",
-             launches=k3_launches, max_abs_err=k3_err,
-             **rows["gather_rows/app_plane"]),
+             launches=obj_counts["gather_rows"], max_abs_err=k3_err,
+             **rows["gather_rows/mask_stacked"]),
+        dict(name="field_features", route="cuda",
+             source="iffnerf_tpu_torch/csrc/field_features.cu",
+             replaces="extra/pallas_gather_bench.py:46",
+             design_of="compute_features_fused (iffnerf_tpu/models/field.py:394):"
+                       " the work pallas_gather served, its gather fused with"
+                       " the lerps",
+             launches=obj_counts["field_features"], max_abs_err=ff_err,
+             **rows["field_features/colour_chunk/both"]),
     ]
     emit(phase="latency", banked_ms_per_image=banked_ms,
          fused_ms_per_image=fused_ms)

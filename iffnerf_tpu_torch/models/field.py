@@ -9,11 +9,15 @@ reference (tensorBase.py:311-312): ``MAT_MODE = ((0,1),(0,2),(1,2))``,
 ``VEC_MODE = (2,1,0)`` -- plane ``i`` is indexed by (x=xyz[m0],
 y=xyz[m1]) and line ``i`` by xyz[vec].
 
-Features are evaluated densely through the grid samplers, whose texel
-fetches run on the row-gather kernel (``ops/gather.py``). The footprint
-packing, the compaction ladder and the grouped bit-row mask gate of the
-JAX package work around the TPU's gather row rate and are not ported;
-their ``FieldConfig`` fields are kept so that ``config_json`` round-trips.
+Features are evaluated densely, by ``compute_features``: where
+``use_fused_eval`` says so through ``compute_features_fused``, which runs a
+TensorVMSplit field's texel fetches and lerps in one kernel
+(``ops/field_features.py``), else through ``compute_densityfeature`` and
+``compute_appfeature`` and the grid samplers, whose texel fetches run on
+the row-gather kernel (``ops/gather.py``). The footprint packing, the
+compaction ladder and the grouped bit-row mask gate of the JAX package work
+around the TPU's gather row rate and are not ported; their ``FieldConfig``
+fields are kept so that ``config_json`` round-trips.
 """
 
 from __future__ import annotations
@@ -26,14 +30,13 @@ import torch
 import torch.nn.functional as F
 
 from iffnerf_tpu_torch.nn import linear_apply
-from iffnerf_tpu_torch.ops.grid_sample import (
-    grid_sample_1d,
-    grid_sample_2d,
-    grid_sample_3d,
+from iffnerf_tpu_torch.ops.field_features import (
+    VEC_MODE,
+    field_features,
+    vm_app_products,
+    vm_density,
 )
-
-MAT_MODE = ((0, 1), (0, 2), (1, 2))
-VEC_MODE = (2, 1, 0)
+from iffnerf_tpu_torch.ops.grid_sample import grid_sample_1d, grid_sample_3d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +64,10 @@ class FieldConfig:
     fea2dense_act: str = "softplus"
     contraction_type: str = "aabb"
     step_size_bg: float = 0.1
-    # TPU evaluation settings of the JAX package, read by nothing here
+    # "auto": the fused feature kernel for TensorVMSplit on CUDA tensors,
+    # the grid samplers elsewhere; "on"/"off" force either (use_fused_eval)
     fused_eval: str = "auto"
+    # TPU evaluation settings of the JAX package, read by nothing here
     compact_ratio: float = 0.25
     compact_ratio_unmasked: float = 0.0
     compact_ratio_eval: float = 0.125
@@ -165,9 +170,16 @@ def feature2density(config: FieldConfig, features: torch.Tensor) -> torch.Tensor
     raise ValueError(config.fea2dense_act)
 
 
-def _plane_coords(xyz, i):
-    m0, m1 = MAT_MODE[i]
-    return torch.stack([xyz[..., m0], xyz[..., m1]], dim=-1)
+def use_fused_eval(config: FieldConfig, device) -> bool:
+    """Whether features at points on ``device`` go through
+    ``compute_features_fused`` (the JAX package's ``use_fused_eval``):
+    never for TensorCP; for TensorVMSplit "on" always, "off" never, "auto"
+    on CUDA."""
+    if config.model_name != "TensorVMSplit":
+        return False
+    if config.fused_eval == "auto":
+        return torch.device(device).type == "cuda"
+    return config.fused_eval == "on"
 
 
 def compute_densityfeature(config: FieldConfig, params,
@@ -175,15 +187,7 @@ def compute_densityfeature(config: FieldConfig, params,
     """sigma feature at normalized coords xyz [..., 3] -> [...]
     (reference tensoRF.py:216-235 VM / :344-359 CP)."""
     if config.model_name == "TensorVMSplit":
-        sigma = None
-        for i in range(3):
-            plane_feat = grid_sample_2d(params["density_plane"][i],
-                                        _plane_coords(xyz, i))
-            line_feat = grid_sample_1d(params["density_line"][i],
-                                       xyz[..., VEC_MODE[i]])
-            contrib = torch.sum(plane_feat * line_feat, dim=-1)
-            sigma = contrib if sigma is None else sigma + contrib
-        return sigma
+        return vm_density(params, xyz)
     # CP: elementwise product of the three line features, summed over rank
     prod = None
     for i in range(3):
@@ -198,14 +202,7 @@ def compute_appfeature(config: FieldConfig, params,
     """Appearance feature at normalized coords xyz [..., 3] -> [..., app_dim]
     (reference tensoRF.py:237-256 VM / :361-375 CP)."""
     if config.model_name == "TensorVMSplit":
-        feats = []
-        for i in range(3):
-            plane_feat = grid_sample_2d(params["app_plane"][i],
-                                        _plane_coords(xyz, i))
-            line_feat = grid_sample_1d(params["app_line"][i],
-                                       xyz[..., VEC_MODE[i]])
-            feats.append(plane_feat * line_feat)
-        feat = torch.cat(feats, dim=-1)
+        feat = vm_app_products(params, xyz)
     else:
         feat = None
         for i in range(3):
@@ -213,3 +210,31 @@ def compute_appfeature(config: FieldConfig, params,
                                        xyz[..., VEC_MODE[i]])
             feat = line_feat if feat is None else feat * line_feat
     return linear_apply(params["basis_mat"], feat)
+
+
+def compute_features_fused(config: FieldConfig, params, xyz: torch.Tensor,
+                           with_app: bool = True):
+    """Density and appearance features of a TensorVMSplit field at
+    normalized coords xyz [..., 3] in one kernel pass (the JAX package's
+    ``compute_features_fused``; ``ops/field_features.py``): (sigma feature
+    [...], appearance feature [..., app_dim], or None without
+    ``with_app``). The same values as ``compute_densityfeature`` and
+    ``compute_appfeature`` up to the order of sigma's sum over ranks."""
+    sigma, products = field_features(config, params, xyz, with_app)
+    if products is None:
+        return sigma, None
+    return sigma, linear_apply(params["basis_mat"], products)
+
+
+def compute_features(config: FieldConfig, params, xyz: torch.Tensor,
+                     with_density: bool = True, with_app: bool = True):
+    """(sigma feature [...] or None, appearance feature [..., app_dim] or
+    None) at normalized coords xyz [..., 3]: from ``compute_features_fused``
+    where ``use_fused_eval`` says so, else from ``compute_densityfeature``
+    and ``compute_appfeature``."""
+    if use_fused_eval(config, xyz.device):
+        sigma, app = compute_features_fused(config, params, xyz, with_app)
+        return sigma if with_density else None, app
+    return (compute_densityfeature(config, params, xyz) if with_density
+            else None,
+            compute_appfeature(config, params, xyz) if with_app else None)

@@ -15,8 +15,7 @@ import torch
 from iffnerf_tpu_torch.models.field import (
     AlphaMask,
     FieldConfig,
-    compute_appfeature,
-    compute_densityfeature,
+    compute_features,
     feature2density,
     normalize_coord,
     sample_alpha,
@@ -79,9 +78,9 @@ def compute_alpha(config: FieldConfig, params, mask: AlphaMask | None,
                   xyz: torch.Tensor, length) -> torch.Tensor:
     """Opacity of points xyz [..., 3] over a step ``length``
     (reference compute_alpha, tensorBase.py:756-773)."""
-    sigma = feature2density(
-        config, compute_densityfeature(config, params,
-                                       normalize_coord(config, xyz)))
+    feature, _ = compute_features(config, params, normalize_coord(config, xyz),
+                                  with_app=False)
+    sigma = feature2density(config, feature)
     if mask is not None:
         sigma = torch.where(sample_alpha(mask, xyz) > 0, sigma, 0.0)
     return 1.0 - torch.exp(-sigma * length)
@@ -120,9 +119,8 @@ def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
     if mask is not None:
         ray_valid = ray_valid & (sample_alpha(mask, xyz) > 0)
 
-    coords = normalize_coord(config, xyz)
-    sigma_feature = compute_densityfeature(config, params, coords)
-    app_features = compute_appfeature(config, params, coords)
+    sigma_feature, app_features = compute_features(
+        config, params, normalize_coord(config, xyz))
     sigma = torch.where(ray_valid, feature2density(config, sigma_feature), 0.0)
     alpha, weight, _ = raw2alpha(sigma, dists * config.distance_scale)
 

@@ -18,13 +18,17 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("banked_attention", "fused_ray_attention", "gather_rows")
+KERNELS = ("banked_attention", "fused_ray_attention", "gather_rows",
+           "field_features")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_SMS: dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -96,6 +100,15 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def sm_count(device: torch.device) -> int:
+    """Multiprocessors of a CUDA ``device``, queried once: the query costs
+    more host time than a short kernel's launch."""
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
 
 
 def check(rc: int, what: str) -> None:

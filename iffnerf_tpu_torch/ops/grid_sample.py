@@ -7,10 +7,11 @@ models/tensorBase.py:66-72):
   * out-of-range corner texels contribute zero (``zeros`` padding)
 
 Feature channels live on the last axis: planes are ``[H, W, C]``, lines
-``[L, C]``, volumes ``[D, H, W]`` (scalar). Every texel fetch is one
-``gather_rows`` of the flat ``[H*W, C]``, ``[L, C]`` or ``[D*H*W, 1]``
-view with int32 indices, clamped as the JAX package clamps them; validity
-masks and lerps are plain torch, in the JAX package's order.
+``[L, C]``, volumes ``[D, H, W]`` (scalar). Each sampler stacks its corner
+indices (2, 4 or 8 a point; int32, clamped as the JAX package clamps them)
+and fetches all of them with one ``gather_rows`` of the flat ``[L, C]``,
+``[H*W, C]`` or ``[D*H*W, 1]`` view; validity masks and lerps are plain
+torch, in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -31,6 +32,52 @@ def _corner(idx, size: int):
     return idx.clamp(0, size - 1), valid
 
 
+def _axis(g, size: int):
+    """Both corners of normalized coords ``g`` on an axis of ``size``
+    texels -> (clamped lower, clamped upper, lower valid, upper valid,
+    weight of the upper corner)."""
+    p = _to_pixel(g, size)
+    i0 = torch.floor(p).to(torch.int32)
+    w = p - i0
+    i0c, v0 = _corner(i0, size)
+    i1c, v1 = _corner(i0 + 1, size)
+    return i0c, i1c, v0, v1, w
+
+
+def corners_1d(size: int, coords: torch.Tensor):
+    """Linear corners of a line of ``size`` texels at ``coords`` [...] ->
+    (row indices [2, ...] int32, validity [2, ...], weight [...])."""
+    i0, i1, v0, v1, w = _axis(coords, size)
+    return torch.stack([i0, i1]), torch.stack([v0, v1]), w
+
+
+def corners_2d(h: int, w: int, coords: torch.Tensor):
+    """Bilinear corners of a plane [h, w] at ``coords`` [..., 2] (x indexes
+    w, y indexes h) -> (row indices of the flat plane [4, ...] int32 in the
+    order 00, 01, 10, 11 (y, x), validity [4, ...], (wx, wy))."""
+    x0, x1, vx0, vx1, wx = _axis(coords[..., 0], w)
+    y0, y1, vy0, vy1, wy = _axis(coords[..., 1], h)
+    idx = torch.stack([y0 * w + x0, y0 * w + x1, y1 * w + x0, y1 * w + x1])
+    valid = torch.stack([vy0 & vx0, vy0 & vx1, vy1 & vx0, vy1 & vx1])
+    return idx, valid, (wx, wy)
+
+
+def corners_3d(d: int, h: int, w: int, coords: torch.Tensor):
+    """Trilinear corners of a volume [d, h, w] at ``coords`` [..., 3] (x, y,
+    z index w, h, d) -> (row indices of the flat volume [8, ...] int32 in
+    the order 000 ... 111 (z, y, x), validity [8, ...], (wx, wy, wz))."""
+    x0, x1, vx0, vx1, wx = _axis(coords[..., 0], w)
+    y0, y1, vy0, vy1, wy = _axis(coords[..., 1], h)
+    z0, z1, vz0, vz1, wz = _axis(coords[..., 2], d)
+    idx, valid = [], []
+    for zi, vz in ((z0, vz0), (z1, vz1)):
+        for yi, vy in ((y0, vy0), (y1, vy1)):
+            for xi, vx in ((x0, vx0), (x1, vx1)):
+                idx.append((zi * h + yi) * w + xi)
+                valid.append(vz & vy & vx)
+    return torch.stack(idx), torch.stack(valid), (wx, wy, wz)
+
+
 def _fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` [R, C] at int32 ``idx`` [...] -> [..., C]."""
     rows = gather_rows(table, idx.reshape(-1))
@@ -40,14 +87,9 @@ def _fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def grid_sample_1d(line: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Linear interpolation along ``line`` [L, C] at ``coords`` [...] ->
     [..., C]."""
-    size = line.shape[0]
-    p = _to_pixel(coords, size)
-    i0 = torch.floor(p).to(torch.int32)
-    w1 = (p - i0)[..., None]
-    i0c, v0 = _corner(i0, size)
-    i1c, v1 = _corner(i0 + 1, size)
-    f0 = _fetch(line, i0c) * v0[..., None]
-    f1 = _fetch(line, i1c) * v1[..., None]
+    idx, valid, w1 = corners_1d(line.shape[0], coords)
+    f0, f1 = _fetch(line, idx) * valid[..., None]
+    w1 = w1[..., None]
     return f0 * (1.0 - w1) + f1 * w1
 
 
@@ -55,28 +97,10 @@ def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Bilinear interpolation on ``plane`` [H, W, C] at ``coords`` [..., 2]
     (x indexes W, y indexes H) -> [..., C]."""
     h, w, c = plane.shape
-    px = _to_pixel(coords[..., 0], w)
-    py = _to_pixel(coords[..., 1], h)
-    x0 = torch.floor(px).to(torch.int32)
-    y0 = torch.floor(py).to(torch.int32)
-    wx = (px - x0)[..., None]
-    wy = (py - y0)[..., None]
-
-    x0c, vx0 = _corner(x0, w)
-    x1c, vx1 = _corner(x0 + 1, w)
-    y0c, vy0 = _corner(y0, h)
-    y1c, vy1 = _corner(y0 + 1, h)
-
-    flat = plane.reshape(h * w, c)
-
-    def tex(yi, xi, vy, vx):
-        return _fetch(flat, yi * w + xi) * (vy & vx)[..., None]
-
-    f00 = tex(y0c, x0c, vy0, vx0)
-    f01 = tex(y0c, x1c, vy0, vx1)
-    f10 = tex(y1c, x0c, vy1, vx0)
-    f11 = tex(y1c, x1c, vy1, vx1)
-
+    idx, valid, (wx, wy) = corners_2d(h, w, coords)
+    f00, f01, f10, f11 = (_fetch(plane.reshape(h * w, c), idx)
+                          * valid[..., None])
+    wx, wy = wx[..., None], wy[..., None]
     top = f00 * (1.0 - wx) + f01 * wx
     bot = f10 * (1.0 - wx) + f11 * wx
     return top * (1.0 - wy) + bot * wy
@@ -86,36 +110,9 @@ def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Trilinear interpolation in ``volume`` [D, H, W] at ``coords``
     [..., 3] (x, y, z index W, H, D) -> [...]."""
     d, h, w = volume.shape
-    px = _to_pixel(coords[..., 0], w)
-    py = _to_pixel(coords[..., 1], h)
-    pz = _to_pixel(coords[..., 2], d)
-    x0 = torch.floor(px).to(torch.int32)
-    y0 = torch.floor(py).to(torch.int32)
-    z0 = torch.floor(pz).to(torch.int32)
-    wx, wy, wz = px - x0, py - y0, pz - z0
-
-    x0c, vx0 = _corner(x0, w)
-    x1c, vx1 = _corner(x0 + 1, w)
-    y0c, vy0 = _corner(y0, h)
-    y1c, vy1 = _corner(y0 + 1, h)
-    z0c, vz0 = _corner(z0, d)
-    z1c, vz1 = _corner(z0 + 1, d)
-
-    flat = volume.reshape(-1, 1)
-
-    def tex(zi, yi, xi, vz, vy, vx):
-        f = _fetch(flat, (zi * h + yi) * w + xi)[..., 0]
-        return torch.where(vz & vy & vx, f, 0.0)
-
-    c000 = tex(z0c, y0c, x0c, vz0, vy0, vx0)
-    c001 = tex(z0c, y0c, x1c, vz0, vy0, vx1)
-    c010 = tex(z0c, y1c, x0c, vz0, vy1, vx0)
-    c011 = tex(z0c, y1c, x1c, vz0, vy1, vx1)
-    c100 = tex(z1c, y0c, x0c, vz1, vy0, vx0)
-    c101 = tex(z1c, y0c, x1c, vz1, vy0, vx1)
-    c110 = tex(z1c, y1c, x0c, vz1, vy1, vx0)
-    c111 = tex(z1c, y1c, x1c, vz1, vy1, vx1)
-
+    idx, valid, (wx, wy, wz) = corners_3d(d, h, w, coords)
+    c = torch.where(valid, _fetch(volume.reshape(-1, 1), idx)[..., 0], 0.0)
+    c000, c001, c010, c011, c100, c101, c110, c111 = c
     c00 = c000 * (1 - wx) + c001 * wx
     c01 = c010 * (1 - wx) + c011 * wx
     c10 = c100 * (1 - wx) + c101 * wx

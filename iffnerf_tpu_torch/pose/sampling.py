@@ -23,7 +23,7 @@ from iffnerf_tpu_torch.device import resolve_device, tree_to
 from iffnerf_tpu_torch.models.field import (
     AlphaMask,
     FieldConfig,
-    compute_appfeature,
+    compute_features,
     normalize_coord,
 )
 from iffnerf_tpu_torch.models.render import compute_alpha, render_rays
@@ -175,8 +175,8 @@ def iterative_surface_sampling_process(gen, config: FieldConfig, params,
 def samples_points_normals(config: FieldConfig, params, samples):
     """Surface normals from the frozen field's Ref head
     (reference sampling.py:535-541)."""
-    app_features = compute_appfeature(config, params,
-                                      normalize_coord(config, samples))
+    _, app_features = compute_features(
+        config, params, normalize_coord(config, samples), with_density=False)
     return compute_normals(params["shading"], config.shading_mode,
                            app_features)
 

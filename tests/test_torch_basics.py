@@ -191,6 +191,7 @@ def test_port_imports_no_jax():
         import iffnerf_tpu_torch.ops._build
         import iffnerf_tpu_torch.ops.banked_attention
         import iffnerf_tpu_torch.ops.encoding
+        import iffnerf_tpu_torch.ops.field_features
         import iffnerf_tpu_torch.ops.fused_ray_attention
         import iffnerf_tpu_torch.ops.gather
         import iffnerf_tpu_torch.ops.grid_sample

@@ -4,14 +4,19 @@ Marked ``cuda``: they skip where no card is present, and run on one with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine need not have). Ray counts cover one ray, a ragged tile, several
-blocks and more tiles than blocks; the row gather covers the field's row
-widths, ragged and empty index counts, the edge indices and a table whose
-rows are not 16-byte aligned.
+blocks and more tiles than blocks; the row gather covers both its routes,
+the field's row widths, ragged and empty index counts, the edge indices, a table whose
+rows are not 16-byte aligned and the mask lookup's stacked corners; the
+fused field kernel covers lego's widths and non-cubic grids with unequal
+ranks (float4 and 4-byte words), empty to colour-chunk sample counts, in
+its density-only and appearance modes.
 """
 
 import pytest
 import torch
 
+from iffnerf_tpu_torch.models.field import FieldConfig
+from iffnerf_tpu_torch.ops import grid_sample as grid_sample_module
 from iffnerf_tpu_torch.ops.banked_attention import (
     banked_scores_fused,
     banked_scores_plain,
@@ -20,7 +25,19 @@ from iffnerf_tpu_torch.ops.fused_ray_attention import (
     fused_ray_scores,
     fused_ray_scores_plain,
 )
+from iffnerf_tpu_torch.ops.field_features import (
+    MAT_MODE,
+    VEC_MODE,
+    field_features,
+    field_features_plain,
+)
 from iffnerf_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from iffnerf_tpu_torch.ops.grid_sample import (
+    corners_3d,
+    grid_sample_1d,
+    grid_sample_2d,
+    grid_sample_3d,
+)
 from iffnerf_tpu_torch.pose.id_module import IDConfig, init_id_module
 
 pytestmark = pytest.mark.cuda
@@ -82,7 +99,9 @@ def test_fused_kernel_matches_plain(dev, dtype, r):
 @pytest.mark.parametrize("n", [0, 1, 1021, 204660])
 def test_gather_kernel_matches_plain(dev, r, c, n, aligned):
     """Exact: rows are copied, never computed. The first indices are the
-    edges R - 1, R and -R - 1 (NaN rows), -1 and -R (wrapped)."""
+    edges R - 1, R and -R - 1 (NaN rows), -1 and -R (wrapped). [90000, 256]
+    with 204 660 indices takes the bucketed route, every other case the
+    direct one."""
     g = torch.Generator().manual_seed(r + c + n)
     # one float of offset puts every row off the 16-byte grid: scalar path
     buf = torch.randn((r * c + 1,), generator=g).to(dev)
@@ -96,3 +115,73 @@ def test_gather_kernel_matches_plain(dev, r, c, n, aligned):
     assert got.shape == (n, c)
     assert torch.equal(got.isnan(), want.isnan())
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+def test_gather_kernel_matches_plain_at_stacked_mask_corners(dev):
+    """One mask lookup's index array: the 8 stacked trilinear corners of
+    204 660 points in and just beyond a [300^3, 1] volume, exactly."""
+    g = torch.Generator().manual_seed(3)
+    table = torch.randn((300 ** 3, 1), generator=g).to(dev)
+    coords = (torch.rand((204660, 3), generator=g) * 2.1 - 1.05).to(dev)
+    idx = corners_3d(300, 300, 300, coords)[0].reshape(-1)
+    got = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_rows_plain(table, idx))
+
+
+def test_each_grid_sampler_launches_the_gather_once(dev):
+    g = torch.Generator().manual_seed(4)
+    coords = (torch.rand((999, 3), generator=g) * 2.2 - 1.1).to(dev)
+    cases = ((grid_sample_1d, torch.randn((30, 16), generator=g), coords[:, 0]),
+             (grid_sample_2d, torch.randn((20, 30, 48), generator=g), coords[:, :2]),
+             (grid_sample_3d, torch.randn((10, 20, 30), generator=g), coords))
+    for fn, grid, xyz in cases:
+        before = gather_rows.launches
+        fn(grid.to(dev), xyz)
+        assert gather_rows.launches == before + 1, fn.__name__
+
+
+FIELDS = {"lego": ((300, 300, 300), (16, 16, 16), (48, 48, 48)),
+          "non_cubic": ((160, 170, 180), (16, 12, 8), (48, 40, 24)),
+          "non_cubic_scalar": ((16, 17, 18), (2, 3, 4), (3, 4, 5))}
+
+
+@pytest.fixture(scope="module", params=sorted(FIELDS))
+def vm_field(request, dev):
+    grid, rd, ra = FIELDS[request.param]
+    g = torch.Generator().manual_seed(5)
+    params = {}
+    for kind, ranks in (("density", rd), ("app", ra)):
+        params[f"{kind}_plane"] = tuple(
+            (0.5 + 0.1 * torch.randn((grid[m1], grid[m0], ranks[i]),
+                                     generator=g)).to(dev)
+            for i, (m0, m1) in enumerate(MAT_MODE))
+        params[f"{kind}_line"] = tuple(
+            (0.5 + 0.1 * torch.randn((grid[VEC_MODE[i]], ranks[i]),
+                                     generator=g)).to(dev)
+            for i in range(3))
+    return FieldConfig(grid_size=grid, density_n_comp=rd, app_n_comp=ra), params
+
+
+@pytest.mark.parametrize("with_app", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 1021, 204660])
+def test_field_kernel_matches_plain(dev, vm_field, n, with_app, monkeypatch):
+    """Float32 in another order (sigma's sum over ranks): rtol 1e-5 and an
+    atol of 1e-6 x max|plain|, against the grid samplers on plain
+    gathers, at points in and beyond [-1, 1] and on the grid's corners."""
+    config, params = vm_field
+    g = torch.Generator().manual_seed(n)
+    xyz = torch.rand((n, 3), generator=g) * 2.4 - 1.2
+    xyz[:2] = torch.tensor([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]])[:n]
+    xyz = xyz.to(dev)
+    got = field_features(config, params, xyz, with_app)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(grid_sample_module, "gather_rows", gather_rows_plain)
+    want = field_features_plain(params, xyz, with_app)
+    assert (got[1] is None) == (not with_app)
+    for a, b in zip(got, want):
+        if b is None:
+            continue
+        assert a.shape == b.shape
+        scale = float(b.abs().max()) if n else 0.0
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * scale)

@@ -73,21 +73,26 @@ def f32(a):
 replace = dataclasses.replace
 
 
-def field(tmp_path, model_name="TensorVMSplit", seed=0, **kw):
-    """A small field made by the JAX package (``init_field`` at 20^3, Ref
-    shading, PE 2, a 30 % occupied alpha mask over a numpy-seeded
-    [16, 18, 20] volume), written with its ``save_field`` and read back by
-    the port's ``load_field``: -> ((config, params, mask) of JAX,
-    (config, params, mask) of the port). ``density_shift`` -1 keeps the
-    alphas of random weights well away from 0 and 1."""
+def field(tmp_path, model_name="TensorVMSplit", seed=0,
+          grid_size=(20, 20, 20), density_n_comp=None, app_n_comp=(8, 8, 8),
+          **kw):
+    """A small field made by the JAX package (``init_field`` at 20^3 unless
+    ``grid_size`` says otherwise, Ref shading, PE 2, a 30 % occupied alpha
+    mask over a numpy-seeded [16, 18, 20] volume), written with its
+    ``save_field`` and read back by the port's ``load_field``: -> ((config,
+    params, mask) of JAX, (config, params, mask) of the port).
+    ``density_shift`` -1 keeps the alphas of random weights well away from
+    0 and 1."""
     from iffnerf_tpu.checkpoint import save_field
     from iffnerf_tpu.models.field import FieldConfig, init_field, make_alpha_mask
     from iffnerf_tpu_torch.checkpoint import load_field
 
     vm = model_name == "TensorVMSplit"
+    if density_n_comp is None:
+        density_n_comp = (4, 4, 4) if vm else (8, 8, 8)
     cfg = FieldConfig(
-        model_name=model_name, grid_size=(20, 20, 20),
-        density_n_comp=(4, 4, 4) if vm else (8, 8, 8), app_n_comp=(8, 8, 8),
+        model_name=model_name, grid_size=tuple(grid_size),
+        density_n_comp=tuple(density_n_comp), app_n_comp=tuple(app_n_comp),
         app_dim=27, shading_mode="Ref", view_pe=2, fea_pe=2, pos_pe=2,
         density_shift=-1.0, **kw)
     params = init_field(jax.random.PRNGKey(seed), cfg)
