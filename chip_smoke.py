@@ -49,6 +49,7 @@ from iffnerf_tpu_torch.models.field import (
 )
 from iffnerf_tpu_torch.models.render import compute_alpha, sample_point_color_fn
 from iffnerf_tpu_torch.ops import _build
+from iffnerf_tpu_torch.ops import banked_attention as banked_attention_module
 from iffnerf_tpu_torch.ops import field_features as field_features_module
 from iffnerf_tpu_torch.ops import grid_sample as grid_sample_module
 from iffnerf_tpu_torch.ops.banked_attention import (
@@ -268,12 +269,16 @@ def bound(bytes_: float, flops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def banked_bound(bank, q):
+def banked_bound(bank, q, reads: int = 1):
+    """K1's bound with the bank and the products counted ``reads`` times:
+    once by the kernels line's rule (each input read once), twice for the
+    two passes that an exact kernel needs (the scores need every patch's
+    denominator, known only after every ray)."""
     r, d = bank.shape
     p = q.shape[0]
     es = bank.element_size()
-    return bound(r * d * es + p * d * es + p + r * 4, 2.0 * r * d * p,
-                 bank.dtype)
+    return bound(reads * r * d * es + p * d * es + p + r * 4,
+                 reads * 2.0 * r * d * p, bank.dtype)
 
 
 def fused_bound(cfg, x, q):
@@ -303,9 +308,13 @@ def phase_device():
         if log.exists():
             ptxas += [ln.strip() for ln in log.read_text().splitlines()
                       if "registers" in ln or "spill" in ln]
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()
     emit(phase="device", card=card_line(), kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, build_s=build_s,
+         cuda=torch.version.cuda, nvcc=nvcc[-1] if nvcc else None,
+         build_s=build_s,
+         k1_bf16_clusters=banked_attention_module.bf16_clusters(),
          nvcc_s={k: round(v, 3) for k, v in built.items()}, ptxas=ptxas)
 
 
@@ -328,6 +337,11 @@ def phase_banked_kernel(params, cfgs, img, mask, rays):
             check(torch.allclose(got, want, **tol),
                   f"K1 {cfg.compute_dtype} R={r}: {e}")
             check(e["top100"] == K_TOP, f"K1 {cfg.compute_dtype} R={r}: {e}")
+            if cfg.compute_dtype == "bfloat16" and r == N_RAYS:
+                # the pair's two halves of a score land in either order
+                e["bit_equal_repeat"] = torch.equal(
+                    got, banked_scores_fused(b, q, pv))
+                check(e["bit_equal_repeat"], "K1 bf16: two calls bit-equal")
             errs[f"{cfg.compute_dtype}/{r}"] = e
         none = banked_scores_fused(bank[:RAGGED], q, torch.zeros_like(pv))
         check(not bool(none.any()), "K1 all-invalid mask gives zero scores")
@@ -565,9 +579,12 @@ def phase_times(params, cfgs, img, mask, rays, field, chunk_coords):
         f_ms, f_by = fused_bound(cfg, x, q)
         rows[f"banked_scores/{cfg.compute_dtype}"] = {
             "ms": time_ms(lambda: banked_scores_fused(bank, q, pv)),
+            "graph_ms": time_ms(lambda: banked_scores_fused(bank, q, pv),
+                                graph=True),
             "plain_ms": time_ms(lambda: banked_scores_plain(bank, q, pv)),
             "library_ms": time_ms(lambda: library_banked(bank, q, pv)),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_two_pass_ms": banked_bound(bank, q, reads=2)[0]}
         rows[f"fused_ray_scores/{cfg.compute_dtype}"] = {
             "ms": time_ms(lambda: fused_ray_scores(params, q, pv, x)),
             "plain_ms": time_ms(lambda: fused_ray_scores_plain(params, q, pv, x)),
@@ -1148,6 +1165,9 @@ def main() -> int:
         dict(name="banked_scores", route="cuda",
              source="iffnerf_tpu_torch/csrc/banked_attention.cu",
              replaces="iffnerf_tpu/ops/banked_attention.py:97",
+             design="bf16: persistent warp-specialised passes on 2-CTA"
+                    " clusters, TMA multicast into a 16-chunk mbarrier"
+                    " ring, wgmma m64n128k16",
              launches=k1_counts["banked_scores"],
              launches_per_estimate=k1_counts["banked_scores"] / n_est,
              max_abs_err=k1_errs[f"bfloat16/{N_RAYS}"]["max_abs_err"],

@@ -1,11 +1,10 @@
-// bf16 tensor-core helpers shared by the banked-scoring kernel
-// (banked_attention.cu) and the fused ray-scoring kernel
+// bf16 tensor-core helpers of the fused ray-scoring kernel
 // (fused_ray_attention.cu): the mma.sync m16n8k16 product, fragment loads,
 // and the softmax statistics of a tile held in mma accumulators.
 //
 // Accumulator layout of one m16 x n8 tile (PTX ISA, "mma.m16n8k16"): lane
 // (g = lane / 4, tq = lane % 4) holds c[i] at row g + 8*(i >> 1), column
-// 2*tq + (i & 1). Both kernels run 8 warps as 2 (rays) x 4 (patches), each
+// 2*tq + (i & 1). The kernel runs 8 warps as 2 (rays) x 4 (patches), each
 // warp holding 64 patch columns, so a thread owns the 16 columns
 //   col(j) = wn*64 + (j >> 1)*8 + 2*tq + (j & 1),  j < 16.
 #pragma once

@@ -3,8 +3,11 @@
 Marked ``cuda``: they skip where no card is present, and run on one with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``
 (``--noconftest``: the suite's conftest imports JAX, which the card's
-machine need not have). Ray counts cover one ray, a ragged tile, several
-blocks and more tiles than blocks; the row gather covers both its routes,
+machine need not have). Ray counts of the banked scorer cover one ray,
+the edges of its 64-ray tile and of its 2-CTA pair, fewer tiles than SMs,
+more tiles than two an SM and the main path's 540 000; its bf16 route is
+also held to bit-equal repeats, zeros for an all-invalid mask and the
+refusal of depths it does not take. The row gather covers both its routes,
 the field's row widths, ragged and empty index counts, the edge indices, a table whose
 rows are not 16-byte aligned and the mask lookup's stacked corners; the
 fused field kernel covers lego's widths and non-cubic grids with unequal
@@ -64,17 +67,52 @@ def _assert_scores_close(got, want, rtol):
                                atol=rtol * 160 / got.shape[0])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("r", [1, 65, 1021, 70001])
-def test_banked_kernel_matches_plain(dev, dtype, r):
+def _bank_and_queries(dev, dtype, r, d=384):
     g = torch.Generator().manual_seed(r)
-    bank = torch.randn((r, 384), generator=g).to(dev, dtype)
-    q = torch.randn((256, 384), generator=g).to(dev, dtype)
+    bank = torch.randn((r, d), generator=g).to(dev, dtype)
+    q = torch.randn((256, d), generator=g).to(dev, dtype)
+    return bank, q
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 63, 64, 65, 127, 128, 129, 1021, 4000,
+                               70001, 540000])
+def test_banked_kernel_matches_plain(dev, dtype, r):
+    """64-ray tiles dealt over 2-CTA clusters (one a pair of SMs): the
+    tile's and the pair's edges, 63 tiles (fewer than SMs), 1094 (more
+    than two an SM), the main path's 540 000 rays."""
+    bank, q = _bank_and_queries(dev, dtype, r)
     got = banked_scores_fused(bank, q, _valid(dev))
     torch.cuda.synchronize()
     want = banked_scores_plain(bank, q, _valid(dev))
     # float32 accumulation in another order (tests/test_banked_pose.py)
     _assert_scores_close(got, want, rtol=2e-5)
+
+
+def test_banked_kernel_is_deterministic(dev):
+    """Each CTA of a pair adds its half of a ray's score onto zero: the
+    two orders give the same bits."""
+    bank, q = _bank_and_queries(dev, torch.bfloat16, 540000)
+    first = banked_scores_fused(bank, q, _valid(dev))
+    assert torch.equal(first, banked_scores_fused(bank, q, _valid(dev)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [129, 70001])
+def test_banked_kernel_all_invalid_mask_gives_zeros(dev, dtype, r):
+    bank, q = _bank_and_queries(dev, dtype, r)
+    none = torch.zeros(256, dtype=torch.bool, device=dev)
+    assert not bool(banked_scores_fused(bank, q, none).any())
+
+
+@pytest.mark.parametrize("d", [32, 96, 448])
+def test_banked_kernel_refuses_bf16_depths_it_does_not_take(dev, d):
+    """The bf16 route reads depth in TMA boxes of 64, up to 384."""
+    bank, q = _bank_and_queries(dev, torch.bfloat16, 129, d)
+    before = banked_scores_fused.launches
+    with pytest.raises(ValueError, match="bank depth"):
+        banked_scores_fused(bank, q, _valid(dev))
+    assert banked_scores_fused.launches == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
