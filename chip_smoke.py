@@ -53,6 +53,7 @@ from iffnerf_tpu_torch.ops import banked_attention as banked_attention_module
 from iffnerf_tpu_torch.ops import field_features as field_features_module
 from iffnerf_tpu_torch.ops import grid_sample as grid_sample_module
 from iffnerf_tpu_torch.ops.banked_attention import (
+    PATCHES,
     banked_scores_fused,
     banked_scores_plain,
 )
@@ -78,6 +79,7 @@ from iffnerf_tpu_torch.pose.id_module import (
     init_id_module,
     ray_bank,
     ray_mlp_inputs,
+    score_rays,
 )
 from iffnerf_tpu_torch.pose.model_utils import load_model
 from iffnerf_tpu_torch.pose.sampling import (
@@ -104,8 +106,10 @@ REPS = 10                # timed batches of kernel calls (median)
 BATCH_MAX = 50           # calls a timed batch
 N_PROFILE = 3            # profiled estimates per route, colour chunks
 N_PROFILE_ITERATIONS = 10  # profiled sampler iterations
-# H100 SXM datasheet peaks (dense): bf16 tensor cores, float32 FMA, HBM3
+# H100 SXM datasheet peaks (dense): bf16 tensor cores, float32 FMA, HBM3;
+# TF32 tensor cores, on which K1's float32 route runs three products
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 UP = (0.0, 0.0, 1.0)
 # K2 against its plain version, relative (see score_tol): float32 summation
@@ -273,12 +277,28 @@ def banked_bound(bank, q, reads: int = 1):
     """K1's bound with the bank and the products counted ``reads`` times:
     once by the kernels line's rule (each input read once), twice for the
     two passes that an exact kernel needs (the scores need every patch's
-    denominator, known only after every ray)."""
+    denominator, known only after every ray). A float32 bank's products
+    are the three TF32 products of the split, at the TF32 rate. -> (ms,
+    bound_by, the bytes alone in ms)."""
     r, d = bank.shape
     p = q.shape[0]
     es = bank.element_size()
-    return bound(reads * r * d * es + p * d * es + p + r * 4,
-                 reads * 2.0 * r * d * p, bank.dtype)
+    bytes_ = reads * r * d * es + p * d * es + p + r * 4
+    flops = reads * 2.0 * r * d * p
+    t_bytes = bytes_ / PEAK_BYTES * 1e3
+    if bank.dtype == torch.float32:
+        t_ops = 3 * flops / PEAK_TF32 * 1e3
+        ms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations: three TF32 products"))
+    else:
+        ms, by = bound(bytes_, flops, bank.dtype)
+    return ms, by, t_bytes
+
+
+def fma_bound_ms(bank, reads: int = 1):
+    """The float32 FMA rate's time for K1's products, beside the bound."""
+    r, d = bank.shape
+    return reads * 2.0 * r * d * 256 / PEAK_FLOPS[torch.float32] * 1e3
 
 
 def fused_bound(cfg, x, q):
@@ -314,7 +334,8 @@ def phase_device():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc=nvcc[-1] if nvcc else None,
          build_s=build_s,
-         k1_bf16_clusters=banked_attention_module.bf16_clusters(),
+         k1_bf16_clusters=banked_attention_module.resident_clusters(torch.bfloat16),
+         k1_float32_clusters=banked_attention_module.resident_clusters(torch.float32),
          nvcc_s={k: round(v, 3) for k, v in built.items()}, ptxas=ptxas)
 
 
@@ -337,16 +358,79 @@ def phase_banked_kernel(params, cfgs, img, mask, rays):
             check(torch.allclose(got, want, **tol),
                   f"K1 {cfg.compute_dtype} R={r}: {e}")
             check(e["top100"] == K_TOP, f"K1 {cfg.compute_dtype} R={r}: {e}")
-            if cfg.compute_dtype == "bfloat16" and r == N_RAYS:
-                # the pair's two halves of a score land in either order
+            if r == N_RAYS:
+                # bf16: the pair's two halves of a score land in either
+                # order; float32: the four shares are added in rank order
                 e["bit_equal_repeat"] = torch.equal(
                     got, banked_scores_fused(b, q, pv))
-                check(e["bit_equal_repeat"], "K1 bf16: two calls bit-equal")
+                check(e["bit_equal_repeat"],
+                      f"K1 {cfg.compute_dtype}: two calls bit-equal")
             errs[f"{cfg.compute_dtype}/{r}"] = e
         none = banked_scores_fused(bank[:RAGGED], q, torch.zeros_like(pv))
         check(not bool(none.any()), "K1 all-invalid mask gives zero scores")
     emit(phase="banked_kernel_check", results=errs)
     return errs
+
+
+def phase_guards(params, cfg, img, mask, rays):
+    """What the wrappers refuse. Each of the four kernel wrappers raises
+    under grad with an input that requires it (no kernel has a backward
+    yet), before any launch, and runs under torch.no_grad(); shapes the
+    banked kernel refuses (64 patches, a bf16 depth of 96, a float32 depth
+    of 48) go through score_rays to the exact path, with no launch."""
+    dev = img.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    q, pv, _ = image_queries(params, cfg, img, mask)
+    bank = ray_bank(params, cfg, *rays)[:RAGGED].clone().requires_grad_()
+    k_proj = dict(params["k_proj"], w=params["k_proj"]["w"].clone().requires_grad_())
+    table = torch.randn((GRID * GRID, 16), generator=g, device=dev).requires_grad_()
+    idx = torch.randint(0, GRID * GRID, (RAGGED,), generator=g, device=dev,
+                        dtype=torch.int32)
+    fcfg, field = random_vm_field(*NON_CUBIC["non_cubic"], g, dev)
+    field["app_plane"][0].requires_grad_()
+    xyz = random_coords(RAGGED, 1.1, g, dev)
+    x = ray_mlp_inputs(cfg, *(a[:RAGGED] for a in rays))
+    calls = {
+        "banked_scores": (banked_scores_fused, lambda: banked_scores_fused(bank, q, pv)),
+        "fused_ray_scores": (fused_ray_scores, lambda: fused_ray_scores(
+            dict(params, k_proj=k_proj), q, pv, x)),
+        "gather_rows": (gather_rows, lambda: gather_rows(table, idx)),
+        "field_features": (field_features, lambda: field_features(
+            fcfg, field, xyz, True))}
+    grad = {}
+    for name, (wrapper, call) in calls.items():
+        before = wrapper.launches
+        try:
+            call()
+            raised = False
+        except RuntimeError as err:
+            raised = "ROADMAP item 21" in str(err)
+        check(raised and wrapper.launches == before,
+              f"{name} raises under grad before any launch")
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        check(wrapper.launches == before + 1, f"{name} runs under no_grad")
+        grad[name] = {"raised_under_grad": raised, "ran_under_no_grad": True}
+    dispatch = {}
+    for name, (p, d, dt) in {"p64": (64, 384, torch.float32),
+                             "bf16_d96": (PATCHES, 96, torch.bfloat16),
+                             "f32_d48": (PATCHES, 48, torch.float32)}.items():
+        kbank = torch.randn((N_RAYS, d), generator=g, device=dev).to(dt)
+        kq = torch.randn((p, d), generator=g, device=dev).to(dt)
+        kpv = torch.rand(p, generator=g, device=dev) > 0.3
+        before = banked_scores_fused.launches
+        scores, att = score_rays(None, IDConfig(), kq, kpv, None, None, None,
+                                 bank=kbank)
+        exact, _ = score_rays(None, IDConfig(fused_bank=False), kq, kpv,
+                              None, None, None, bank=kbank)
+        same = torch.equal(scores, exact)
+        check(banked_scores_fused.launches == before and att is not None
+              and same, f"score_rays sends {name} to the exact path")
+        dispatch[name] = {"exact_path": att is not None, "equal": same,
+                          "launches": banked_scores_fused.launches - before}
+        del kbank
+    emit(phase="guards", grad=grad, refused_shapes=dispatch)
 
 
 def phase_fused_kernel(params, cfgs, img, mask, rays):
@@ -575,16 +659,22 @@ def phase_times(params, cfgs, img, mask, rays, field, chunk_coords):
         bank = ray_bank(params, cfg, *rays)
         x = ray_mlp_inputs(cfg, *rays)
         q, pv, _ = image_queries(params, cfg, img, mask)
-        b_ms, b_by = banked_bound(bank, q)
+        b_ms, b_by, b_bytes_ms = banked_bound(bank, q)
         f_ms, f_by = fused_bound(cfg, x, q)
+        two_ms, _, two_bytes_ms = banked_bound(bank, q, reads=2)
         rows[f"banked_scores/{cfg.compute_dtype}"] = {
             "ms": time_ms(lambda: banked_scores_fused(bank, q, pv)),
             "graph_ms": time_ms(lambda: banked_scores_fused(bank, q, pv),
                                 graph=True),
             "plain_ms": time_ms(lambda: banked_scores_plain(bank, q, pv)),
             "library_ms": time_ms(lambda: library_banked(bank, q, pv)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "bound_two_pass_ms": banked_bound(bank, q, reads=2)[0]}
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes_ms": b_bytes_ms,
+            "bound_two_pass_ms": two_ms,
+            "bound_two_pass_bytes_ms": two_bytes_ms}
+        if cfg.compute_dtype == "float32":
+            rows["banked_scores/float32"].update(
+                fma_rate_ms=fma_bound_ms(bank),
+                fma_rate_two_pass_ms=fma_bound_ms(bank, reads=2))
         rows[f"fused_ray_scores/{cfg.compute_dtype}"] = {
             "ms": time_ms(lambda: fused_ray_scores(params, q, pv, x)),
             "plain_ms": time_ms(lambda: fused_ray_scores_plain(params, q, pv, x)),
@@ -1143,7 +1233,11 @@ def main() -> int:
     k1_errs = phase_banked_kernel(params, (cfg32, cfg16), img0, mask, rays)
     k2_errs = phase_fused_kernel(params, (cfg32, cfg16), img0, mask, rays)
     k3_err = phase_gather_kernel(dev)
+    phase_guards(params, cfg16, img0, mask, rays)
     k1_counts, banked_ms = phase_banked_estimate(params, cfg16, imgs, mask, rays)
+    # the pose CLI's --pose_f32 route: a float32 bank through K1's TF32 route
+    k1f32_counts, banked32_ms = phase_banked_estimate(
+        params, cfg32, imgs[:N_WARM + 3], mask, rays)
     k2_counts, fused_ms = phase_fused_estimate(params, cfg16, imgs, mask, rays)
     phase_fused_estimate(params, cfg32, imgs[:N_WARM + 3], mask, rays)
     obj_counts, field, chunk_coords = phase_object(params, cfg16, dev)
@@ -1152,13 +1246,16 @@ def main() -> int:
                        chunk_coords)
     del field, chunk_coords
     bank = ray_bank(params, cfg16, ro, rd, rr)
+    bank32 = ray_bank(params, cfg32, ro, rd, rr)
     fused16 = IDConfig(compute_dtype="bfloat16", fused_scoring=True)
     phase_profile({
         "banked": lambda img: estimate_pose_single_banked(
             params, cfg16, img, mask, bank, ro, rd, UP, k=K_TOP),
+        "banked_float32": lambda img: estimate_pose_single_banked(
+            params, cfg32, img, mask, bank32, ro, rd, UP, k=K_TOP),
         "fused": lambda img: estimate_pose_single(
             params, fused16, img, mask, ro, rd, rr, UP, k=K_TOP)}, imgs)
-    del bank
+    del bank, bank32
 
     n_est = N_WARM + N_TIMED
     kernels = [
@@ -1171,7 +1268,18 @@ def main() -> int:
              launches=k1_counts["banked_scores"],
              launches_per_estimate=k1_counts["banked_scores"] / n_est,
              max_abs_err=k1_errs[f"bfloat16/{N_RAYS}"]["max_abs_err"],
-             **rows["banked_scores/bfloat16"]),
+             **rows["banked_scores/bfloat16"],
+             float32=dict(
+                 design="persistent warp-specialised passes on 4-CTA"
+                        " clusters, TMA multicast into two 2-chunk mbarrier"
+                        " rings, three TF32 wgmma m64n64k8 a step (A split"
+                        " in registers, q_hi and q_lo in shared memory)",
+                 launches=k1f32_counts["banked_scores"],
+                 launches_per_estimate=(k1f32_counts["banked_scores"]
+                                        / (N_WARM + 3)),
+                 max_abs_err=k1_errs[f"float32/{N_RAYS}"]["max_abs_err"],
+                 estimate_ms_per_image=banked32_ms,
+                 **rows["banked_scores/float32"])),
         dict(name="fused_ray_scores", route="cuda",
              source="iffnerf_tpu_torch/csrc/fused_ray_attention.cu",
              replaces="iffnerf_tpu/ops/fused_ray_attention.py:90",
@@ -1194,7 +1302,7 @@ def main() -> int:
              **rows["field_features/colour_chunk/both"]),
     ]
     emit(phase="latency", banked_ms_per_image=banked_ms,
-         fused_ms_per_image=fused_ms)
+         banked_float32_ms_per_image=banked32_ms, fused_ms_per_image=fused_ms)
     print(card_line(), flush=True)
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",

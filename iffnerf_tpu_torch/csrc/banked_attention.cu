@@ -9,212 +9,149 @@
 // [R, P] logits never reach device memory: pass 1 computes the statistics,
 // pass 2 recomputes the logits tile and reduces it to scores.
 //
-// Three launches on the caller's stream:
-//   1. the stats kernel: partial (m_b, d_b) per patch for each block or
-//      cluster (the TPU grid's running pair cannot cross them)
+// Launches on the caller's stream:
+//   1. the stats pass: partial (m_c, d_c) per patch for each cluster (the
+//      TPU grid's running pair cannot cross clusters)
 //   2. lse_merge_kernel (softmax_stats.cuh): m, d, w
-//   3. the score kernel: scores[r]
+//   3. the score pass: scores[r] (bf16), or each CTA's share of them
+//   4. (float32 only) sum_shares: the shares summed in rank order
 //
-// Bound on an H100 SXM: the bank is read twice, and must be. A ray's score
-// weighs patch p by 1/d_p, known only once every ray has been seen, and
-// keeping the logits instead (276 MB even in bf16, written and read back)
-// moves more bytes than a second read. At R = 540000 in bf16 the two reads
-// are 2 x 415 MB, 0.248 ms at 3.35 TB/s, and the products 2 x 106 GFLOP,
-// 0.215 ms at 989 TFLOP/s: bytes bound the pair at 0.248 ms (one read
-// alone 0.124 ms).
+// Both passes of both dtypes are one persistent, warp-specialised kernel
+// (banked_pass<T, kScore>) over clusters of CTAs, one CTA an SM. The
+// cluster splits the patch axis: each CTA keeps its share of q in shared
+// memory and gives the rest to a ring of bank chunks of 64 rays x 128 bytes
+// of depth (128-byte swizzle), guarded by full and empty mbarriers. A
+// producer warp loads chunks by TMA; each CTA loads its share of a chunk's
+// rays and multicasts it to the whole cluster, so device memory serves the
+// bank once per pass. Two consumer warpgroups take the cluster's 64-ray
+// tiles in turn (one's epilogue overlaps the other's products), with wgmma
+// products into float32 accumulators and an epilogue in registers, log2(e)
+// folded into the scale and exp2. Stats: rays past R are kept out of the
+// max and the sum, and each CTA owns its patches' (m, d), so the pass needs
+// no exchange. setmaxnreg moves registers from the producer warpgroup (40)
+// to the consumers (232).
 //
-// bf16 bank (the inference path): each pass is a persistent,
-// warp-specialised kernel over 2-CTA clusters, one CTA an SM. The patch
-// axis is split over the pair: each CTA keeps its 128 patches of q in
-// shared memory (96 KB at D = 384), and the rest holds a ring of 16 bank
-// chunks of 64 rays x 64 deep (8 KB each, 128-byte swizzle), guarded by
-// full and empty mbarriers. One producer thread loads chunks by TMA; each
-// CTA loads half of a chunk's rays and multicasts it to both, so device
-// memory serves the bank once per pass and 128 KB of it is in flight a
-// pair. Two consumer warpgroups take the cluster's 64-ray tiles in turn,
-// each tile a chain of wgmma m64n128k16 (bank chunk K-major as A, q K-major
-// as B) with float32 accumulators, and free each chunk to both producers
-// once read. The epilogue works on the accumulators in registers, with
-// log2(e) folded into the scale and exp2. Stats: rays past R are kept out
-// of the max and the sum, and each CTA owns its patches' (m, d), so the
-// pass needs no exchange. Score: each CTA adds its half of a ray's sum to
-// the score that the stats pass zeroed; two addends on zero give the same
-// bits in either order, so the scores are deterministic. Depth must be a
-// multiple of 64 up to 384.
+// bf16 bank (the inference path): 2-CTA clusters, 128 patches of q a CTA
+// (96 KB at D = 384), a ring of 16 chunks 64 deep (8 KB) shared by both
+// warpgroups, wgmma m64n128k16 with both operands in shared memory. Each
+// CTA adds its half of a ray's score to the score that the stats pass
+// zeroed; two addends on zero give the same bits in either order, so the
+// scores are deterministic. Bound on an H100 SXM at R = 540000, D = 384:
+// the two reads are 2 x 415 MB, 0.248 ms at 3.35 TB/s, the products
+// 2 x 106 GFLOP, 0.215 ms at 989 TFLOP/s: bytes bound the pair at 0.248 ms.
+// Depth: a multiple of 64 up to 384.
 //
-// float32 bank (training's precision): float32 FMAs in a 64-ray x 256-patch
-// register tile (8 x 8 per thread), q^T [D, 256] streaming through shared
-// memory in 16-deep slices from L2; bound by the 67 TFLOP/s FMA rate
-// (1.6 ms).
+// float32 bank: the products run on the tensor cores in TF32 split in
+// three, which keeps float32 accuracy (one TF32 product alone is off by
+// about 1e-3 of a score). For x = hi + lo with hi = x rounded to TF32,
+//   K . q ~ hi_K . lo_q + lo_K . hi_q + hi_K . hi_q
+// (the small terms first, lo_K . lo_q dropped: 2^-22 of the product).
+// 4-CTA clusters, 64 patches a CTA: q's hi and lo for them take 192 KB at
+// D = 384 (loaded by TMA, split in place once), which leaves 32 KB for 4
+// chunks 32 deep (8 KB), two for each warpgroup: each warpgroup has a ring
+// and a producer warp of its own, since a shared ring that shallow would
+// let the second warpgroup wait on a phase of the first one's chunks. A
+// warpgroup loads a chunk's values into registers (16-byte loads: the
+// depth is read in a permuted order, the same for q), splits them there
+// and frees the stage at once; then each 8-deep step issues three wgmma
+// m64n64k8 with A from registers and B = q_lo, q_hi, q_hi from shared
+// memory, and the next chunk is loaded and split while they run. The score pass writes each CTA's share of a ray's score to a
+// [4, R] scratch, and sum_shares adds them in rank order: deterministic.
+// Bound on an H100 SXM at R = 540000, D = 384: three TF32 products of
+// 106 GFLOP a pass, 2 x 0.644 ms at 495 TFLOP/s, bound the pair at
+// 1.287 ms; the bank's two reads take 0.495 ms (the float32 FMA rate
+// would need 3.17 ms). What holds it back (tools/k1_trace.py, PERF.md):
+// a chunk's loads and splits take about as long as its products, and the
+// products of two warpgroups that take A from registers issue slower than
+// their nominal rate; and 30 clusters fit (120 SMs). Depth: a multiple of
+// 32 up to 384.
 #include <cstdint>
 
 #include "softmax_stats.cuh"
 #include "tma_wgmma.cuh"
 
 namespace iff {
-
-// ---------------------------------------------------------------------------
-// float32 bank: FMA tiles
-// ---------------------------------------------------------------------------
-
-constexpr int kBK = 16;  // depth of one shared-memory slice
-
-// acc[i][j] = K[ray0 + wp*8 + i] . qt[:, ln + 32*j]; rays past R read as 0.
-__device__ __forceinline__ void logits_tile(const float* __restrict__ bank,
-                                            const float* __restrict__ qt, int R, int D, int ray0,
-                                            float* As, float* Bs,
-                                            float (&acc)[kRaysPerWarp][kColsPerLane]) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int i = 0; i < kRaysPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = 0.f;
-
-  const int lr = tid >> 2;        // ray of the tile this thread loads
-  const int lk = (tid & 3) * 4;   // first of its 4 depth elements
-  const int gr = ray0 + lr;
-  const float* brow = bank + static_cast<int64_t>(gr) * D;
-
-  for (int k0 = 0; k0 < D; k0 += kBK) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) As[(lk + e) * kTileRays + lr] = gr < R ? brow[k0 + lk + e] : 0.f;
-#pragma unroll
-    for (int e = 0; e < kBK * kPatches / kThreads; ++e) {
-      const int idx = tid + e * kThreads;  // = kk * 256 + p
-      Bs[idx] = qt[static_cast<int64_t>(k0) * kPatches + idx];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk * kTileRays + warp * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk * kTileRays + warp * 8 + 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float b[kColsPerLane];
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) b[j] = Bs[kk * kPatches + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < kRaysPerWarp; ++i)
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    banked_stats_f32(const float* __restrict__ bank, const float* __restrict__ qt, int R, int D,
-                     float scale, float* part_m, float* part_d) {
-  __shared__ __align__(16) float As[kBK * kTileRays];
-  __shared__ __align__(16) float Bs[kBK * kPatches];
-  __shared__ float red[2 * 8 * kPatches];
-  const int warp = threadIdx.x >> 5;
-  float m_run[kColsPerLane], d_run[kColsPerLane];
-#pragma unroll
-  for (int j = 0; j < kColsPerLane; ++j) {
-    m_run[j] = kNegInf;
-    d_run[j] = 0.f;
-  }
-  const int ntiles = (R + kTileRays - 1) / kTileRays;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int ray0 = t * kTileRays;
-    float acc[kRaysPerWarp][kColsPerLane];
-    logits_tile(bank, qt, R, D, ray0, As, Bs, acc);
-#pragma unroll
-    for (int i = 0; i < kRaysPerWarp; ++i)
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) acc[i][j] *= scale;
-    const int nvalid = min(max(R - (ray0 + warp * kRaysPerWarp), 0), kRaysPerWarp);
-    online_update(acc, nvalid, m_run, d_run);
-  }
-  write_block_stats(m_run, d_run, red, part_m, part_d);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    banked_score_f32(const float* __restrict__ bank, const float* __restrict__ qt, int R, int D,
-                     float scale, const float* __restrict__ m, const float* __restrict__ w,
-                     float* scores) {
-  __shared__ __align__(16) float As[kBK * kTileRays];
-  __shared__ __align__(16) float Bs[kBK * kPatches];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float mc[kColsPerLane], wc[kColsPerLane];
-#pragma unroll
-  for (int j = 0; j < kColsPerLane; ++j) {
-    mc[j] = m[lane + 32 * j];
-    wc[j] = w[lane + 32 * j];
-  }
-  const int ntiles = (R + kTileRays - 1) / kTileRays;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int ray0 = t * kTileRays;
-    float acc[kRaysPerWarp][kColsPerLane];
-    logits_tile(bank, qt, R, D, ray0, As, Bs, acc);
-    float s[kRaysPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRaysPerWarp; ++i) {
-      float v = 0.f;
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) v += expf(acc[i][j] * scale - mc[j]) * wc[j];
-      s[i] = v;
-    }
-    // sum over the warp's 32 lanes: every lane ends with the 8 ray totals
-#pragma unroll
-    for (int i = 0; i < kRaysPerWarp; ++i)
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
-    float mine = s[0];
-#pragma unroll
-    for (int i = 1; i < kRaysPerWarp; ++i)
-      if (lane == i) mine = s[i];
-    const int r = ray0 + warp * kRaysPerWarp + lane;
-    if (lane < kRaysPerWarp && r < R) scores[r] = mine;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 bank: a TMA ring, wgmma, pairs of CTAs
-// ---------------------------------------------------------------------------
-
 namespace wg {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRays = 64;                      // rays a tile: one wgmma M
-constexpr int kChunk = 64;                     // depth a TMA box: the 128-byte swizzle width
-constexpr int kHalf = kPatches / 2;            // patches a CTA of the pair holds: wgmma N
-constexpr int kMaxChunks = 384 / kChunk;       // depth up to 384
-constexpr int kStages = 16;                    // bank chunks in the ring
-constexpr int kStageElems = kRays * kChunk;    // 8 KB
-constexpr int kQChunkElems = kHalf * kChunk;   // 16 KB
-constexpr int kConsumerWarps = 8;              // two warpgroups
+constexpr int kRays = 64;                              // rays a tile: one wgmma M
+constexpr int kConsumerWarps = 8;                      // two warpgroups
 constexpr int kThreadsWs = 32 * (kConsumerWarps + 4);  // and the producer warpgroup
-constexpr uint32_t kReleases = 2 * 4;          // a chunk is freed by 4 warps in each CTA
 // registers a thread, moved from the producer warpgroup to the two
 // consumer ones: 128 x (168 - 40) = 256 x (232 - 168)
 constexpr uint32_t kProducerRegs = 40, kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kMaxDepth = 384;
 
-// q's chunks, the ring and the barriers, after up to 1 KB of alignment
-inline size_t smem_bytes(int nk) {
-  return 1024 + sizeof(bf16) * (static_cast<size_t>(nk) * kQChunkElems + kStages * kStageElems) +
-         sizeof(uint64_t) * (2 * kStages + 1);
-}
+// What differs between the routes: T is the bank's element type.
+template <class T>
+struct Route;
 
+template <>
+struct Route<bf16> {
+  static constexpr int kCtas = 2;     // CTAs a cluster, each a share of the patches
+  static constexpr int kStages = 16;  // bank chunks in the ring
+  static constexpr int kRings = 1;    // both warpgroups share one ring
+  static constexpr int kQCopies = 1;  // q as loaded
+};
+
+template <>
+struct Route<float> {
+  static constexpr int kCtas = 4;
+  static constexpr int kStages = 4;
+  static constexpr int kRings = 2;    // a ring of 2 chunks for each warpgroup
+  static constexpr int kQCopies = 2;  // q_hi, q_lo
+};
+
+template <class T>
+struct Shape : Route<T> {
+  using Route<T>::kCtas;
+  using Route<T>::kStages;
+  using Route<T>::kRings;
+  using Route<T>::kQCopies;
+  static constexpr int kChunk = 128 / sizeof(T);        // depth a TMA box: the swizzle width
+  static constexpr int kN = kPatches / kCtas;           // patches a CTA: wgmma N
+  static constexpr int kAcc = kN / 2;                   // accumulators a thread
+  static constexpr int kCols = kN / 4;                  // columns a thread holds of each row
+  static constexpr int kMaxChunks = kMaxDepth / kChunk;
+  static constexpr int kStageElems = kRays * kChunk;    // 8 KB
+  static constexpr int kQChunkElems = kN * kChunk;      // 16 KB (bf16), 8 KB (float32)
+  static constexpr int kRingStages = kStages / kRings;  // chunks in each ring
+  static constexpr int kShareRays = kRays / kCtas;      // rays of a chunk each CTA loads
+  static constexpr uint32_t kReleases = kCtas * 4;      // a chunk is freed by 4 warps a CTA
+  static constexpr uint16_t kMask = (1 << kCtas) - 1;   // every CTA of the cluster
+
+  // q's chunks (and their lo copies), the ring and the barriers, after up
+  // to 1 KB of alignment
+  static size_t smem_bytes(int nk) {
+    return 1024 +
+           sizeof(T) * (static_cast<size_t>(nk) * kQChunkElems * kQCopies +
+                        kStages * kStageElems) +
+           sizeof(uint64_t) * (2 * kStages + 1);
+  }
+};
+
+template <class T>
 struct Smem {
-  bf16* q;          // nk chunks [128 patches][64 depth], swizzled
-  bf16* ring;       // kStages chunks [64 rays][64 depth], swizzled
+  T* q;             // kQCopies x nk chunks [kN patches][kChunk depth], swizzled
+  T* ring;          // kStages chunks [64 rays][kChunk depth], swizzled
   uint64_t* full;   // kStages: the chunk has landed in this CTA
-  uint64_t* empty;  // kStages: both CTAs' consumers are done with it
+  uint64_t* empty;  // kStages: every CTA's consumers are done with it
   uint64_t* qbar;   // q has landed
 };
 
-__device__ __forceinline__ Smem carve(unsigned char* raw, int nk) {
+template <class T>
+__device__ __forceinline__ Smem<T> carve(unsigned char* raw, int nk) {
+  using S = Shape<T>;
   const uint32_t pad = (1024 - (hop::smem_u32(raw) & 1023)) & 1023;  // swizzle atoms
-  Smem s;
-  s.q = reinterpret_cast<bf16*>(raw + pad);
-  s.ring = s.q + nk * kQChunkElems;
-  s.full = reinterpret_cast<uint64_t*>(s.ring + kStages * kStageElems);
-  s.empty = s.full + kStages;
-  s.qbar = s.empty + kStages;
+  Smem<T> s;
+  s.q = reinterpret_cast<T*>(raw + pad);
+  s.ring = s.q + nk * S::kQChunkElems * S::kQCopies;
+  s.full = reinterpret_cast<uint64_t*>(s.ring + S::kStages * S::kStageElems);
+  s.empty = s.full + S::kStages;
+  s.qbar = s.empty + S::kStages;
   return s;
 }
 
@@ -224,86 +161,235 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// bar.sync over the two consumer warpgroups (the producer warp never joins)
+// bar.sync over the two consumer warpgroups (the producer warps never join)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
 }
 
-// The producer warp, all of it in step (a lone thread would leave the
-// warp diverged around blocking waits): this CTA's half of q once, then
-// every tile's nk chunks through the ring, lane 0 issuing. Each CTA loads
-// half of a chunk's rays and multicasts it to both, so device memory serves
-// each chunk once; rays past R read as 0.
-__device__ void produce(const CUtensorMap* bank_map, const CUtensorMap* q_map, const Smem& sm,
-                        int nk, int ntiles, int cluster, int nclusters, uint32_t rank) {
+// Chunk kc of the cluster's j-th tile: its ring (tiles are dealt to the
+// rings in turn), its stage and the parity of that stage's phase.
+struct Slot {
+  int stage;
+  uint32_t parity;
+};
+
+template <class T>
+__device__ __forceinline__ Slot slot(int j, int kc, int nk) {
+  using S = Shape<T>;
+  const int ring = j % S::kRings;
+  const int g = (j / S::kRings) * nk + kc;  // chunks of this ring before it
+  return {ring * S::kRingStages + g % S::kRingStages,
+          static_cast<uint32_t>((g / S::kRingStages) & 1)};
+}
+
+// A producer warp, all of it in step (a lone thread would leave the warp
+// diverged around blocking waits), lane 0 issuing: ring 0's also loads
+// this CTA's share of q once. Then every tile of its ring, nk chunks each:
+// each CTA loads its share of a chunk's rays and multicasts it to the
+// cluster, so device memory serves each chunk once; rays past R read as 0.
+template <class T>
+__device__ void produce(const CUtensorMap* bank_map, const CUtensorMap* q_map, const Smem<T>& sm,
+                        int nk, int ntiles, int cluster, int nclusters, uint32_t rank, int ring) {
+  using S = Shape<T>;
   const bool leader = (threadIdx.x & 31) == 0;
   if (leader) {
     hop::prefetch_map(bank_map);
-    hop::mbar_arrive_expect_tx(sm.qbar, nk * kQChunkElems * sizeof(bf16));
-    for (int kc = 0; kc < nk; ++kc)
-      hop::tma_load_2d(sm.q + kc * kQChunkElems, q_map, sm.qbar, kc * kChunk, rank * kHalf);
+    if (ring == 0) {
+      hop::mbar_arrive_expect_tx(sm.qbar, nk * S::kQChunkElems * sizeof(T));
+      for (int kc = 0; kc < nk; ++kc)
+        hop::tma_load_2d(sm.q + kc * S::kQChunkElems, q_map, sm.qbar, kc * S::kChunk,
+                         rank * S::kN);
+    }
   }
   __syncwarp();
-  int g = 0;  // chunks so far
-  for (int t = cluster; t < ntiles; t += nclusters) {  // tiles dealt round-robin
-    const int ray0 = t * kRays + rank * (kRays / 2);
-    for (int kc = 0; kc < nk; ++kc, ++g) {
-      const int s = g % kStages;
-      hop::mbar_wait(sm.empty + s, ((g / kStages) & 1) ^ 1);
+  for (int j = ring;; j += S::kRings) {
+    const int t = cluster + j * nclusters;  // tiles dealt round-robin over the clusters
+    if (t >= ntiles) break;
+    const int ray0 = t * kRays + rank * S::kShareRays;
+    for (int kc = 0; kc < nk; ++kc) {
+      const Slot at = slot<T>(j, kc, nk);
+      hop::mbar_wait(sm.empty + at.stage, at.parity ^ 1);
       if (leader) {
-        hop::mbar_arrive_expect_tx(sm.full + s, kStageElems * sizeof(bf16));
-        hop::tma_load_2d_multicast(sm.ring + s * kStageElems + rank * (kRays / 2) * kChunk,
-                                   bank_map, sm.full + s, kc * kChunk, ray0, 0x3);
+        hop::mbar_arrive_expect_tx(sm.full + at.stage, S::kStageElems * sizeof(T));
+        hop::tma_load_2d_multicast(
+            sm.ring + at.stage * S::kStageElems + rank * S::kShareRays * S::kChunk, bank_map,
+            sm.full + at.stage, kc * S::kChunk, ray0, S::kMask);
       }
       __syncwarp();
     }
   }
 }
 
-// frees chunk s in both CTAs: this warp's products have read it
-__device__ __forceinline__ void release(const Smem& sm, int s) {
+// frees chunk s in every CTA of the cluster: this warp's products have read it
+template <class T>
+__device__ __forceinline__ void release(const Smem<T>& sm, int s) {
   if ((threadIdx.x & 31) == 0) {
-    hop::mbar_arrive_cluster(sm.empty + s, 0);
-    hop::mbar_arrive_cluster(sm.empty + s, 1);
+#pragma unroll
+    for (uint32_t c = 0; c < Shape<T>::kCtas; ++c) hop::mbar_arrive_cluster(sm.empty + s, c);
   }
+}
+
+// Byte offset of float col (0..31) of row `row` in a chunk of 128-byte rows
+// written with the 128-byte swizzle.
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * 128 + (((col >> 2) ^ (row & 7)) << 4) + (col & 3) * 4;
+}
+
+// The float32 route reads the depth of a 32-deep chunk in a permuted order,
+// the same for the bank and q, so that each thread's bank values lie in two
+// 16-byte words a row (load_split_f32): step kk's depth c (0..7) is
+// the chunk's column 8 (c % 4) + 2 kk + c / 4.
+__device__ __forceinline__ int permuted_col(int kk, int c) {
+  return 8 * (c & 3) + 2 * kk + (c >> 2);
+}
+
+// The float32 route's q: each 32-deep row of this CTA's share permuted
+// (permuted_col) and split in place into hi = tf32(x) (in q's chunks) and
+// lo = x - hi (in the chunks after them), then made visible to wgmma.
+__device__ __forceinline__ void split_q(const Smem<float>& sm, int nk) {
+  using S = Shape<float>;
+  unsigned char* hi = reinterpret_cast<unsigned char*>(sm.q);
+  unsigned char* lo = hi + nk * S::kQChunkElems * sizeof(float);
+  for (int i = threadIdx.x; i < nk * S::kN; i += 32 * kConsumerWarps) {
+    const int base = (i / S::kN) * S::kQChunkElems * sizeof(float), row = i % S::kN;
+    float x[S::kChunk];
+#pragma unroll
+    for (int c = 0; c < S::kChunk; ++c)
+      x[c] = *reinterpret_cast<const float*>(hi + base + swz(row, c));
+#pragma unroll
+    for (int c = 0; c < S::kChunk; ++c) {
+      const float v = x[permuted_col(c >> 3, c & 7)];
+      const float h = __uint_as_float(hop::to_tf32(v));
+      *reinterpret_cast<float*>(hi + base + swz(row, c)) = h;
+      *reinterpret_cast<float*>(lo + base + swz(row, c)) = v - h;
+    }
+  }
+  hop::fence_proxy_async();
+  consumers_sync();
+}
+
+// Chunk kc of the j-th tile in float32, once it has landed: the bank's
+// values of its 4 steps of 8 deep loaded into registers and split there
+// into hi and lo, then its stage freed (the products read only registers
+// and q). Element e of step kk's A fragment (row r0 + 8 (e & 1), depth
+// t + 4 (e >> 1), t = lane % 4) is the chunk's column 8 t + 2 kk + (e >> 1)
+// (permuted_col): the thread's 8 columns of a row are two 16-byte words, 4
+// loads a chunk.
+__device__ __forceinline__ void load_split_f32(const Smem<float>& sm, int j, int kc, int nk,
+                                               uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+  using S = Shape<float>;
+  const Slot at = slot<float>(j, kc, nk);
+  hop::mbar_wait(sm.full + at.stage, at.parity);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);
+  const unsigned char* a =
+      reinterpret_cast<const unsigned char*>(sm.ring + at.stage * S::kStageElems);
+  float x[2][8];  // columns 8 t .. 8 t + 7 of rows r0 and r0 + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      *reinterpret_cast<float4*>(&x[i][4 * u]) =
+          *reinterpret_cast<const float4*>(a + swz(r0 + 8 * i, 8 * t + 4 * u));
+#pragma unroll
+  for (int kk = 0; kk < S::kChunk / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = x[e & 1][2 * kk + (e >> 1)];
+      hi[kk][e] = hop::to_tf32(v);
+      lo[kk][e] = __float_as_uint(v - __uint_as_float(hi[kk][e]));
+    }
+#pragma unroll
+  for (int kk = 0; kk < S::kChunk / 8; ++kk) {
+    hop::fence_regs(hi[kk]);
+    hop::fence_regs(lo[kk]);
+  }
+  __syncwarp();  // every lane's loads have returned
+  release(sm, at.stage);
+}
+
+// The three products a step of depth chunk kc, from its split values.
+__device__ __forceinline__ void products_f32(const Smem<float>& sm, int nk, int kc,
+                                             const uint32_t (&hi)[4][4],
+                                             const uint32_t (&lo)[4][4], float (&acc)[32]) {
+  using S = Shape<float>;
+  const uint64_t b_hi = hop::desc_sw128(sm.q + kc * S::kQChunkElems);
+  const uint64_t b_lo = hop::desc_sw128(sm.q + (nk + kc) * S::kQChunkElems);
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < S::kChunk / 8; ++kk) {
+    hop::wgmma_m64n64k8_tf32(acc, hi[kk], b_lo + 2 * kk, kc | kk);
+    hop::wgmma_m64n64k8_tf32(acc, lo[kk], b_hi + 2 * kk, 1);
+    hop::wgmma_m64n64k8_tf32(acc, hi[kk], b_hi + 2 * kk, 1);
+  }
+  hop::wgmma_commit();
 }
 
 // acc = the unscaled logits of this cluster's j-th tile: the warpgroup's 64
-// rays x this CTA's 128 patches. Each chunk is freed as soon as the
-// products of the next one are issued and its own have completed.
-__device__ __forceinline__ void tile_logits(const Smem& sm, int nk, int j, float (&acc)[64]) {
+// rays x this CTA's kN patches. A bf16 chunk is read by its products, and
+// freed as soon as the products of the next one are issued (at most two
+// chunks' in flight) and its own have completed. A float32 chunk is freed
+// once its values are in registers, and the next chunk is loaded and split
+// while its products run. A wgmma's A registers must keep their values
+// until it completes (a rule on PTX registers), so the chunks alternate
+// between two sets, a and b, in two inlined copies of the same steps: a
+// set is rewritten only after the wait that ends the products reading it.
+template <class T>
+__device__ __forceinline__ void tile_logits(const Smem<T>& sm, int nk, int j,
+                                            float (&acc)[Shape<T>::kAcc]) {
+  using S = Shape<T>;
   hop::fence_regs(acc);
-  int prev = 0;
-  for (int kc = 0; kc < nk; ++kc) {
-    const int g = j * nk + kc, s = g % kStages;
-    hop::mbar_wait(sm.full + s, (g / kStages) & 1);
-    const uint64_t a = hop::desc_sw128(sm.ring + s * kStageElems);
-    const uint64_t b = hop::desc_sw128(sm.q + kc * kQChunkElems);
-    hop::wgmma_fence();
+  if constexpr (sizeof(T) == 2) {
+    int prev = 0;
+    for (int kc = 0; kc < nk; ++kc) {
+      const Slot at = slot<T>(j, kc, nk);
+      hop::mbar_wait(sm.full + at.stage, at.parity);
+      const uint64_t a = hop::desc_sw128(sm.ring + at.stage * S::kStageElems);
+      const uint64_t b = hop::desc_sw128(sm.q + kc * S::kQChunkElems);
+      hop::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk)
-      hop::wgmma_m64n128k16(acc, a + 2 * kk, b + 2 * kk, kc | kk);
-    hop::wgmma_commit();
-    if (kc > 0) {
-      hop::wgmma_wait<1>();
-      release(sm, prev);
+      for (int kk = 0; kk < S::kChunk / 16; ++kk)
+        hop::wgmma_m64n128k16(acc, a + 2 * kk, b + 2 * kk, kc | kk);
+      hop::wgmma_commit();
+      if (kc > 0) {
+        hop::wgmma_wait<1>();
+        release(sm, prev);
+      }
+      prev = at.stage;
     }
-    prev = s;
+    hop::wgmma_wait<0>();
+    release(sm, prev);
+  } else {
+    uint32_t ha[4][4], la[4][4], hb[4][4], lb[4][4];
+    load_split_f32(sm, j, 0, nk, ha, la);
+#pragma unroll 1
+    for (int kc = 0; kc < nk; kc += 2) {
+      products_f32(sm, nk, kc, ha, la, acc);
+      hop::wgmma_wait<1>();  // chunk kc - 1's products, which read set b
+      if (kc + 1 < nk) {
+        load_split_f32(sm, j, kc + 1, nk, hb, lb);
+        products_f32(sm, nk, kc + 1, hb, lb, acc);
+        hop::wgmma_wait<1>();  // chunk kc's, which read set a
+        if (kc + 2 < nk) load_split_f32(sm, j, kc + 2, nk, ha, la);
+      }
+    }
+    hop::wgmma_wait<0>();
   }
-  hop::wgmma_wait<0>();
   hop::fence_regs(acc);
-  release(sm, prev);
 }
 
-// Folds each thread's running (m, d) (base 2) of its 32 columns over the 8
-// row groups of its warp, then over the 8 consumer warps, into this CTA's
-// half of the cluster's partial row (natural log units, as lse_merge reads).
-__device__ __forceinline__ void fold_stats(const Smem& sm, float (&mr)[32], float (&dr)[32],
-                                           int cluster, uint32_t rank, float* part_m,
-                                           float* part_d) {
+// Folds each thread's running (m, d) (base 2) of its kCols columns over the
+// 8 row groups of its warp, then over the 8 consumer warps, into this CTA's
+// share of the cluster's partial row (natural log units, as lse_merge
+// reads).
+template <class T>
+__device__ __forceinline__ void fold_stats(const Smem<T>& sm, float (&mr)[Shape<T>::kCols],
+                                           float (&dr)[Shape<T>::kCols], int cluster,
+                                           uint32_t rank, float* part_m, float* part_d) {
+  using S = Shape<T>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
 #pragma unroll
-  for (int k = 0; k < 32; ++k)
+  for (int k = 0; k < S::kCols; ++k)
 #pragma unroll
     for (int off = 4; off < 32; off <<= 1) {
       const float mo = __shfl_xor_sync(0xffffffffu, mr[k], off);
@@ -314,48 +400,49 @@ __device__ __forceinline__ void fold_stats(const Smem& sm, float (&mr)[32], floa
     }
   consumers_sync();  // both warpgroups are done with the ring: it holds the fold
   float* red_m = reinterpret_cast<float*>(sm.ring);
-  float* red_d = red_m + kConsumerWarps * kHalf;
+  float* red_d = red_m + kConsumerWarps * S::kN;
   if (lane < 4) {
 #pragma unroll
-    for (int k = 0; k < 32; ++k) {
+    for (int k = 0; k < S::kCols; ++k) {
       const int col = 8 * (k >> 1) + 2 * tq + (k & 1);
-      red_m[warp * kHalf + col] = mr[k];
-      red_d[warp * kHalf + col] = dr[k];
+      red_m[warp * S::kN + col] = mr[k];
+      red_d[warp * S::kN + col] = dr[k];
     }
   }
   consumers_sync();
-  if (threadIdx.x < kHalf) {
+  if (threadIdx.x < S::kN) {
     const int p = threadIdx.x;
     float m = kNegInf;
-    for (int i = 0; i < kConsumerWarps; ++i) m = fmaxf(m, red_m[i * kHalf + p]);
+    for (int i = 0; i < kConsumerWarps; ++i) m = fmaxf(m, red_m[i * S::kN + p]);
     float d = 0.f;
     for (int i = 0; i < kConsumerWarps; ++i)
-      d += red_d[i * kHalf + p] * ex2(red_m[i * kHalf + p] - m);
-    part_m[cluster * kPatches + rank * kHalf + p] = m * kLn2;
-    part_d[cluster * kPatches + rank * kHalf + p] = d;
+      d += red_d[i * S::kN + p] * ex2(red_m[i * S::kN + p] - m);
+    part_m[cluster * kPatches + rank * S::kN + p] = m * kLn2;
+    part_d[cluster * kPatches + rank * S::kN + p] = d;
   }
 }
 
-// Two consumer warpgroups take the cluster's tiles in turn (one's epilogue
-// overlaps the other's products). Thread value k < 32 of a row is patch
-// rank*128 + 8 (k >> 1) + 2 (lane % 4) + (k & 1); its rows are
-// 16 (warp % 4) + lane / 4 and 8 more.
+// Two consumer warpgroups take the cluster's tiles in turn. Thread value
+// k < kCols of a row is patch rank*kN + 8 (k >> 1) + 2 (lane % 4) + (k & 1);
+// its rows are 16 (warp % 4) + lane / 4 and 8 more.
 //   stats (kScore false): running (m, d) in base 2 of its columns over its
-//     rays, then fold_stats; CTA 0 of the pair zeroes the tile's scores.
-//   score (kScore true): each row's sum over its 128 patches of
-//     exp2(l log2e - m log2e) w, added to the zeroed score: the two CTAs'
-//     halves land on 0 in either order with the same sum, bit for bit.
-template <bool kScore>
-__device__ void consume(const Smem& sm, int R, int nk, float scale2, int ntiles, int cluster,
+//     rays, then fold_stats; for bf16, CTA 0 of the pair zeroes the tile's
+//     scores.
+//   score (kScore true): each row's sum over the CTA's patches of
+//     exp2(l log2e - m log2e) w. bf16: added to the zeroed score (the two
+//     CTAs' halves land on 0 in either order with the same sum, bit for
+//     bit); float32: written to this CTA's row of out [4, R].
+template <class T, bool kScore>
+__device__ void consume(const Smem<T>& sm, int R, int nk, float scale2, int ntiles, int cluster,
                         int nclusters, uint32_t rank, const float* __restrict__ m,
-                        const float* __restrict__ w, float* part_m, float* part_d,
-                        float* scores) {
+                        const float* __restrict__ w, float* part_m, float* part_d, float* out) {
+  using S = Shape<T>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
-  float ra[32], rb[32];  // stats: running max and sum; score: max (both base 2) and weight
+  float ra[S::kCols], rb[S::kCols];  // stats: running max and sum; score: max (both base 2) and weight
 #pragma unroll
-  for (int k = 0; k < 32; ++k) {
+  for (int k = 0; k < S::kCols; ++k) {
     if constexpr (kScore) {
-      const int col = rank * kHalf + 8 * (k >> 1) + 2 * tq + (k & 1);
+      const int col = rank * S::kN + 8 * (k >> 1) + 2 * tq + (k & 1);
       ra[k] = m[col] * kLog2e;
       rb[k] = w[col];
     } else {
@@ -364,17 +451,18 @@ __device__ void consume(const Smem& sm, int R, int nk, float scale2, int ntiles,
     }
   }
   hop::mbar_wait(sm.qbar, 0);
-  float acc[64] = {};
+  if constexpr (sizeof(T) == 4) split_q(sm, nk);
+  float acc[S::kAcc] = {};
   for (int j = warp >> 2;; j += 2) {
     const int t = cluster + j * nclusters;
     if (t >= ntiles) break;
-    tile_logits(sm, nk, j, acc);
+    tile_logits<T>(sm, nk, j, acc);
     const int r0 = t * kRays + 16 * (warp & 3) + (lane >> 2);
     const int r1 = r0 + 8;
     if constexpr (kScore) {
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-      for (int k = 0; k < 32; ++k) {
+      for (int k = 0; k < S::kCols; ++k) {
         const int i = 4 * (k >> 1) + (k & 1);
         s0 = fmaf(ex2(fmaf(acc[i], scale2, -ra[k])), rb[k], s0);
         s1 = fmaf(ex2(fmaf(acc[i + 2], scale2, -ra[k])), rb[k], s1);
@@ -385,14 +473,20 @@ __device__ void consume(const Smem& sm, int R, int nk, float scale2, int ntiles,
         s1 += __shfl_xor_sync(0xffffffffu, s1, off);
       }
       if (tq == 0) {
-        if (r0 < R) atomicAdd(scores + r0, s0);
-        if (r1 < R) atomicAdd(scores + r1, s1);
+        if constexpr (sizeof(T) == 2) {
+          if (r0 < R) atomicAdd(out + r0, s0);
+          if (r1 < R) atomicAdd(out + r1, s1);
+        } else {
+          float* share = out + static_cast<int64_t>(rank) * R;
+          if (r0 < R) share[r0] = s0;
+          if (r1 < R) share[r1] = s1;
+        }
       }
     } else {
       // rays past R (the last tile's zero rows) stay out of the statistics
       const bool ok0 = r0 < R, ok1 = r1 < R;
 #pragma unroll
-      for (int k = 0; k < 32; ++k) {
+      for (int k = 0; k < S::kCols; ++k) {
         const int i = 4 * (k >> 1) + (k & 1);
         const float t0 = ok0 ? acc[i] * scale2 : kNegInf;
         const float t1 = ok1 ? acc[i + 2] * scale2 : kNegInf;
@@ -401,145 +495,170 @@ __device__ void consume(const Smem& sm, int R, int nk, float scale2, int ntiles,
         rb[k] = fmaf(rb[k], ex2(ra[k] - mn), e);
         ra[k] = mn;
       }
-      if (rank == 0 && tq == 0) {
-        if (ok0) scores[r0] = 0.f;
-        if (ok1) scores[r1] = 0.f;
+      if constexpr (sizeof(T) == 2) {
+        if (rank == 0 && tq == 0) {
+          if (ok0) out[r0] = 0.f;
+          if (ok1) out[r1] = 0.f;
+        }
       }
     }
   }
-  if constexpr (!kScore) fold_stats(sm, ra, rb, cluster, rank, part_m, part_d);
+  if constexpr (!kScore) fold_stats<T>(sm, ra, rb, cluster, rank, part_m, part_d);
 }
 
-// One pass over the bank: 2-CTA clusters, one CTA an SM, persistent over
-// the cluster's tiles; warps 0-7 consume, warp 8 produces.
-template <bool kScore>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreadsWs, 1)
-    banked_bf16(const __grid_constant__ CUtensorMap bank_map,
+// One pass over the bank: clusters of Route<T>::kCtas CTAs, one CTA an SM,
+// persistent over the cluster's tiles; warps 0-7 consume, warps 8 (and 9,
+// with two rings) produce.
+template <class T, bool kScore>
+__global__ void __launch_bounds__(kThreadsWs, 1)
+    banked_pass(const __grid_constant__ CUtensorMap bank_map,
                 const __grid_constant__ CUtensorMap q_map, int R, int nk, float scale2,
-                const float* __restrict__ m, const float* __restrict__ w,
-                float* part_m, float* part_d, float* scores) {
+                const float* __restrict__ m, const float* __restrict__ w, float* part_m,
+                float* part_d, float* out) {
+  using S = Shape<T>;
   extern __shared__ unsigned char smem_raw[];
-  const Smem sm = carve(smem_raw, nk);
+  const Smem<T> sm = carve<T>(smem_raw, nk);
   const uint32_t rank = hop::cluster_rank();
   const int cluster = hop::cluster_id(), nclusters = hop::cluster_count();
   const int ntiles = (R + kRays - 1) / kRays;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S::kStages; ++s) {
       hop::mbar_init(sm.full + s, 1);
-      hop::mbar_init(sm.empty + s, kReleases);
+      hop::mbar_init(sm.empty + s, S::kReleases);
     }
     hop::mbar_init(sm.qbar, 1);
     hop::fence_mbar_init();
   }
-  hop::cluster_sync();  // both CTAs' barriers exist before anyone arrives on them
+  hop::cluster_sync();  // every CTA's barriers exist before anyone arrives on them
   // each role runs to its own end (setmaxnreg needs branches that never
-  // rejoin), where no CTA leaves while its partner may still arrive on its
+  // rejoin), where no CTA leaves while another may still arrive on its
   // barriers
-  if (threadIdx.x >= 32 * kConsumerWarps) {  // warp 8 loads; warps 9-11 only lend registers
+  if (threadIdx.x >= 32 * kConsumerWarps) {  // the producer warpgroup
     hop::setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x < 32 * (kConsumerWarps + 1))
-      produce(&bank_map, &q_map, sm, nk, ntiles, cluster, nclusters, rank);
+    const int ring = (threadIdx.x >> 5) - kConsumerWarps;
+    if (ring < S::kRings)
+      produce<T>(&bank_map, &q_map, sm, nk, ntiles, cluster, nclusters, rank, ring);
     hop::cluster_sync();
   } else {
     hop::setmaxnreg_inc<kConsumerRegs>();
-    consume<kScore>(sm, R, nk, scale2, ntiles, cluster, nclusters, rank, m, w, part_m, part_d,
-                    scores);
+    consume<T, kScore>(sm, R, nk, scale2, ntiles, cluster, nclusters, rank, m, w, part_m,
+                       part_d, out);
     hop::cluster_sync();
   }
 }
 
-// Sets the kernels' shared-memory limit and counts the clusters that fit
-// on the card at once, on the first call -> that count (0: an error).
-inline int resident_clusters() {
+// scores[r] = the four CTAs' shares of a float32 score, added in rank order
+__global__ void __launch_bounds__(kThreads)
+    sum_shares(const float* __restrict__ shares, int R, float* __restrict__ scores) {
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R; r += gridDim.x * blockDim.x) {
+    float s = shares[r];
+#pragma unroll
+    for (int c = 1; c < Route<float>::kCtas; ++c) s += shares[static_cast<int64_t>(c) * R + r];
+    scores[r] = s;
+  }
+}
+
+inline cudaLaunchConfig_t cluster_config(int ctas, int nclusters, size_t smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas * nclusters);
+  cfg.blockDim = dim3(kThreadsWs);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Sets the route's shared-memory limit and counts its clusters that fit on
+// the card at once, on the first call -> that count (0: an error).
+template <class T>
+int resident_clusters() {
   static const int n = [] {
-    const int smem = static_cast<int>(smem_bytes(kMaxChunks));
-    if (cudaFuncSetAttribute(banked_bf16<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem) != cudaSuccess ||
-        cudaFuncSetAttribute(banked_bf16<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem) != cudaSuccess)
+    using S = Shape<T>;
+    const size_t smem = S::smem_bytes(S::kMaxChunks);
+    if (cudaFuncSetAttribute(banked_pass<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaFuncSetAttribute(banked_pass<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess)
       return 0;
     cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = 2;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(2);
-    cfg.blockDim = dim3(kThreadsWs);
-    cfg.dynamicSmemBytes = smem;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
+    const cudaLaunchConfig_t cfg = cluster_config(S::kCtas, 1, smem, nullptr, &attr);
     int clusters = 0;
     return cudaOccupancyMaxActiveClusters(
-               &clusters, reinterpret_cast<const void*>(banked_bf16<false>), &cfg) == cudaSuccess
+               &clusters, reinterpret_cast<const void*>(banked_pass<T, false>), &cfg) ==
+                   cudaSuccess
                ? clusters
                : 0;
   }();
   return n;
 }
 
-}  // namespace wg
-
-cudaError_t run_f32(const float* bank, const float* qt, const unsigned char* valid, int R, int D,
-                    float scale, float* part_m, float* part_d, int nblocks, float* m, float* d,
-                    float* w, float* scores, cudaStream_t stream) {
-  banked_stats_f32<<<nblocks, kThreads, 0, stream>>>(bank, qt, R, D, scale, part_m, part_d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = launch_lse_merge(part_m, part_d, nblocks, kPatches, valid, m, d, w, stream);
-  if (err != cudaSuccess) return err;
-  banked_score_f32<<<nblocks, kThreads, 0, stream>>>(bank, qt, R, D, scale, m, w, scores);
-  return cudaGetLastError();
-}
-
-cudaError_t run_bf16(const wg::bf16* bank, const wg::bf16* q, const unsigned char* valid, int R,
-                     int D, float scale, float* part_m, float* part_d, int nclusters, float* m,
-                     float* d, float* w, float* scores, cudaStream_t stream) {
-  const int resident = wg::resident_clusters();
+template <class T>
+cudaError_t run(const T* bank, const T* q, const unsigned char* valid, int R, int D, float scale,
+                float* part_m, float* part_d, int nclusters, float* m, float* d, float* w,
+                float* shares, float* scores, cudaStream_t stream) {
+  using S = Shape<T>;
+  const int resident = resident_clusters<T>();
   if (resident <= 0) return cudaErrorInvalidConfiguration;
   nclusters = nclusters < resident ? nclusters : resident;
   CUtensorMap bank_map, q_map;  // built for each call: the bank's address and R change
-  if (!hop::bf16_rows_map(&bank_map, bank, R, D, wg::kRays / 2) ||
-      !hop::bf16_rows_map(&q_map, q, kPatches, D, wg::kHalf))
+  if (!hop::rows_map<T>(&bank_map, bank, R, D, S::kShareRays) ||
+      !hop::rows_map<T>(&q_map, q, kPatches, D, S::kN))
     return cudaErrorInvalidValue;
-  const int nk = D / wg::kChunk;
-  const size_t smem = wg::smem_bytes(nk);
-  const float scale2 = scale * wg::kLog2e;
-  wg::banked_bf16<false><<<2 * nclusters, wg::kThreadsWs, smem, stream>>>(
-      bank_map, q_map, R, nk, scale2, nullptr, nullptr, part_m, part_d, scores);
-  cudaError_t err = cudaGetLastError();
+  const int nk = D / S::kChunk;
+  const size_t smem = S::smem_bytes(nk);
+  const float scale2 = scale * kLog2e;
+  float* out = sizeof(T) == 2 ? scores : shares;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(S::kCtas, nclusters, smem, stream, &attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, banked_pass<T, false>, bank_map, q_map, R, nk,
+                                       scale2, static_cast<const float*>(nullptr),
+                                       static_cast<const float*>(nullptr), part_m, part_d, out);
   if (err != cudaSuccess) return err;
   err = launch_lse_merge(part_m, part_d, nclusters, kPatches, valid, m, d, w, stream);
   if (err != cudaSuccess) return err;
-  wg::banked_bf16<true><<<2 * nclusters, wg::kThreadsWs, smem, stream>>>(
-      bank_map, q_map, R, nk, scale2, m, w, nullptr, nullptr, scores);
+  err = cudaLaunchKernelEx(&cfg, banked_pass<T, true>, bank_map, q_map, R, nk, scale2,
+                           static_cast<const float*>(m), static_cast<const float*>(w),
+                           static_cast<float*>(nullptr), static_cast<float*>(nullptr), out);
+  if (err != cudaSuccess || sizeof(T) == 2) return err;
+  const int blocks = (R + kThreads - 1) / kThreads;
+  sum_shares<<<blocks < 1024 ? blocks : 1024, kThreads, 0, stream>>>(shares, R, scores);
   return cudaGetLastError();
 }
 
+}  // namespace wg
 }  // namespace iff
 
-// 2-CTA clusters of the bfloat16 kernels that fit on the current card at
-// once (the most that run), or a negative cudaError_t.
-extern "C" int iff_banked_bf16_clusters() {
-  const int n = iff::wg::resident_clusters();
+// Clusters of the route for is_bf16 (2 CTAs for bfloat16, 4 for float32)
+// that fit on the current card at once (the most that run), or a negative
+// cudaError_t.
+extern "C" int iff_banked_clusters(int is_bf16) {
+  const int n = is_bf16 ? iff::wg::resident_clusters<iff::wg::bf16>()
+                        : iff::wg::resident_clusters<float>();
   return n > 0 ? n : -static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
 // bank [R, D] of one dtype (0: float32, 1: bfloat16) and the queries in
-// it: q [256, D] for bfloat16, its transpose [D, 256] for float32; both
-// 16-byte aligned; valid [256] bytes of 0 or 1; part_m/part_d [nblocks, 256], m/d/w
-// [256] and scores [R] float32. D must be a multiple of 16 (float32) or of
-// 64 and at most 384 (bfloat16). nblocks: at most one block per 64-ray
-// tile (float32), or one 2-CTA cluster per 64-ray tile (bfloat16; fewer
-// if fewer fit on the card at once, and the first ones of part_m/part_d
-// are used). Returns a cudaError_t.
+// it, q [256, D], both 16-byte aligned; valid [256] bytes of 0 or 1;
+// part_m/part_d [nclusters, 256], m/d/w [256] and scores [R] float32;
+// shares [4, R] float32 scratch for float32 (unused for bfloat16). D must
+// be a multiple of 64 (bfloat16) or 32 (float32), at most 384. nclusters:
+// at most one cluster per 64-ray tile (fewer if fewer fit on the card at
+// once, and the first ones of part_m/part_d are used). Returns a
+// cudaError_t.
 extern "C" int iff_banked_scores(const void* bank, const void* q, const void* valid, int R,
                                  int D, int P, int is_bf16, float scale, void* part_m,
-                                 void* part_d, int nblocks, void* m, void* d, void* w,
-                                 void* scores, void* stream) {
-  const bool d_ok = is_bf16 ? D % iff::wg::kChunk == 0 && D <= iff::wg::kMaxChunks * iff::wg::kChunk
-                            : D % iff::kBK == 0;
-  if (P != iff::kPatches || !d_ok || R <= 0 || nblocks <= 0)
+                                 void* part_d, int nclusters, void* m, void* d, void* w,
+                                 void* shares, void* scores, void* stream) {
+  using namespace iff::wg;
+  const int step = is_bf16 ? Shape<bf16>::kChunk : Shape<float>::kChunk;
+  if (P != iff::kPatches || D <= 0 || D % step != 0 || D > kMaxDepth || R <= 0 ||
+      nclusters <= 0 || (!is_bf16 && shares == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* pm = static_cast<float*>(part_m);
   auto* pd = static_cast<float*>(part_d);
@@ -547,13 +666,13 @@ extern "C" int iff_banked_scores(const void* bank, const void* q, const void* va
   auto* mo = static_cast<float*>(m);
   auto* dout = static_cast<float*>(d);
   auto* wo = static_cast<float*>(w);
+  auto* sh = static_cast<float*>(shares);
   auto* so = static_cast<float*>(scores);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? iff::run_bf16(static_cast<const iff::wg::bf16*>(bank),
-                              static_cast<const iff::wg::bf16*>(q), v, R, D, scale, pm, pd,
-                              nblocks, mo, dout, wo, so, s)
-              : iff::run_f32(static_cast<const float*>(bank), static_cast<const float*>(q), v,
-                             R, D, scale, pm, pd, nblocks, mo, dout, wo, so, s);
+  const cudaError_t err =
+      is_bf16 ? run<bf16>(static_cast<const bf16*>(bank), static_cast<const bf16*>(q), v, R, D,
+                          scale, pm, pd, nclusters, mo, dout, wo, sh, so, s)
+              : run<float>(static_cast<const float*>(bank), static_cast<const float*>(q), v, R,
+                           D, scale, pm, pd, nclusters, mo, dout, wo, sh, so, s);
   return static_cast<int>(err);
 }

@@ -9,10 +9,11 @@
 // partial (m_b[p], d_b[p]), and lse_merge reduces the partials:
 //   m = max_b m_b,  d = sum_b d_b * exp(m_b - m),  w = (valid ? 1 : 0) / d.
 //
-// online_update and write_block_stats serve the float32 FMA tiles: a
-// 64-ray x 256-patch tile, 256 threads, warp `wp` owns rays wp*8 .. wp*8+7,
-// lane `ln` owns patch columns ln + 32*j, j < 8. The bf16 tensor-core tiles
-// have their own layout and helpers (mma_bf16.cuh).
+// online_update and write_block_stats serve the fused ray scorer's float32
+// FMA tiles: a 64-ray x 256-patch tile, 256 threads, warp `wp` owns rays
+// wp*8 .. wp*8+7, lane `ln` owns patch columns ln + 32*j, j < 8. The
+// tensor-core tiles have their own layouts and helpers (mma_bf16.cuh, and
+// the banked scorer's epilogue in banked_attention.cu).
 #pragma once
 
 #include <cuda_bf16.h>

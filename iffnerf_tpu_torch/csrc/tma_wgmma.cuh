@@ -1,17 +1,21 @@
 // Hopper building blocks for warp-specialised kernels (sm_90a): mbarriers,
 // TMA tensor loads (to one CTA, or multicast to every CTA of a cluster),
-// cluster helpers, and the wgmma m64n128k16 bf16 product with float32
-// accumulators on operands in 128-byte-swizzled shared memory.
+// cluster helpers, and two wgmma products with float32 accumulators:
+// m64n128k16 bf16 with both operands in shared memory, and m64n64k8 TF32
+// with A in registers and B in shared memory.
 //
-// Shared-memory operands are K-major tiles of rows of 64 bf16 (128 bytes)
-// written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: 8-row atoms of 1024
-// bytes, so every tile base must be 1024-byte aligned. A descriptor for
-// depth k0 .. k0+15 of such a tile is desc_sw128(tile) + 2 * (k0 / 16)
-// (32 bytes further, in the descriptor's 16-byte units).
+// Shared-memory operands are K-major tiles of rows of 128 bytes (64 bf16 or
+// 32 float32) written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: 8-row atoms
+// of 1024 bytes, so every tile base must be 1024-byte aligned. A descriptor
+// for the k-th 32-byte step of depth (16 bf16, 8 TF32) of such a tile is
+// desc_sw128(tile) + 2 * k (the descriptor counts 16-byte units). Byte
+// (row, b) of a tile lies at row * 128 + ((b / 16) ^ (row % 8)) * 16 + b % 16.
 //
-// Accumulator layout of wgmma m64nNk16 (PTX ISA, "wgmma D matrix"): thread
+// Accumulator layout of wgmma m64nN (PTX ISA, "wgmma D matrix"): thread
 // t of the warpgroup (warp w = t / 32, lane l) holds d[i] at row
 //   16 w + l / 4 + 8 ((i >> 1) & 1),  column  8 (i >> 2) + 2 (l % 4) + (i & 1).
+// Register fragment of A for m64nNk8 TF32 (PTX ISA, "wgmma A matrix"): a[e]
+// at row 16 w + l / 4 + 8 (e & 1), column l % 4 + 4 (e >> 1).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is found at run time
@@ -138,6 +142,19 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
 
 // ---- wgmma -------------------------------------------------------------------
 
+// orders this thread's generic writes to shared memory before later reads
+// by the async proxy (wgmma operands, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// x rounded to TF32 (to nearest, ties away from zero), as float32 bits
+// whose low 13 mantissa bits are zero: what cvt.rna.tf32.f32 gives for any
+// x but NaN, in two integer instructions where cvt takes four
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
 // K-major, 128-byte swizzle: LBO unused (1), SBO 1024 bytes (one 8-row atom)
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
@@ -189,6 +206,33 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d[64 x 64] (+)= a[64 x 8] b[8 x 64], TF32 in (the tensor cores read the
+// top 19 bits of each operand), float32 sums; a in registers (the layout
+// above), b K-major in shared memory; scale_d = 0 overwrites d. a must keep
+// its values until the product has completed (wgmma_wait).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // ---- host: tensor maps ----------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -215,17 +259,22 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major bf16 matrix [rows, cols] read in boxes of [box_rows, 64]
-// with the 128-byte swizzle; rows past the end read as zeros
-inline bool bf16_rows_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+// a row-major matrix [rows, cols] of bf16 or float32 read in boxes of
+// box_rows rows x 128 bytes with the 128-byte swizzle; rows past the end
+// read as zeros
+template <class T>
+inline bool rows_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  static_assert(sizeof(T) == 2 || sizeof(T) == 4, "bf16 or float32");
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(T)};
+  const cuuint32_t box[2] = {128 / sizeof(T), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map,
+                sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

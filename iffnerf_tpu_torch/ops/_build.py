@@ -114,3 +114,16 @@ def sm_count(device: torch.device) -> int:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def refuse_grad(what: str, tensors) -> None:
+    """Raises before a launch when autograd would track one of ``tensors``:
+    the kernels have no backward yet (ROADMAP item 21), and a result that
+    silently carries no gradient is worse than an error. Run under
+    ``torch.no_grad()``, or on the CPU, where the plain versions are
+    differentiable."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward on CUDA yet (ROADMAP item 21): an "
+            f"input requires grad; call it under torch.no_grad()")

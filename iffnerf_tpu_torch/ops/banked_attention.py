@@ -17,16 +17,26 @@ ray count runs through the kernels: the last tile is masked.
 
 The bank is read twice on the card, once for the statistics and once for
 the scores: d[p] is known only after every ray, and the logits (276 MB in
-bf16 at 540 000 rays) would cost more to store than to recompute. Both
-reads bound the pair: 0.248 ms at R = 540 000, D = 384 in bf16 on an H100
-SXM (one read alone 0.124 ms). A bf16 bank (the inference path) runs a
-persistent, warp-specialised kernel per pass on pairs of CTAs: TMA loads
-the bank through a 16-chunk mbarrier ring, multicast to both CTAs of a
-pair, each of which holds half of q and multiplies with ``wgmma``; its
-depth must be a multiple of 64 up to 384. A float32 bank runs on float32
-FMA tiles. Either way the bf16 products are exact and summed in float32,
-which is what the plain version does by upcasting both operands. The
-source's header note has the design.
+bf16 at 540 000 rays) would cost more to store than to recompute. Each
+pass is a persistent, warp-specialised kernel on clusters of CTAs, one an
+SM, that split the patch axis: TMA loads bank chunks into an mbarrier ring,
+each CTA a share of a chunk multicast to the cluster, and consumer
+warpgroups multiply with ``wgmma``.
+
+- bf16 (the inference path): 2-CTA clusters, 128 patches of q a CTA, one
+  ``wgmma`` product a step; the bank's two reads bound the pair, 0.248 ms
+  at R = 540 000, D = 384 on an H100 SXM. Depths: multiples of 64 up to
+  384.
+- float32: 4-CTA clusters, 64 patches a CTA. The products run in TF32
+  split in three (hi = x rounded to TF32, lo = x - hi; hi*lo + lo*hi +
+  hi*hi, lo*lo dropped), which keeps float32 accuracy: three TF32 products
+  of both passes bound the pair at 1.29 ms (operations), the bank's two
+  reads at 0.495 ms. Depths: multiples of 32 up to 384.
+
+Either way the products are summed in float32, which is what the plain
+version does by upcasting both operands. ``kernel_takes`` says which
+shapes the kernel takes; the wrapper raises on others, and ``score_rays``
+sends them to its exact path. The source's header note has the design.
 """
 
 from __future__ import annotations
@@ -42,13 +52,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "iff_banked_scores": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P,
-                          _I, _P, _P, _P, _P, _P],
-    "iff_banked_bf16_clusters": [],
+                          _I, _P, _P, _P, _P, _P, _P],
+    "iff_banked_clusters": [_I],
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 PATCHES = 256   # the kernel's patch width (a 16 x 16 grid)
 TILE_RAYS = 64  # rays per tile of either route
-BF16_DEPTH_STEP, BF16_MAX_DEPTH = 64, 384  # bf16 depths: TMA boxes of 64
+MAX_DEPTH = 384
+# depth of a TMA box (128 bytes) and CTAs of a cluster, by bank dtype
+DEPTH_STEP = {torch.bfloat16: 64, torch.float32: 32}
+CLUSTER_CTAS = {torch.bfloat16: 2, torch.float32: 4}
 
 
 def _scale(d: int) -> float:
@@ -71,6 +84,14 @@ def banked_scores_plain(bank: torch.Tensor, q: torch.Tensor,
     return softmax_scores(logits, patch_valid)
 
 
+def kernel_takes(dtype, p: int, d: int) -> bool:
+    """Whether the kernel takes a bank of ``dtype`` and depth ``d`` against
+    ``p`` patches: 256 patches, and a depth that is a multiple of 64
+    (bfloat16) or 32 (float32) up to 384."""
+    return (dtype in DEPTH_STEP and p == PATCHES and 0 < d <= MAX_DEPTH
+            and d % DEPTH_STEP[dtype] == 0)
+
+
 def _check(bank, q, patch_valid):
     if bank.dim() != 2 or bank.dtype not in _DTYPES:
         raise ValueError(f"bank must be [R, D] float32 or bfloat16, got "
@@ -80,23 +101,21 @@ def _check(bank, q, patch_valid):
         raise ValueError(f"q must be [{PATCHES}, {d}] and patch_valid "
                          f"[{PATCHES}], got {tuple(q.shape)} and "
                          f"{tuple(patch_valid.shape)}")
-    d_ok = (d % BF16_DEPTH_STEP == 0 and d <= BF16_MAX_DEPTH
-            if bank.dtype == torch.bfloat16 else d % 16 == 0)
-    if not d_ok or r == 0:
-        raise ValueError(f"bank depth must be a multiple of 16 (float32) or "
-                         f"of {BF16_DEPTH_STEP} up to {BF16_MAX_DEPTH} "
-                         f"(bfloat16), and R > 0; got {bank.dtype} "
-                         f"{tuple(bank.shape)}")
+    if not kernel_takes(bank.dtype, q.shape[0], d) or r == 0:
+        raise ValueError(f"bank depth must be a multiple of "
+                         f"{DEPTH_STEP[bank.dtype]} up to {MAX_DEPTH} for "
+                         f"{bank.dtype}, and R > 0; got {tuple(bank.shape)}")
     if q.device != bank.device or patch_valid.device != bank.device:
         raise ValueError("bank, q and patch_valid must share one device")
     if not bank.is_contiguous() or bank.data_ptr() % 16:
         raise ValueError("bank must be contiguous and 16-byte aligned")
 
 
-def bf16_clusters() -> int:
-    """The bf16 route's 2-CTA clusters that fit on the current card at
-    once: the most that run, one a pair of SMs at best."""
-    n = _build.load("banked_attention", _SIGNATURES).iff_banked_bf16_clusters()
+def resident_clusters(dtype) -> int:
+    """The clusters of the route for ``dtype`` (2 CTAs for bfloat16, 4 for
+    float32) that fit on the current card at once: the most that run."""
+    lib = _build.load("banked_attention", _SIGNATURES)
+    n = lib.iff_banked_clusters(int(dtype == torch.bfloat16))
     _build.check(min(n, 0), "banked_scores cluster query")
     return n
 
@@ -105,41 +124,43 @@ def banked_scores_fused(bank: torch.Tensor, q: torch.Tensor,
                         patch_valid: torch.Tensor) -> torch.Tensor:
     """Scores [R] float32 of ``bank`` [R, D] against ``q`` [256, D] with
     ``patch_valid`` [256] bool. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (three launches) or raise."""
+    tensors launch the kernel (three launches for bfloat16, four for
+    float32) or raise."""
     if bank.device.type == "cpu":
         return banked_scores_plain(bank, q, patch_valid)
     if bank.device.type != "cuda":
         raise ValueError(f"no banked-scoring kernel for {bank.device}")
     _check(bank, q, patch_valid)
+    _build.refuse_grad("banked_scores_fused", (bank, q))
     r, d = bank.shape
     lib = _build.load("banked_attention", _SIGNATURES)
     dev = bank.device
     # a bool is one byte of 0 or 1, read as such: no conversion launch
     valid = patch_valid.to(torch.bool).contiguous()
-    sms = _build.sm_count(dev)
-    tiles = -(-r // TILE_RAYS)
-    bf16 = bank.dtype == torch.bfloat16
-    if bf16:   # TMA reads q [P, D]: one cluster of two CTAs a pair of SMs
-        qc = q.to(bank.dtype).contiguous()
-        if qc.data_ptr() % 16:
-            qc = qc.clone()
-        nblocks = min(tiles, max(1, sms // 2))
-    else:      # FMA tiles read q^T [D, P]
-        qc = q.to(bank.dtype).T.contiguous()
-        nblocks = min(tiles, 8 * sms)
-    # part_m, part_d [nblocks, P] and m, d, w [P] in one allocation: the
-    # estimate is host-bound, and each allocation costs host time
-    scratch = torch.empty((2 * nblocks + 3) * PATCHES, dtype=torch.float32,
-                          device=dev)
-    part_m, part_d, m, dsum, w = (
-        scratch.data_ptr() + 4 * PATCHES * rows
-        for rows in (0, nblocks, 2 * nblocks, 2 * nblocks + 1, 2 * nblocks + 2))
+    qc = q.to(bank.dtype).contiguous()   # TMA reads q [P, D]
+    if qc.data_ptr() % 16:
+        qc = qc.clone()
+    ctas = CLUSTER_CTAS[bank.dtype]
+    # one cluster a group of SMs at most (the kernel clamps to those that
+    # fit at once) and no more than the 64-ray tiles
+    nblocks = min(-(-r // TILE_RAYS), max(1, _build.sm_count(dev) // ctas))
+    # part_m, part_d [nblocks, P], m, d, w [P] and, for float32, each CTA's
+    # share of the scores [4, R] in one allocation: the estimate is
+    # host-bound, and each allocation costs host time
+    f32 = bank.dtype == torch.float32
+    rows = 2 * nblocks + 3
+    scratch = torch.empty(rows * PATCHES + (ctas * r if f32 else 0),
+                          dtype=torch.float32, device=dev)
+    part_m, part_d, m, dsum, w, shares = (
+        scratch.data_ptr() + 4 * PATCHES * k
+        for k in (0, nblocks, 2 * nblocks, 2 * nblocks + 1, 2 * nblocks + 2,
+                  rows))
     scores = torch.empty(r, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.iff_banked_scores(
         bank.data_ptr(), qc.data_ptr(), valid.data_ptr(), r, d, PATCHES,
-        int(bf16), _scale(d), part_m, part_d, nblocks, m, dsum, w,
-        scores.data_ptr(), stream)
+        int(not f32), _scale(d), part_m, part_d, nblocks, m, dsum, w,
+        shares if f32 else None, scores.data_ptr(), stream)
     _build.check(rc, "banked_scores kernel launch")
     banked_scores_fused.launches += 1
     return scores

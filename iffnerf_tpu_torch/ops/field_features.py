@@ -142,6 +142,9 @@ def field_features(config, params, xyz: torch.Tensor, with_app: bool = True):
         return field_features_plain(params, xyz, with_app)
     if xyz.device.type != "cuda":
         raise ValueError(f"no field-feature kernel for {xyz.device}")
+    _build.refuse_grad("field_features", [xyz] + [
+        a for kind in ("density", "app") for part in ("plane", "line")
+        for a in params[f"{kind}_{part}"]])
     tables, dims = kernel_layout(params, with_app)
     shape = xyz.shape[:-1]
     flat = xyz.reshape(-1, 3).contiguous()

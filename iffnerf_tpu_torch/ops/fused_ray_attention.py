@@ -74,7 +74,7 @@ def _kernel_net(params, dt):
     if (_NET.get("versions") != versions
             or any(a is not b for a, b in zip(_NET["src"], src))):
         layers = _layers(params, dt)
-        _check_widths(layers, dt == torch.bfloat16)
+        _check_widths(layers, dt)
         transposed = None
         if dt == torch.bfloat16:
             (w1, _), (w2, _), (w3, _), (w4, _), (wk, _) = layers
@@ -96,7 +96,28 @@ def scaled_queries(q: torch.Tensor, dt) -> torch.Tensor:
     return (q / div).T.to(dt).contiguous()
 
 
-def _check_widths(layers, bf16):
+def layer_widths(params) -> tuple:
+    """(in, h1, h2, h3, dk): the ray MLP's input and the outputs of the
+    four ray-side layers (the k projection maps dk to dk)."""
+    w1, w2, w3, w4, _ = (layer["w"] for layer in _sources(params))
+    return w1.shape[0], w1.shape[1], w2.shape[1], w3.shape[1], w4.shape[1]
+
+
+def kernel_takes(dtype, p: int, widths) -> bool:
+    """Whether the kernel takes this shape: ``dtype`` float32 or bfloat16,
+    ``p`` patches and the ray layers' ``widths`` (``layer_widths``). The
+    callers score any other shape on the exact torch path, as the JAX
+    package falls back to XLA where its kernel cannot tile."""
+    in_dim, h1, h2, h3, dk = widths
+    if p != PATCHES:
+        return False
+    if dtype == torch.bfloat16:
+        return all(n in BF16_WIDTHS for n in (h1, h2, h3, dk))
+    return (dtype == torch.float32 and not any(n % 128 for n in (h1, h2, h3, dk))
+            and in_dim + max(h1, h3) >= dk)
+
+
+def _check_widths(layers, dt):
     (w1, _), (w2, _), (w3, _), (w4, _), _ = layers
     in_dim, h1, h2, h3, dk = (w1.shape[0], w1.shape[1], w2.shape[1],
                               w3.shape[1], w4.shape[1])
@@ -104,12 +125,10 @@ def _check_widths(layers, bf16):
     if [tuple(w.shape) for w, _ in layers] != expect:
         raise ValueError(f"layer shapes {[tuple(w.shape) for w, _ in layers]} "
                          f"do not chain")
-    if bf16 and any(n not in BF16_WIDTHS for n in (h1, h2, h3, dk)):
-        raise ValueError(f"unsupported widths {(h1, h2, h3, dk)}: the bf16 "
-                         f"kernel takes {BF16_WIDTHS}")
-    if not bf16 and (any(n % 128 for n in (h1, h2, h3, dk))
-                     or in_dim + max(h1, h3) < dk):
-        raise ValueError(f"unsupported widths {(in_dim, h1, h2, h3, dk)}")
+    if not kernel_takes(dt, PATCHES, (in_dim, h1, h2, h3, dk)):
+        raise ValueError(f"unsupported widths {(in_dim, h1, h2, h3, dk)} in "
+                         f"{dt}: the bf16 kernel takes {BF16_WIDTHS}, the "
+                         f"float32 one multiples of 128")
 
 
 def fused_ray_scores_plain(params, q, patch_valid, x):
@@ -142,6 +161,8 @@ def fused_ray_scores(params, q, patch_valid, x):
         return fused_ray_scores_plain(params, q, patch_valid, x)
     if x.device.type != "cuda":
         raise ValueError(f"no fused ray-scoring kernel for {x.device}")
+    _build.refuse_grad("fused_ray_scores", [x, q] + [
+        t for layer in _sources(params) for t in (layer["w"], layer["b"])])
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16) or x.dim() != 2:
         raise ValueError(f"x must be [R, in] float32 or bfloat16, got "

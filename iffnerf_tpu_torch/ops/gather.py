@@ -79,6 +79,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return gather_rows_plain(table, idx)
     if table.device.type != "cuda":
         raise ValueError(f"no row-gather kernel for {table.device}")
+    _build.refuse_grad("gather_rows", (table,))
     if not table.is_contiguous() or not idx.is_contiguous():
         raise ValueError("table and idx must be contiguous")
     r, c = table.shape

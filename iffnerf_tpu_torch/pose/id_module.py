@@ -244,14 +244,18 @@ def score_rays(params, config: IDConfig, q, patch_valid, rays_ori, rays_dir,
     ray-feature chain.
 
     With ``bank`` and ``config.fused_bank`` the scores come from the
-    banked-scoring kernel and attention is None. Otherwise the exact path
-    runs: float32 logits divided by sqrt(D) after the matmul.
+    banked-scoring kernel and attention is None, where the kernel takes
+    the shape (``banked_attention.kernel_takes``). Otherwise the exact
+    path runs, as the JAX package falls back to XLA where its kernel
+    cannot tile: float32 logits divided by sqrt(D) after the matmul.
 
     Returns (scores [R], attention [P, R] | None)."""
     if bank is not None and config.fused_bank:
-        from iffnerf_tpu_torch.ops.banked_attention import banked_scores_fused
+        from iffnerf_tpu_torch.ops import banked_attention as banked
 
-        return banked_scores_fused(bank, q, patch_valid), None
+        if bank.shape[0] > 0 and banked.kernel_takes(
+                bank.dtype, q.shape[0], bank.shape[1]):
+            return banked.banked_scores_fused(bank, q, patch_valid), None
     k = (bank if bank is not None
          else _ray_keys(params, config, rays_ori, rays_dir, rays_rgb))
     logits = (q.float() @ k.float().T) / math.sqrt(q.shape[-1])  # [P, R]

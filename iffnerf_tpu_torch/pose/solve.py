@@ -34,17 +34,23 @@ from iffnerf_tpu_torch.pose.id_module import (
 def _scores_maybe_fused(params, config: IDConfig, img, mask, rays_ori,
                         rays_dirs, rays_rgb):
     """Candidate-ray scores through the fused ray-scoring kernel when
-    ``config.fused_scoring`` is set, else through the plain torch chain."""
+    ``config.fused_scoring`` is set and the kernel takes the shape, else
+    through the plain torch chain (as the JAX package falls back to XLA
+    where its kernel cannot tile)."""
     if not config.fused_scoring:
         scores, _, _, _ = run_attention(
             params, config, img, mask, rays_ori, rays_dirs, rays_rgb
         )
         return scores
-    from iffnerf_tpu_torch.ops.fused_ray_attention import fused_ray_scores
+    from iffnerf_tpu_torch.ops import fused_ray_attention as fused
 
     q, patch_valid, _ = image_queries(params, config, img, mask)
+    if not fused.kernel_takes(config.dtype, q.shape[0],
+                              fused.layer_widths(params)):
+        return score_rays(params, config, q, patch_valid, rays_ori,
+                          rays_dirs, rays_rgb)[0]
     x = ray_mlp_inputs(config, rays_ori, rays_dirs, rays_rgb)
-    return fused_ray_scores(params, q, patch_valid, x)
+    return fused.fused_ray_scores(params, q, patch_valid, x)
 
 
 def solve_pose_from_topk(ori_k: torch.Tensor, dirs_k: torch.Tensor,

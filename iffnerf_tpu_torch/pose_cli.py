@@ -6,7 +6,9 @@ checkpoint and the ``id_module.npz`` beside it, regenerates the candidate
 rays from the field, and evaluates single-image pose on the test split
 twice (as the reference does after training, both passes reseeded with
 starting_seed=55176280), writing the JSON rows of every frame to
-``--out_path``. It never trains: without an ``id_module.npz`` it raises.
+``--out_path``. An object whose evaluation raises a ``RuntimeError`` is
+skipped with its traceback printed, as in train_eval_pose_est.py. It never
+trains: without an ``id_module.npz`` it raises.
 
     python -m iffnerf_tpu_torch.pose_cli --datadir DATA --exp_patch LOG \\
         --out_path pose_eval.json [--device cpu]
@@ -17,6 +19,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import traceback
 
 import numpy as np
 import torch
@@ -119,9 +122,15 @@ def main(argv=None) -> list:
         data_path = os.path.join(args.datadir, exp["sequence_id"])
         if not os.path.isdir(data_path):
             data_path = args.datadir
-        results.extend(evaluate_object(args, data_path,
-                                       exp["checkpoint_filepath"],
-                                       exp["sequence_id"], dev))
+        # as train_eval_pose_est.py does: one failing object (a bad
+        # checkpoint, an out-of-memory error) loses its own rows, not the
+        # whole sweep
+        try:
+            results.extend(evaluate_object(args, data_path,
+                                           exp["checkpoint_filepath"],
+                                           exp["sequence_id"], dev))
+        except RuntimeError:
+            traceback.print_exc()
     print("Saving results")
     with open(out_path, "w") as fh:
         json.dump(results, fh)

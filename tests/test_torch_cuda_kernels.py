@@ -5,15 +5,20 @@ Marked ``cuda``: they skip where no card is present, and run on one with
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine need not have). Ray counts of the banked scorer cover one ray,
 the edges of its 64-ray tile and of its 2-CTA pair, fewer tiles than SMs,
-more tiles than two an SM and the main path's 540 000; its bf16 route is
-also held to bit-equal repeats, zeros for an all-invalid mask and the
-refusal of depths it does not take. The row gather covers both its routes,
+more tiles than two an SM and the main path's 540 000, and its float32
+route also the depths 32, 64 and 128; both routes are held to bit-equal
+repeats, zeros for an all-invalid mask and the refusal of depths they do
+not take, and ``score_rays`` to the exact path's scores, with no launch,
+for the shapes the kernel refuses. Each kernel wrapper raises under grad
+(the kernels have no backward yet) and runs under ``torch.no_grad()``. The row gather covers both its routes,
 the field's row widths, ragged and empty index counts, the edge indices, a table whose
 rows are not 16-byte aligned and the mask lookup's stacked corners; the
 fused field kernel covers lego's widths and non-cubic grids with unequal
 ranks (float4 and 4-byte words), empty to colour-chunk sample counts, in
 its density-only and appearance modes.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -41,7 +46,8 @@ from iffnerf_tpu_torch.ops.grid_sample import (
     grid_sample_2d,
     grid_sample_3d,
 )
-from iffnerf_tpu_torch.pose.id_module import IDConfig, init_id_module
+from iffnerf_tpu_torch.pose.id_module import IDConfig, init_id_module, score_rays
+from iffnerf_tpu_torch.pose.vit import ViTConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -89,10 +95,25 @@ def test_banked_kernel_matches_plain(dev, dtype, r):
     _assert_scores_close(got, want, rtol=2e-5)
 
 
-def test_banked_kernel_is_deterministic(dev):
-    """Each CTA of a pair adds its half of a ray's score onto zero: the
-    two orders give the same bits."""
-    bank, q = _bank_and_queries(dev, torch.bfloat16, 540000)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("r", [1, 63, 64, 65, 127, 128, 129, 1021, 4000,
+                               70001, 540000])
+def test_banked_kernel_matches_plain_at_float32_depths(dev, d, r):
+    """The float32 route's depths below 384: one to four 32-deep chunks a
+    tile, so a tile's chunks fill its ring once or wrap round it."""
+    bank, q = _bank_and_queries(dev, torch.float32, r, d)
+    got = banked_scores_fused(bank, q, _valid(dev))
+    torch.cuda.synchronize()
+    _assert_scores_close(got, banked_scores_plain(bank, q, _valid(dev)),
+                         rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banked_kernel_is_deterministic(dev, dtype):
+    """bf16: each CTA of a pair adds its half of a ray's score onto zero,
+    and the two orders give the same bits. float32: the four CTAs' shares
+    are added in rank order."""
+    bank, q = _bank_and_queries(dev, dtype, 540000)
     first = banked_scores_fused(bank, q, _valid(dev))
     assert torch.equal(first, banked_scores_fused(bank, q, _valid(dev)))
 
@@ -113,6 +134,100 @@ def test_banked_kernel_refuses_bf16_depths_it_does_not_take(dev, d):
     with pytest.raises(ValueError, match="bank depth"):
         banked_scores_fused(bank, q, _valid(dev))
     assert banked_scores_fused.launches == before
+
+
+@pytest.mark.parametrize("d", [16, 48, 416])
+def test_banked_kernel_refuses_float32_depths_it_does_not_take(dev, d):
+    """The float32 route reads depth in TMA boxes of 32, up to 384."""
+    bank, q = _bank_and_queries(dev, torch.float32, 129, d)
+    before = banked_scores_fused.launches
+    with pytest.raises(ValueError, match="bank depth"):
+        banked_scores_fused(bank, q, _valid(dev))
+    assert banked_scores_fused.launches == before
+
+
+def _grad_cases(dev):
+    """(name, call) for each of the four ctypes-launched kernels, each with
+    one input that requires grad."""
+    g = torch.Generator().manual_seed(9)
+    bank = torch.randn((129, 384), generator=g).to(dev).requires_grad_()
+    q = torch.randn((256, 384), generator=g).to(dev)
+    cfg = IDConfig()
+    params = init_id_module(torch.Generator().manual_seed(0), cfg, device=dev)
+    params["k_proj"]["w"].requires_grad_()
+    x = torch.randn((65, cfg.ray_in_dim), generator=g).to(dev)
+    table = torch.randn((300, 16), generator=g).to(dev).requires_grad_()
+    idx = torch.randint(0, 300, (1021,), generator=g, dtype=torch.int32).to(dev)
+    config, field = _field(FIELDS["non_cubic_scalar"], dev)
+    field["app_line"][1].requires_grad_()
+    xyz = (torch.rand((1021, 3), generator=g) * 2 - 1).to(dev)
+    return {"banked_scores_fused": lambda: banked_scores_fused(bank, q, _valid(dev)),
+            "fused_ray_scores": lambda: fused_ray_scores(params, q, _valid(dev), x),
+            "gather_rows": lambda: gather_rows(table, idx),
+            "field_features": lambda: field_features(config, field, xyz, True)}
+
+
+@pytest.mark.parametrize("name", ["banked_scores_fused", "fused_ray_scores",
+                                  "gather_rows", "field_features"])
+def test_kernel_wrappers_refuse_grad_and_run_without_it(dev, name):
+    """No kernel has a backward yet (ROADMAP item 21): under grad with an
+    input that requires it, each wrapper raises before any launch; under
+    torch.no_grad() it runs."""
+    call = _grad_cases(dev)[name]
+    counter = {"banked_scores_fused": banked_scores_fused,
+               "fused_ray_scores": fused_ray_scores, "gather_rows": gather_rows,
+               "field_features": field_features}[name]
+    before = counter.launches
+    with pytest.raises(RuntimeError, match="ROADMAP item 21"):
+        call()
+    assert counter.launches == before
+    with torch.no_grad():
+        out = call()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert all(not t.requires_grad for t in
+               (out if isinstance(out, tuple) else (out,)) if t is not None)
+
+
+@pytest.fixture(scope="module")
+def small_crop_params(dev):
+    """A 112 crop (8 x 8 = 64 patches, which neither scoring kernel takes)."""
+    cfg = IDConfig(resize_size=128, crop_size=112,
+                   backbone=ViTConfig(img_size=112, depth=1))
+    return cfg, init_id_module(torch.Generator().manual_seed(3), cfg, device=dev)
+
+
+def _refused_bank_case(dev, which, small_crop_params):
+    g = torch.Generator().manual_seed(11)
+    if which == "p64":
+        cfg, params = small_crop_params
+        d, dtype = 384, torch.float32
+    else:
+        cfg, params = IDConfig(), None
+        d, dtype = {"bf16_d96": (96, torch.bfloat16),
+                    "f32_d48": (48, torch.float32)}[which]
+    p = 64 if which == "p64" else 256
+    bank = torch.randn((70001, d), generator=g).to(dev, dtype)
+    q = torch.randn((p, d), generator=g).to(dev, dtype)
+    valid = torch.rand(p, generator=g).to(dev) > 0.3
+    return cfg, params, bank, q, valid
+
+
+@pytest.mark.parametrize("which", ["p64", "bf16_d96", "f32_d48"])
+def test_score_rays_sends_refused_banks_to_the_exact_path(
+        dev, which, small_crop_params):
+    """Shapes the banked kernel refuses (64 patches, a bf16 depth of 96, a
+    float32 depth of 48) are scored on the exact path, as the JAX package
+    falls back to XLA: the exact path's scores, and no launch."""
+    cfg, params, bank, q, valid = _refused_bank_case(dev, which,
+                                                     small_crop_params)
+    before = banked_scores_fused.launches
+    scores, att = score_rays(params, cfg, q, valid, None, None, None,
+                             bank=bank)
+    exact, _ = score_rays(params, dataclasses.replace(cfg, fused_bank=False),
+                          q, valid, None, None, None, bank=bank)
+    assert banked_scores_fused.launches == before
+    assert att is not None and torch.equal(scores, exact)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -184,9 +299,8 @@ FIELDS = {"lego": ((300, 300, 300), (16, 16, 16), (48, 48, 48)),
           "non_cubic_scalar": ((16, 17, 18), (2, 3, 4), (3, 4, 5))}
 
 
-@pytest.fixture(scope="module", params=sorted(FIELDS))
-def vm_field(request, dev):
-    grid, rd, ra = FIELDS[request.param]
+def _field(shape, dev):
+    grid, rd, ra = shape
     g = torch.Generator().manual_seed(5)
     params = {}
     for kind, ranks in (("density", rd), ("app", ra)):
@@ -199,6 +313,11 @@ def vm_field(request, dev):
                                      generator=g)).to(dev)
             for i in range(3))
     return FieldConfig(grid_size=grid, density_n_comp=rd, app_n_comp=ra), params
+
+
+@pytest.fixture(scope="module", params=sorted(FIELDS))
+def vm_field(request, dev):
+    return _field(FIELDS[request.param], dev)
 
 
 @pytest.mark.parametrize("with_app", [False, True])

@@ -326,3 +326,35 @@ def test_pose_cli_on_the_fixture(scene, vm, tmp_path):
         assert 0.0 <= row["recall"] <= 1.0
     assert (tmp_path / "sample_results_0.npz").exists()
     assert not (tmp_path / "sample_results_1.npz").exists()
+
+
+def test_pose_cli_goes_on_past_a_failing_object(scene, vm, tmp_path,
+                                                monkeypatch):
+    """A RuntimeError in one object's evaluation (here its field fails to
+    load) prints its traceback and leaves the other objects' rows in
+    --out_path, as train_eval_pose_est.py's per-object guard does."""
+    jcfg, _ = configs(depth=1)
+    jp, _ = params(13, jcfg)
+    for obj in ("lego", "ship"):
+        run = tmp_path / "log" / f"tensorf_{obj}_VM"
+        run.mkdir(parents=True)
+        save_field(str(run / f"tensorf_{obj}_VM.npz"), *vm[0])
+        save_pytree(str(run / "id_module.npz"),
+                    jax.tree_util.tree_map(np.asarray, jp), {"epoch": 1})
+    load_model = pose_cli.load_model
+
+    def load_or_fail(path, **kw):
+        if "ship" in os.path.basename(path):
+            raise RuntimeError("a checkpoint that does not load")
+        return load_model(path, **kw)
+
+    monkeypatch.setattr(pose_cli, "load_model", load_or_fail)
+    # no <datadir>/<obj> folder: both objects read the one fixture scene
+    rows = pose_cli.main(["--datadir", scene, "--exp_patch",
+                          str(tmp_path / "log"), "--out_path",
+                          str(tmp_path / "out.json"), "--gen_points", "32",
+                          "--id_backbone_depth", "1", "--device", "cpu"])
+    with open(tmp_path / "out.json") as fh:
+        saved = json.load(fh)
+    assert saved == rows and len(saved) == 2
+    assert {row["sequence_id"] for row in saved} == {"lego"}
