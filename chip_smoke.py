@@ -116,6 +116,12 @@ UP = (0.0, 0.0, 1.0)
 # order; in bf16 an activation's rounding can flip, which moves a score by
 # well under 1e-3 of itself (at most 6.7e-4 at 540 000 rays on an H100)
 K2_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# K2's float32 route (three TF32 products a step) against its plain version:
+# the largest relative score error. One TF32 product alone gives 1.6e-4 on
+# this script's inputs at 540 000 rays on an H100 (tools/k2_time.py
+# --variants one_product) and about 2e-5 in
+# tests/test_torch_fused_tf32_split.py; three give 1.8e-6
+K2_F32_MAX_REL = 5e-6
 # the bf16 fused estimate against the plain torch route, another function
 # (see phase_fused_estimate): score rtol and least top-100 overlap. Its
 # scaled queries differ by a bf16 rounding (2^-9) and a bf16 divisor (19.625
@@ -302,6 +308,9 @@ def fma_bound_ms(bank, reads: int = 1):
 
 
 def fused_bound(cfg, x, q):
+    """K2's bound: x and the weights read once, the scores written once.
+    A float32 route's products are the three TF32 products of the split, at
+    the TF32 rate. -> (ms, bound_by, the float32 FMA rate's ms or None)."""
     r = x.shape[0]
     p = q.shape[0]
     d, fc, ind = cfg.img_num_features, cfg.ray_feature_c, cfg.ray_in_dim
@@ -309,8 +318,15 @@ def fused_bound(cfg, x, q):
     macs = sum(i * o for i, o in layers) + d * p
     w_elems = sum(i * o + o for i, o in layers) + d * p
     es = x.element_size()
-    return bound(x.numel() * es + w_elems * es + p + r * 4, 2.0 * r * macs,
-                 x.dtype)
+    bytes_ = x.numel() * es + w_elems * es + p + r * 4
+    flops = 2.0 * r * macs
+    if x.dtype != torch.float32:
+        return (*bound(bytes_, flops, x.dtype), None)
+    t_bytes = bytes_ / PEAK_BYTES * 1e3
+    t_ops = 3 * flops / PEAK_TF32 * 1e3
+    ms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+              else (t_ops, "operations: three TF32 products"))
+    return ms, by, flops / PEAK_FLOPS[torch.float32] * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -434,11 +450,14 @@ def phase_guards(params, cfg, img, mask, rays):
 
 
 def phase_fused_kernel(params, cfgs, img, mask, rays):
-    """K2 against its plain version: f32 and bf16, full and ragged."""
+    """K2 against its plain version: f32 and bf16, full and ragged; the
+    float32 route also to its largest relative error and, at the full ray
+    count, to two calls bit-equal."""
     errs = {}
     for cfg in cfgs:
         x = ray_mlp_inputs(cfg, *rays)
         q, pv, _ = image_queries(params, cfg, img, mask)
+        f32 = cfg.compute_dtype == "float32"
         for r in (N_RAYS, RAGGED):
             got = fused_ray_scores(params, q, pv, x[:r])
             torch.cuda.synchronize()
@@ -448,6 +467,14 @@ def phase_fused_kernel(params, cfgs, img, mask, rays):
             check(torch.allclose(got, want, **tol),
                   f"K2 {cfg.compute_dtype} R={r}: {e}")
             check(e["top100"] == K_TOP, f"K2 {cfg.compute_dtype} R={r}: {e}")
+            if f32:
+                check(e["max_rel_err"] <= K2_F32_MAX_REL,
+                      f"K2 float32 R={r}: max rel err {e['max_rel_err']}")
+            if f32 and r == N_RAYS:
+                # tiles and partial statistics fold in a fixed order
+                e["bit_equal_repeat"] = torch.equal(
+                    got, fused_ray_scores(params, q, pv, x[:r]))
+                check(e["bit_equal_repeat"], "K2 float32: two calls bit-equal")
             errs[f"{cfg.compute_dtype}/{r}"] = e
     emit(phase="fused_kernel_check", results=errs)
     return errs
@@ -660,7 +687,7 @@ def phase_times(params, cfgs, img, mask, rays, field, chunk_coords):
         x = ray_mlp_inputs(cfg, *rays)
         q, pv, _ = image_queries(params, cfg, img, mask)
         b_ms, b_by, b_bytes_ms = banked_bound(bank, q)
-        f_ms, f_by = fused_bound(cfg, x, q)
+        f_ms, f_by, f_fma_ms = fused_bound(cfg, x, q)
         two_ms, _, two_bytes_ms = banked_bound(bank, q, reads=2)
         rows[f"banked_scores/{cfg.compute_dtype}"] = {
             "ms": time_ms(lambda: banked_scores_fused(bank, q, pv)),
@@ -677,9 +704,13 @@ def phase_times(params, cfgs, img, mask, rays, field, chunk_coords):
                 fma_rate_two_pass_ms=fma_bound_ms(bank, reads=2))
         rows[f"fused_ray_scores/{cfg.compute_dtype}"] = {
             "ms": time_ms(lambda: fused_ray_scores(params, q, pv, x)),
+            "graph_ms": time_ms(lambda: fused_ray_scores(params, q, pv, x),
+                                graph=True),
             "plain_ms": time_ms(lambda: fused_ray_scores_plain(params, q, pv, x)),
             "library_ms": time_ms(lambda: library_fused(params, q, pv, x)),
             "bound_ms": f_ms, "bound_by": f_by}
+        if f_fma_ms is not None:
+            rows["fused_ray_scores/float32"]["fma_rate_ms"] = f_fma_ms
         del bank, x
         torch.cuda.empty_cache()
     emit(phase="times", n_rays=N_RAYS, reps=REPS, rows=rows)
@@ -1239,7 +1270,9 @@ def main() -> int:
     k1f32_counts, banked32_ms = phase_banked_estimate(
         params, cfg32, imgs[:N_WARM + 3], mask, rays)
     k2_counts, fused_ms = phase_fused_estimate(params, cfg16, imgs, mask, rays)
-    phase_fused_estimate(params, cfg32, imgs[:N_WARM + 3], mask, rays)
+    # the unbanked route in float32: K2's three-TF32 route every image
+    k2f32_counts, fused32_ms = phase_fused_estimate(
+        params, cfg32, imgs[:N_WARM + 3], mask, rays)
     obj_counts, field, chunk_coords = phase_object(params, cfg16, dev)
     ff_err = phase_field_kernel(field, chunk_coords, dev)
     rows = phase_times(params, (cfg16, cfg32), img0, mask, rays, field,
@@ -1248,13 +1281,16 @@ def main() -> int:
     bank = ray_bank(params, cfg16, ro, rd, rr)
     bank32 = ray_bank(params, cfg32, ro, rd, rr)
     fused16 = IDConfig(compute_dtype="bfloat16", fused_scoring=True)
+    fused32 = IDConfig(fused_scoring=True)
     phase_profile({
         "banked": lambda img: estimate_pose_single_banked(
             params, cfg16, img, mask, bank, ro, rd, UP, k=K_TOP),
         "banked_float32": lambda img: estimate_pose_single_banked(
             params, cfg32, img, mask, bank32, ro, rd, UP, k=K_TOP),
         "fused": lambda img: estimate_pose_single(
-            params, fused16, img, mask, ro, rd, rr, UP, k=K_TOP)}, imgs)
+            params, fused16, img, mask, ro, rd, rr, UP, k=K_TOP),
+        "fused_float32": lambda img: estimate_pose_single(
+            params, fused32, img, mask, ro, rd, rr, UP, k=K_TOP)}, imgs)
     del bank, bank32
 
     n_est = N_WARM + N_TIMED
@@ -1283,10 +1319,26 @@ def main() -> int:
         dict(name="fused_ray_scores", route="cuda",
              source="iffnerf_tpu_torch/csrc/fused_ray_attention.cu",
              replaces="iffnerf_tpu/ops/fused_ray_attention.py:90",
+             design="bf16: mma.sync m16n8k16 tiles, 64 rays a block, the"
+                    " weights' fragments read from L2",
              launches=k2_counts["fused_ray_scores"],
              launches_per_estimate=k2_counts["fused_ray_scores"] / n_est,
              max_abs_err=k2_errs[f"bfloat16/{N_RAYS}"]["max_abs_err"],
-             **rows["fused_ray_scores/bfloat16"]),
+             **rows["fused_ray_scores/bfloat16"],
+             float32=dict(
+                 design="one persistent warp-specialised CTA an SM, the"
+                        " weights' TF32-split steps bulk-copied into a"
+                        " 5-stage mbarrier ring, the"
+                        " activations in shared memory, three TF32 wgmma"
+                        " m64nNk8 a step (A split in registers), two"
+                        " warpgroups splitting each layer's columns",
+                 launches=k2f32_counts["fused_ray_scores"],
+                 launches_per_estimate=(k2f32_counts["fused_ray_scores"]
+                                        / (N_WARM + 3)),
+                 max_abs_err=k2_errs[f"float32/{N_RAYS}"]["max_abs_err"],
+                 max_rel_err=k2_errs[f"float32/{N_RAYS}"]["max_rel_err"],
+                 estimate_ms_per_image=fused32_ms,
+                 **rows["fused_ray_scores/float32"])),
         dict(name="gather_rows", route="cuda",
              source="iffnerf_tpu_torch/csrc/gather_rows.cu",
              replaces="extra/pallas_gather_bench.py:46",
@@ -1302,7 +1354,8 @@ def main() -> int:
              **rows["field_features/colour_chunk/both"]),
     ]
     emit(phase="latency", banked_ms_per_image=banked_ms,
-         banked_float32_ms_per_image=banked32_ms, fused_ms_per_image=fused_ms)
+         banked_float32_ms_per_image=banked32_ms, fused_ms_per_image=fused_ms,
+         fused_float32_ms_per_image=fused32_ms)
     print(card_line(), flush=True)
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",

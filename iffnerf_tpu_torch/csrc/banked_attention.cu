@@ -155,16 +155,7 @@ __device__ __forceinline__ Smem<T> carve(unsigned char* raw, int nk) {
   return s;
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// bar.sync over the two consumer warpgroups (the producer warps never join)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
-}
+__device__ __forceinline__ void consumers_sync() { hop::named_sync<32 * kConsumerWarps>(); }
 
 // Chunk kc of the cluster's j-th tile: its ring (tiles are dealt to the
 // rings in turn), its stage and the parity of that stage's phase.
@@ -229,12 +220,6 @@ __device__ __forceinline__ void release(const Smem<T>& sm, int s) {
   }
 }
 
-// Byte offset of float col (0..31) of row `row` in a chunk of 128-byte rows
-// written with the 128-byte swizzle.
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * 128 + (((col >> 2) ^ (row & 7)) << 4) + (col & 3) * 4;
-}
-
 // The float32 route reads the depth of a 32-deep chunk in a permuted order,
 // the same for the bank and q, so that each thread's bank values lie in two
 // 16-byte words a row (load_split_f32): step kk's depth c (0..7) is
@@ -255,13 +240,13 @@ __device__ __forceinline__ void split_q(const Smem<float>& sm, int nk) {
     float x[S::kChunk];
 #pragma unroll
     for (int c = 0; c < S::kChunk; ++c)
-      x[c] = *reinterpret_cast<const float*>(hi + base + swz(row, c));
+      x[c] = *reinterpret_cast<const float*>(hi + base + hop::swz128_f32(row, c));
 #pragma unroll
     for (int c = 0; c < S::kChunk; ++c) {
       const float v = x[permuted_col(c >> 3, c & 7)];
       const float h = __uint_as_float(hop::to_tf32(v));
-      *reinterpret_cast<float*>(hi + base + swz(row, c)) = h;
-      *reinterpret_cast<float*>(lo + base + swz(row, c)) = v - h;
+      *reinterpret_cast<float*>(hi + base + hop::swz128_f32(row, c)) = h;
+      *reinterpret_cast<float*>(lo + base + hop::swz128_f32(row, c)) = v - h;
     }
   }
   hop::fence_proxy_async();
@@ -290,7 +275,7 @@ __device__ __forceinline__ void load_split_f32(const Smem<float>& sm, int j, int
 #pragma unroll
     for (int u = 0; u < 2; ++u)
       *reinterpret_cast<float4*>(&x[i][4 * u]) =
-          *reinterpret_cast<const float4*>(a + swz(r0 + 8 * i, 8 * t + 4 * u));
+          *reinterpret_cast<const float4*>(a + hop::swz128_f32(r0 + 8 * i, 8 * t + 4 * u));
 #pragma unroll
   for (int kk = 0; kk < S::kChunk / 8; ++kk)
 #pragma unroll
@@ -395,7 +380,7 @@ __device__ __forceinline__ void fold_stats(const Smem<T>& sm, float (&mr)[Shape<
       const float mo = __shfl_xor_sync(0xffffffffu, mr[k], off);
       const float dd = __shfl_xor_sync(0xffffffffu, dr[k], off);
       const float mn = fmaxf(mr[k], mo);
-      dr[k] = dr[k] * ex2(mr[k] - mn) + dd * ex2(mo - mn);
+      dr[k] = dr[k] * hop::ex2(mr[k] - mn) + dd * hop::ex2(mo - mn);
       mr[k] = mn;
     }
   consumers_sync();  // both warpgroups are done with the ring: it holds the fold
@@ -416,7 +401,7 @@ __device__ __forceinline__ void fold_stats(const Smem<T>& sm, float (&mr)[Shape<
     for (int i = 0; i < kConsumerWarps; ++i) m = fmaxf(m, red_m[i * S::kN + p]);
     float d = 0.f;
     for (int i = 0; i < kConsumerWarps; ++i)
-      d += red_d[i * S::kN + p] * ex2(red_m[i * S::kN + p] - m);
+      d += red_d[i * S::kN + p] * hop::ex2(red_m[i * S::kN + p] - m);
     part_m[cluster * kPatches + rank * S::kN + p] = m * kLn2;
     part_d[cluster * kPatches + rank * S::kN + p] = d;
   }
@@ -464,8 +449,8 @@ __device__ void consume(const Smem<T>& sm, int R, int nk, float scale2, int ntil
 #pragma unroll
       for (int k = 0; k < S::kCols; ++k) {
         const int i = 4 * (k >> 1) + (k & 1);
-        s0 = fmaf(ex2(fmaf(acc[i], scale2, -ra[k])), rb[k], s0);
-        s1 = fmaf(ex2(fmaf(acc[i + 2], scale2, -ra[k])), rb[k], s1);
+        s0 = fmaf(hop::ex2(fmaf(acc[i], scale2, -ra[k])), rb[k], s0);
+        s1 = fmaf(hop::ex2(fmaf(acc[i + 2], scale2, -ra[k])), rb[k], s1);
       }
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
@@ -491,8 +476,8 @@ __device__ void consume(const Smem<T>& sm, int R, int nk, float scale2, int ntil
         const float t0 = ok0 ? acc[i] * scale2 : kNegInf;
         const float t1 = ok1 ? acc[i + 2] * scale2 : kNegInf;
         const float mn = fmaxf(ra[k], fmaxf(t0, t1));
-        const float e = (ok0 ? ex2(t0 - mn) : 0.f) + (ok1 ? ex2(t1 - mn) : 0.f);
-        rb[k] = fmaf(rb[k], ex2(ra[k] - mn), e);
+        const float e = (ok0 ? hop::ex2(t0 - mn) : 0.f) + (ok1 ? hop::ex2(t1 - mn) : 0.f);
+        rb[k] = fmaf(rb[k], hop::ex2(ra[k] - mn), e);
         ra[k] = mn;
       }
       if constexpr (sizeof(T) == 2) {

@@ -11,15 +11,53 @@
 //   l  = k qs                       D  -> P          (qs carries 1/sqrt(D))
 // Each layer accumulates in float32, adds the bias, applies the ReLU and
 // rounds to the working dtype, as the TPU kernel does. The float32 logits
-// [R, P] go to device memory, and each block writes a partial softmax
+// [R, P] go to device memory, and each CTA writes a partial softmax
 // (m_b, d_b) per patch; lse_merge (softmax_stats.cuh) reduces them to
 // m, d, w. The caller forms scores = exp(l - m) w.
 //
 // Two launches on the caller's stream: the fused kernel, lse_merge_kernel.
+// Work at R = 540000 and the model's widths: 1.095 MFLOP a ray, 591 GFLOP.
 //
-// Bound on an H100 SXM: 1.09 MFLOP a ray (591 GFLOP at R = 540000) and
-// 705 MB of traffic (x in bf16, logits out in f32): compute-bound, about
-// 0.60 ms on the bf16 tensor cores.
+// float32 (training's precision): the products run on the TF32 tensor
+// cores split in three, as K1's float32 route does: for a = hi + lo with
+// hi = a rounded to TF32, a . w ~ hi_a . lo_w + lo_a . hi_w + hi_a . hi_w
+// (lo . lo dropped: 2^-22 of the product). One persistent, warp-specialised
+// CTA an SM walks its own 64-ray tiles (one wgmma M), every CTA the same
+// number.
+//   - The weights are the B operand. The wrapper lays out, once per set of
+//     parameters, each layer's w^T split into hi and lo and cut into steps
+//     of 8 deep (one TF32 k-step): step i is [N rows hi | N rows lo] x 8
+//     floats, the depth of each 32-deep chunk permuted as the activations
+//     are read (load_split). The queries' steps are laid out so for each
+//     call, each step as its image in shared memory (rows of 32 bytes with
+//     the 32-byte swizzle). A producer warp streams the steps, in the same
+//     order for every tile, by bulk copies (one a step, 16 or 24 KB) into a
+//     ring of stages guarded by full and empty mbarriers: 4.46 MB of
+//     weights from L2 a tile. (2-CTA clusters multicasting each step,
+//     which halve those reads, measured no faster: PERF.md.)
+//   - The activations are the A operand: float32 in shared memory, in
+//     chunks of [64 rays][32 deep] with the 128-byte swizzle. The two
+//     consumer warpgroups share a tile: each takes half of every layer's
+//     output columns (wgmma N = 64, 128 or 192), loads two steps of the
+//     input into registers, splits them there and issues three wgmma
+//     m64nNk8 a step, then waits for them before the next steps rewrite
+//     those registers; the other warpgroup's products fill the wait.
+//     Keeping the next steps' registers in flight made ptxas serialise the
+//     products (C7512: too few registers) and measured slower. A layer's
+//     output is written over its input once both warpgroups have read it
+//     (named barriers), so x [64, in], the h1/h2/h3 buffer and, over both,
+//     h4 and k fit in 104 KB at the model's widths, which leaves 5 ring
+//     stages of 24 KB. Up to 96 accumulators a thread (N = 192).
+//   - The logits layer writes the float32 logits and folds each tile's
+//     (m, d) of a column over a warp's 16 rows into a running pair that
+//     one lane keeps; each CTA folds those into one partial at the end.
+//     Tiles and folds run in a fixed order: repeats are bit-equal.
+//   - The next tile's x is copied in (cp.async, zero past R and past in)
+//     while the logits epilogue runs.
+// Bound on an H100 SXM at R = 540000: the three TF32 products are 1.77
+// TFLOP, 3.58 ms at 495 TFLOP/s (the float32 FMA rate would need 8.82 ms);
+// x and the logits take 0.26 ms. Widths: h1, h2, h3, D in {128, 256, 384},
+// with at least two ring stages in shared memory.
 //
 // bfloat16 (the inference path): mma.sync m16n8k16 bf16 tiles with float32
 // accumulators, 64 rays a block, one block a SM. The activations stay in
@@ -27,185 +65,462 @@
 // at the model's widths; the weights, transposed and depth-padded by the
 // wrapper, reach the tensor cores as fragments read from L2, where all
 // 1.1 MB of them stay. Those L2 reads (the whole net again for every 64
-// rays) and the 553 MB of logits keep it above the bound; staging weights
-// through shared memory and wgmma are later work.
-//
-// float32 (training's precision): float32 FMAs, the activations in shared
-// memory as floats (64 * (in + max(h1, h3) + max(h2, D)) of them, 195 KB),
-// the k buffer over the x and h1/h3 space once both are dead, and weights
-// streaming through a 16-deep shared slice from L2; bound by the FMA rate.
+// rays) and the 553 MB of logits keep it above its bound (0.60 ms on the
+// bf16 tensor cores); the float32 route's pipeline in bf16 is later work.
 #include <cstdint>
 
 #include "mma_bf16.cuh"
 #include "softmax_stats.cuh"
+#include "tma_wgmma.cuh"
 
 namespace iff {
 
-constexpr int kBK = 16;        // depth of one weight slice
-constexpr int kMaxChunk = 256; // output columns per pass (32 lanes x 8)
+// ---------------------------------------------------------------------------
+// float32: three TF32 wgmma products a step, the weights through a ring
+// ---------------------------------------------------------------------------
 
-// acc[i][j] = sum_k in(wp*8 + i, k) * W[k][c0 + ln + 32*j] over k < KA + KB,
-// where in(r, k) is inA[r][k] for k < KA and inB[r][k - KA] after it.
-template <int NJ>
-__device__ __forceinline__ void chunk_acc(const float* inA, int ldA, int KA, const float* inB,
-                                          int ldB, int KB, const float* __restrict__ W, int N,
-                                          int c0, float* Ws, float (&acc)[kRaysPerWarp][NJ]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int ncols = 32 * NJ;
-#pragma unroll
-  for (int i = 0; i < kRaysPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  const int K = KA + KB;
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int idx = threadIdx.x; idx < kBK * ncols; idx += kThreads) {
-      const int kk = idx / ncols, c = idx % ncols;
-      const int k = k0 + kk;
-      Ws[idx] = k < K ? W[static_cast<int64_t>(k) * N + c0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const int k = k0 + kk;
-      if (k < K) {
-        const float* src = k < KA ? inA + k : inB + (k - KA);
-        const int ld = k < KA ? ldA : ldB;
-        float a[kRaysPerWarp];
-#pragma unroll
-        for (int i = 0; i < kRaysPerWarp; ++i) a[i] = src[(warp * kRaysPerWarp + i) * ld];
-        float b[NJ];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) b[j] = Ws[kk * ncols + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kRaysPerWarp; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-}
+namespace f32 {
 
-template <int NJ>
-__device__ __forceinline__ void layer_chunk(const float* inA, int ldA, int KA, const float* inB,
-                                            int ldB, int KB, const float* __restrict__ W,
-                                            const float* __restrict__ bias, int N, int c0,
-                                            bool relu, float* Ws, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[kRaysPerWarp][NJ];
-  chunk_acc<NJ>(inA, ldA, KA, inB, ldB, KB, W, N, c0, Ws, acc);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int c = c0 + lane + 32 * j;
-    const float bb = bias[c];
-#pragma unroll
-    for (int i = 0; i < kRaysPerWarp; ++i) {
-      float v = acc[i][j] + bb;
-      if (relu) v = fmaxf(v, 0.f);
-      out[(warp * kRaysPerWarp + i) * N + c] = v;
-    }
-  }
-}
+constexpr int kRays = 64;                              // rays a tile: one wgmma M
+constexpr int kConsumerWarps = 8;                      // two warpgroups
+constexpr int kThreadsWs = 32 * (kConsumerWarps + 4);  // and the producer warpgroup
+// registers a thread, moved by setmaxnreg from the producer warpgroup to
+// the consumers (without it the consumers spill)
+constexpr uint32_t kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kChunk = 32;                // depth of an activation chunk: 128-byte rows
+constexpr int kChunkBytes = kRays * 128;  // 8 KB
+constexpr int kStep = 8;                  // depth of a ring stage: one TF32 k-step
+constexpr int kStepBytes = kStep * 4;     // a weight row of a stage: 32 bytes
+constexpr int kMaxStages = 8;
+constexpr int kSmemBytes = 232448;        // all the dynamic shared memory a CTA may have
+constexpr float kLog2e = 1.4426950408889634f;
 
-// out [64][N] = layer(in); N a multiple of 128. `out` aliases no input;
-// the next reader's first __syncthreads orders the writes before it.
-__device__ void dense(const float* inA, int KA, const float* inB, int KB,
-                      const float* __restrict__ W, const float* __restrict__ bias, int N,
-                      bool relu, float* Ws, float* out) {
-  for (int c0 = 0; c0 < N; c0 += kMaxChunk) {
-    if (N - c0 >= kMaxChunk)
-      layer_chunk<8>(inA, KA, KA, inB, KB, KB, W, bias, N, c0, relu, Ws, out);
-    else
-      layer_chunk<4>(inA, KA, KA, inB, KB, KB, W, bias, N, c0, relu, Ws, out);
-  }
-}
-
-struct Weights {
-  const void *w1, *b1, *w2, *b2, *w3, *b3, *w4, *b4, *wk, *bk, *qs;
+struct Net {
+  const float *b1, *b2, *b3, *b4, *bk;
   int in_dim, h1, h2, h3, dk;
 };
 
-__global__ void __launch_bounds__(kThreads)
-    fused_ray_f32(const float* __restrict__ x, int R, Weights wt, float* __restrict__ logits,
-                     float* part_m, float* part_d) {
-  extern __shared__ __align__(16) float smem[];
-  const int in_dim = wt.in_dim;
-  const int r1 = max(wt.h1, wt.h3), r2 = max(wt.h2, wt.dk);
-  float* X = smem;                              // [64][in]
-  float* R1 = X + kTileRays * in_dim;           // [64][h1] then [64][h3]
-  float* R2 = R1 + kTileRays * r1;              // [64][h2] then [64][D]
-  float* Ws = R2 + kTileRays * r2;              // [16][<=256]
-  float* Kb = X;                                // [64][D] over X and R1
-  const float* w1 = static_cast<const float*>(wt.w1);
-  const float* b1 = static_cast<const float*>(wt.b1);
-  const float* w2 = static_cast<const float*>(wt.w2);
-  const float* b2 = static_cast<const float*>(wt.b2);
-  const float* w3 = static_cast<const float*>(wt.w3);
-  const float* b3 = static_cast<const float*>(wt.b3);
-  const float* w4 = static_cast<const float*>(wt.w4);
-  const float* b4 = static_cast<const float*>(wt.b4);
-  const float* wk = static_cast<const float*>(wt.wk);
-  const float* bk = static_cast<const float*>(wt.bk);
-  const float* qs = static_cast<const float*>(wt.qs);
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float m_run[kColsPerLane], d_run[kColsPerLane];
-#pragma unroll
-  for (int j = 0; j < kColsPerLane; ++j) {
-    m_run[j] = kNegInf;
-    d_run[j] = 0.f;
+// Shared memory at these widths: x takes xc chunks after the hc chunks of
+// the h1/h2/h3 buffer; h4 and k lie over both. A ring stage holds the hi and
+// lo rows of the widest layer's step. (ops/fused_ray_attention.py's
+// f32_stages computes the same.)
+struct Plan {
+  int xc, hc, act, slot, stages;
+};
+
+__host__ __device__ inline Plan plan(const Net& n) {
+  Plan p;
+  p.xc = (n.in_dim + kChunk - 1) / kChunk;
+  const int h = imax(imax(n.h1, n.h2), n.h3);
+  p.hc = h / kChunk;
+  p.act = imax(p.hc + p.xc, n.dk / kChunk);
+  p.slot = 2 * imax(imax(h, n.dk), kPatches) * kStepBytes;
+  const int left = kSmemBytes - 1024 - 2 * kMaxStages * 8 - p.act * kChunkBytes;
+  p.stages = left / p.slot < kMaxStages ? left / p.slot : kMaxStages;
+  return p;
+}
+
+// steps (of 8 deep) and output width of each of the six layers, in the
+// order the ring serves them; layer 5 (the logits) takes the queries' steps
+inline __host__ __device__ int layer_steps(const Net& n, const Plan& p, int l) {
+  switch (l) {
+    case 0: return p.xc * (kChunk / kStep);
+    case 1: return n.h1 / kStep;
+    case 2: return n.h2 / kStep + p.xc * (kChunk / kStep);
+    case 3: return n.h3 / kStep;
+    default: return n.dk / kStep;
   }
-  const int ntiles = (R + kTileRays - 1) / kTileRays;
-  const int64_t total = static_cast<int64_t>(R) * in_dim;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int ray0 = t * kTileRays;
-    const int64_t base = static_cast<int64_t>(ray0) * in_dim;
-    for (int idx = threadIdx.x; idx < kTileRays * in_dim; idx += kThreads)
-      X[idx] = base + idx < total ? x[base + idx] : 0.f;
+}
 
-    dense(X, in_dim, nullptr, 0, w1, b1, wt.h1, true, Ws, R1);
-    dense(R1, wt.h1, nullptr, 0, w2, b2, wt.h2, true, Ws, R2);
-    dense(R2, wt.h2, X, in_dim, w3, b3, wt.h3, true, Ws, R1);
-    dense(R1, wt.h3, nullptr, 0, w4, b4, wt.dk, false, Ws, R2);
-    dense(R2, wt.dk, nullptr, 0, wk, bk, wt.dk, false, Ws, Kb);
+inline __host__ __device__ int layer_width(const Net& n, int l) {
+  switch (l) {
+    case 0: return n.h1;
+    case 1: return n.h2;
+    case 2: return n.h3;
+    case 5: return kPatches;
+    default: return n.dk;
+  }
+}
 
-    float acc[kRaysPerWarp][kColsPerLane];
-    chunk_acc<kColsPerLane>(Kb, wt.dk, wt.dk, nullptr, 0, 0, qs, kPatches, 0, Ws, acc);
-#pragma unroll
-    for (int i = 0; i < kRaysPerWarp; ++i) {
-      const int r = ray0 + warp * kRaysPerWarp + i;
-      if (r < R) {
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j)
-          logits[static_cast<int64_t>(r) * kPatches + lane + 32 * j] = acc[i][j];
+struct Smem {
+  unsigned char* act;   // p.act chunks [64 rays][32 floats], 128-byte swizzle
+  unsigned char* ring;  // p.stages stages: [N rows hi | N rows lo] x 8 floats, 32-byte swizzle
+  uint64_t* full;       // the stage has landed in this CTA
+  uint64_t* empty;      // the consumer warps are done with it
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* raw, const Plan& p) {
+  const uint32_t pad = (1024 - (hop::smem_u32(raw) & 1023)) & 1023;  // swizzle atoms
+  Smem s;
+  s.act = raw + pad;
+  s.ring = s.act + p.act * kChunkBytes;
+  s.full = reinterpret_cast<uint64_t*>(s.ring + p.stages * p.slot);
+  s.empty = s.full + kMaxStages;
+  return s;
+}
+
+// the next stage of the ring and the parity of its phase
+struct Pos {
+  int s;
+  uint32_t phase;
+};
+
+__device__ __forceinline__ void advance(Pos& at, int stages) {
+  if (++at.s == stages) {
+    at.s = 0;
+    at.phase ^= 1;
+  }
+}
+
+__device__ __forceinline__ void consumers_sync() { hop::named_sync<32 * kConsumerWarps>(); }
+
+__device__ __forceinline__ float fast_exp(float x) { return hop::ex2(x * kLog2e); }
+
+// 4 bytes from global to shared memory, or zeros when bytes is 0
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hop::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The producer warp, all of it in step, lane 0 issuing: for every tile, the
+// six layers' steps in order, each a bulk copy of its shared-memory image.
+__device__ __forceinline__ void produce(const unsigned char* w_img, const unsigned char* q_img,
+                                        const Smem& sm, const Net& n, const Plan& p, int iters) {
+  const bool leader = (threadIdx.x & 31) == 0;
+  Pos at{0, 0};
+  for (int j = 0; j < iters; ++j) {
+    const unsigned char* src = w_img;
+    for (int l = 0; l < 6; ++l) {
+      if (l == 5) src = q_img;
+      const uint32_t bytes = 2 * layer_width(n, l) * kStepBytes;
+      const int steps = layer_steps(n, p, l);
+      for (int st = 0; st < steps; ++st) {
+        hop::mbar_wait(sm.empty + at.s, at.phase ^ 1);
+        if (leader) {
+          hop::mbar_arrive_expect_tx(sm.full + at.s, bytes);
+          hop::bulk_load(sm.ring + at.s * p.slot, src, bytes, sm.full + at.s);
+        }
+        __syncwarp();
+        src += bytes;
+        advance(at, p.stages);
       }
     }
-    const int nvalid = min(max(R - (ray0 + warp * kRaysPerWarp), 0), kRaysPerWarp);
-    online_update(acc, nvalid, m_run, d_run);
   }
-  __syncthreads();
-  write_block_stats(m_run, d_run, R2, part_m, part_d);
 }
 
-inline size_t smem_bytes(const Weights& wt) {
-  const int r1 = wt.h1 > wt.h3 ? wt.h1 : wt.h3;
-  const int r2 = wt.h2 > wt.dk ? wt.h2 : wt.dk;
-  return sizeof(float) *
-         (static_cast<size_t>(kTileRays) * (wt.in_dim + r1 + r2) + kBK * kMaxChunk);
+// frees stage s: this warp's products have read it
+__device__ __forceinline__ void release(const Smem& sm, int s) {
+  if ((threadIdx.x & 31) == 0) hop::mbar_arrive(sm.empty + s);
 }
 
-cudaError_t run_f32(const float* x, int R, const Weights& wt, const unsigned char* valid,
-                    float* logits, float* part_m, float* part_d, int nblocks, float* m,
-                    float* d, float* w, cudaStream_t stream) {
-  const size_t smem = smem_bytes(wt);
-  cudaError_t err = cudaFuncSetAttribute(fused_ray_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  fused_ray_f32<<<nblocks, kThreads, smem, stream>>>(x, R, wt, logits, part_m, part_d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_lse_merge(part_m, part_d, nblocks, kPatches, valid, m, d, w, stream);
+// Step kk (0..3) of an activation chunk loaded into registers and split
+// there. Element e of the step's A fragment (row r0 + 8 (e & 1), depth
+// t + 4 (e >> 1), t = lane % 4) is the chunk's column 8 t + 2 kk + (e >> 1),
+// the depth that the wrapper's steps put at that position: one 8-byte word
+// a row.
+__device__ __forceinline__ void load_split(const unsigned char* chunk, int kk, uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2), col = 8 * (lane & 3) + 2 * kk;
+  const float2 w0 = *reinterpret_cast<const float2*>(chunk + hop::swz128_f32(r0, col));
+  const float2 w1 = *reinterpret_cast<const float2*>(chunk + hop::swz128_f32(r0 + 8, col));
+  const float x[4] = {w0.x, w1.x, w0.y, w1.y};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = hop::to_tf32(x[e]);
+    lo[e] = __float_as_uint(x[e] - __uint_as_float(hi[e]));
+  }
+  hop::fence_regs(hi);
+  hop::fence_regs(lo);
 }
+
+// d (+)= a . b over the warpgroup's 64, 128 or 192 output columns
+__device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int s) {
+  hop::wgmma_m64n64k8_tf32(d, a, b, s);
+}
+__device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int s) {
+  hop::wgmma_m64n128k8_tf32(d, a, b, s);
+}
+__device__ __forceinline__ void mma(float (&d)[96], const uint32_t (&a)[4], uint64_t b, int s) {
+  hop::wgmma_m64n192k8_tf32(d, a, b, s);
+}
+
+// The three products of one step (the small terms first; scale_d 0 on the
+// layer's first step overwrites acc) on its stage, once it has landed.
+template <int NA>
+__device__ __forceinline__ void step_products(const Smem& sm, const Plan& p, const Pos& at, int n,
+                                              int accumulate, const uint32_t (&hi)[4],
+                                              const uint32_t (&lo)[4], float (&acc)[NA]) {
+  constexpr int kNW = 2 * NA;  // this warpgroup's output columns
+  const int wg = threadIdx.x >> 7;
+  hop::mbar_wait(sm.full + at.s, at.phase);
+  const unsigned char* slot = sm.ring + at.s * p.slot;
+  const uint64_t b_hi = hop::desc_sw32(slot + wg * kNW * kStepBytes);
+  const uint64_t b_lo = hop::desc_sw32(slot + (n + wg * kNW) * kStepBytes);
+  hop::wgmma_fence();
+  mma(acc, hi, b_lo, accumulate);
+  mma(acc, lo, b_hi, 1);
+  mma(acc, hi, b_hi, 1);
+}
+
+// acc = the layer's products over nc1 activation chunks from chunk c1, then
+// nc2 from chunk c2, two steps at a time: their activations loaded and
+// split into registers, their six products issued, then waited for (the
+// next pair rewrites those registers) and both stages freed. The other
+// warpgroup's products keep the tensor cores busy meanwhile. (One step a
+// wait, or four, measured slower.)
+template <int NA>
+__device__ __forceinline__ void layer_products(const Smem& sm, const Plan& p, Pos& at, int n,
+                                               int c1, int nc1, int c2, int nc2,
+                                               float (&acc)[NA]) {
+  const int ns = 4 * (nc1 + nc2);  // steps, 4 a chunk
+  hop::fence_regs(acc);
+#pragma unroll 1
+  for (int s = 0; s < ns; s += 2) {
+    const int q = s >> 2;
+    const unsigned char* chunk = sm.act + (q < nc1 ? c1 + q : c2 + q - nc1) * kChunkBytes;
+    uint32_t hi0[4], lo0[4], hi1[4], lo1[4];
+    load_split(chunk, s & 3, hi0, lo0);
+    load_split(chunk, (s & 3) + 1, hi1, lo1);
+    const int s0 = at.s;
+    step_products<NA>(sm, p, at, n, s, hi0, lo0, acc);
+    advance(at, p.stages);
+    const int s1 = at.s;
+    step_products<NA>(sm, p, at, n, 1, hi1, lo1, acc);
+    advance(at, p.stages);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    release(sm, s0);
+    release(sm, s1);
+  }
+  hop::fence_regs(acc);
+}
+
+// act(acc + bias) over the layer's input, into chunk 0 onwards: thread value
+// i is column wg * NW + 8 (i >> 2) + 2 t + (i & 1) of row r0 + 8 ((i >> 1) & 1)
+template <int NA>
+__device__ __forceinline__ void store_layer(const float (&acc)[NA], const float* __restrict__ bias,
+                                            bool relu, unsigned char* out) {
+  constexpr int kNW = 2 * NA;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < kNW / 8; ++j) {
+    const int col = wg * kNW + 8 * j + 2 * (lane & 3);
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h] + bb.x, v1 = acc[4 * j + 2 * h + 1] + bb.y;
+      if (relu) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      unsigned char* at = out + (col >> 5) * kChunkBytes + hop::swz128_f32(r0 + 8 * h, col & 31);
+      *reinterpret_cast<float2*>(at) = make_float2(v0, v1);
+    }
+  }
+}
+
+// one of the five dense layers: products, then (once both warpgroups have
+// read the input) the output over it
+template <int NA>
+__device__ __forceinline__ void dense(const Smem& sm, const Plan& p, Pos& at, int n, int c1,
+                                      int nc1, int c2, int nc2, const float* bias, bool relu) {
+  float acc[NA] = {};
+  layer_products<NA>(sm, p, at, n, c1, nc1, c2, nc2, acc);
+  consumers_sync();
+  store_layer<NA>(acc, bias, relu, sm.act);
+  consumers_sync();
+}
+
+__device__ __forceinline__ void dense_n(const Smem& sm, const Plan& p, Pos& at, int n, int c1,
+                                     int nc1, int c2, int nc2, const float* bias, bool relu) {
+  switch (n) {
+    case 128: dense<32>(sm, p, at, n, c1, nc1, c2, nc2, bias, relu); break;
+    case 256: dense<64>(sm, p, at, n, c1, nc1, c2, nc2, bias, relu); break;
+    default: dense<96>(sm, p, at, n, c1, nc1, c2, nc2, bias, relu); break;
+  }
+}
+
+// The tile's 64 rays x 256 patches of x into chunks [X, X + xc), zero past
+// R and past in_dim; cp.async, waited for with cp_async_wait_all.
+__device__ __forceinline__ void load_x(const float* __restrict__ x, int R, int in_dim, int ray0,
+                                       unsigned char* X, int xc) {
+  const int cols = xc * kChunk;
+  for (int i = threadIdx.x; i < kRays * cols; i += 32 * kConsumerWarps) {
+    const int r = i / cols, c = i - r * cols;
+    const bool ok = ray0 + r < R && c < in_dim;
+    const float* src = ok ? x + static_cast<int64_t>(ray0 + r) * in_dim + c : x;
+    cp_async4(X + (c >> 5) * kChunkBytes + hop::swz128_f32(r, c & 31), src, ok ? 4 : 0);
+  }
+}
+
+// The logits of a tile to device memory (rows past R are not written nor
+// counted), and the tile's (m, d) of each of the warpgroup's 128 patch
+// columns folded into the warp's running pair. A thread holds value k of
+// column 8 (k >> 1) + 2 t + (k & 1) (past wg * 128) for rows r0 and r0 + 8;
+// the tile's max and sum of each column over the warp's 16 rows go round
+// the 8 lanes that share t, and lane 4 g + t keeps the running pair of its
+// columns k = 4 g .. 4 g + 3.
+__device__ __forceinline__ void logits_epilogue(const float (&acc)[64], int ray0, int R,
+                                                float* __restrict__ logits, float (&mr)[4],
+                                                float (&dr)[4]) {
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, r0 = ray0 + 16 * warp + g;
+  const bool ok0 = r0 < R, ok1 = r0 + 8 < R;
+  float* row0 = logits + static_cast<int64_t>(r0) * kPatches + wg * 128 + 2 * (lane & 3);
+  float* row1 = row0 + 8 * kPatches;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (ok0) __stcs(reinterpret_cast<float2*>(row0 + 8 * j), make_float2(acc[4 * j], acc[4 * j + 1]));
+    if (ok1)
+      __stcs(reinterpret_cast<float2*>(row1 + 8 * j), make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const int i = 4 * (k >> 1) + (k & 1);
+    const float t0 = ok0 ? acc[i] : kNegInf, t1 = ok1 ? acc[i + 2] : kNegInf;
+    float tm = fmaxf(t0, t1);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, off));
+    float ts = (ok0 ? fast_exp(t0 - tm) : 0.f) + (ok1 ? fast_exp(t1 - tm) : 0.f);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) ts += __shfl_xor_sync(0xffffffffu, ts, off);
+    if ((k >> 2) == g) {
+      const int c = k & 3;
+      const float mn = fmaxf(mr[c], tm);
+      dr[c] = dr[c] * fast_exp(mr[c] - mn) + ts * fast_exp(tm - mn);
+      mr[c] = mn;
+    }
+  }
+}
+
+// Folds the running pairs of the 4 warps of each warpgroup into this CTA's
+// partial row.
+__device__ __forceinline__ void fold_stats(const Smem& sm, const float (&mr)[4],
+                                           const float (&dr)[4], float* part_m, float* part_d) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  consumers_sync();  // nobody reads the activations any more: they hold the fold
+  float* red_m = reinterpret_cast<float*>(sm.act);
+  float* red_d = red_m + kConsumerWarps * 128;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int k = 4 * (lane >> 2) + c;
+    const int col = 8 * (k >> 1) + 2 * (lane & 3) + (k & 1);
+    red_m[warp * 128 + col] = mr[c];
+    red_d[warp * 128 + col] = dr[c];
+  }
+  consumers_sync();
+  if (threadIdx.x < kPatches) {
+    const int p = threadIdx.x, w0 = 4 * (p >> 7), c = p & 127;
+    float m = kNegInf;
+    for (int w = w0; w < w0 + 4; ++w) m = fmaxf(m, red_m[w * 128 + c]);
+    float d = 0.f;
+    for (int w = w0; w < w0 + 4; ++w) d += red_d[w * 128 + c] * expf(red_m[w * 128 + c] - m);
+    part_m[blockIdx.x * kPatches + p] = m;
+    part_d[blockIdx.x * kPatches + p] = d;
+  }
+}
+
+// The two consumer warpgroups: every tile of this CTA (tile blockIdx.x +
+// j gridDim.x; tiles past R compute zeros that are neither written nor
+// counted), its six layers in turn.
+__device__ __forceinline__ void consume(const Smem& sm, const Plan& p, const Net& n, const float* __restrict__ x,
+                        int R, int iters, float* __restrict__ logits, float* part_m,
+                        float* part_d) {
+  float mr[4], dr[4];  // running (m, d) of 4 columns, see logits_epilogue
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    mr[c] = kNegInf;
+    dr[c] = 0.f;
+  }
+  Pos at{0, 0};
+  unsigned char* X = sm.act + p.hc * kChunkBytes;
+  const int hc1 = n.h1 / kChunk, hc2 = n.h2 / kChunk, hc3 = n.h3 / kChunk, dc = n.dk / kChunk;
+  load_x(x, R, n.in_dim, blockIdx.x * kRays, X, p.xc);
+  for (int j = 0; j < iters; ++j) {
+    const int ray0 = (blockIdx.x + j * gridDim.x) * kRays;
+    cp_async_wait_all();
+    consumers_sync();
+    dense_n(sm, p, at, n.h1, p.hc, p.xc, 0, 0, n.b1, true);
+    dense_n(sm, p, at, n.h2, 0, hc1, 0, 0, n.b2, true);
+    dense_n(sm, p, at, n.h3, 0, hc2, p.hc, p.xc, n.b3, true);
+    dense_n(sm, p, at, n.dk, 0, hc3, 0, 0, n.b4, false);
+    dense_n(sm, p, at, n.dk, 0, dc, 0, 0, n.bk, false);
+    float acc[64] = {};
+    layer_products<64>(sm, p, at, kPatches, 0, dc, 0, 0, acc);
+    consumers_sync();  // k has been read: the next tile's x may land over it
+    if (j + 1 < iters) load_x(x, R, n.in_dim, ray0 + gridDim.x * kRays, X, p.xc);
+    logits_epilogue(acc, ray0, R, logits, mr, dr);
+  }
+  fold_stats(sm, mr, dr, part_m, part_d);
+}
+
+// One CTA an SM, persistent over `iters` tiles each; warps 0-7 consume,
+// warp 8 produces.
+__global__ void __launch_bounds__(kThreadsWs, 1)
+    fused_ray_f32(const float* __restrict__ w_img, const float* __restrict__ q_img,
+                  const float* __restrict__ x, int R, Net net, int iters,
+                  float* __restrict__ logits, float* part_m, float* part_d) {
+  extern __shared__ unsigned char smem_raw[];
+  const Plan p = plan(net);
+  const Smem sm = carve(smem_raw, p);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      hop::mbar_init(sm.full + s, 1);
+      hop::mbar_init(sm.empty + s, kConsumerWarps);
+    }
+    hop::fence_mbar_init();
+  }
+  __syncthreads();  // the barriers exist before anyone arrives on them
+  // each role runs to its own end (setmaxnreg needs branches that never
+  // rejoin)
+  if (threadIdx.x >= 32 * kConsumerWarps) {
+    hop::setmaxnreg_dec<kProducerRegs>();
+    if ((threadIdx.x >> 5) == kConsumerWarps)
+      produce(reinterpret_cast<const unsigned char*>(w_img),
+              reinterpret_cast<const unsigned char*>(q_img), sm, net, p, iters);
+  } else {
+    hop::setmaxnreg_inc<kConsumerRegs>();
+    consume(sm, p, net, x, R, iters, logits, part_m, part_d);
+  }
+}
+
+// rows of the weights' step image of layers 1-5
+inline int net_rows(const Net& n, const Plan& p) {
+  int rows = 0;
+  for (int l = 0; l < 5; ++l) rows += layer_steps(n, p, l) * 2 * layer_width(n, l);
+  return rows;
+}
+
+cudaError_t run(const float* x, int R, const Net& net, const float* w_img, int w_rows,
+                const float* q_img, const unsigned char* valid, float* logits, float* part_m,
+                float* part_d, int max_ctas, float* m, float* d, float* w, cudaStream_t stream) {
+  const Plan p = plan(net);
+  if (p.stages < 2 || w_rows != net_rows(net, p)) return cudaErrorInvalidValue;
+  // the shared-memory limit, set once (a static of this non-inline function
+  // stays this library's own where two builds of the source share a process)
+  static const cudaError_t limit = cudaFuncSetAttribute(
+      fused_ray_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (limit != cudaSuccess) return limit;
+  const int ntiles = (R + kRays - 1) / kRays;
+  const int grid = ntiles < max_ctas ? ntiles : max_ctas;
+  const int iters = (ntiles + grid - 1) / grid;
+  fused_ray_f32<<<grid, kThreadsWs, kSmemBytes, stream>>>(w_img, q_img, x, R, net, iters, logits,
+                                                          part_m, part_d);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_lse_merge(part_m, part_d, grid, kPatches, valid, m, d, w, stream);
+}
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bfloat16: mma.sync tensor-core tiles
@@ -393,27 +708,32 @@ cudaError_t run_bf16(const tc::bf16* x, int R, const tc::Net& net, const unsigne
 
 }  // namespace iff
 
-// float32: x [R, in_dim]; w1 [in, h1], w2 [h1, h2], w3 [h2 + in, h3],
-// w4 [h3, D], wk [D, D], qs [D, 256] and the biases; valid [256] uint8;
-// logits [R, 256], part_m/part_d [nblocks, 256], m/d/w [256] float32.
-// h1, h2, h3 and D must be multiples of 128 and in + max(h1, h3) >= D.
+// float32: x [R, in_dim]; w_img [w_rows, 8]: the steps of layers 1-5 (the
+// skip layer's h2 steps, then its x steps) and q_img [(D / 8) 2 P, 8]: the
+// steps of the logits layer, each step the hi then lo rows of w^T with the
+// depth of each 32-deep chunk permuted (ops/fused_ray_attention.py lays
+// them out); the biases; valid [256] uint8; logits [R, 256], part_m/part_d
+// [max_ctas, 256], m/d/w [256] float32. h1, h2, h3 and D must be 128, 256
+// or 384, and the activations must leave two ring stages of shared memory.
 // Returns a cudaError_t.
-extern "C" int iff_fused_ray_scores_f32(const void* x, int R, int in_dim, const void* w1,
-                                        const void* b1, int h1, const void* w2, const void* b2,
-                                        int h2, const void* w3, const void* b3, int h3,
-                                        const void* w4, const void* b4, int dk, const void* wk,
-                                        const void* bk, const void* qs, int P, const void* valid,
-                                        void* logits, void* part_m, void* part_d, int nblocks,
-                                        void* m, void* d, void* w, void* stream) {
-  const iff::Weights wt{w1, b1, w2, b2, w3, b3, w4, b4, wk, bk, qs, in_dim, h1, h2, h3, dk};
-  const bool widths_ok = h1 % 128 == 0 && h2 % 128 == 0 && h3 % 128 == 0 && dk % 128 == 0 &&
-                         in_dim + (h1 > h3 ? h1 : h3) >= dk;
-  if (P != iff::kPatches || !widths_ok || R <= 0 || nblocks <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(iff::run_f32(
-      static_cast<const float*>(x), R, wt, static_cast<const unsigned char*>(valid),
+extern "C" int iff_fused_ray_scores_f32(const void* x, int R, int in_dim, int h1, int h2, int h3,
+                                        int dk, const void* w_img, int w_rows, const void* b1,
+                                        const void* b2, const void* b3, const void* b4,
+                                        const void* bk, const void* q_img, int P,
+                                        const void* valid, void* logits, void* part_m,
+                                        void* part_d, int max_ctas, void* m, void* d, void* w,
+                                        void* stream) {
+  auto cast = [](const void* p) { return static_cast<const float*>(p); };
+  const iff::f32::Net net{cast(b1), cast(b2), cast(b3), cast(b4), cast(bk),
+                          in_dim, h1, h2, h3, dk};
+  auto width_ok = [](int n) { return n == 128 || n == 256 || n == 384; };
+  const bool ok = P == iff::kPatches && width_ok(h1) && width_ok(h2) && width_ok(h3) &&
+                  width_ok(dk) && in_dim > 0 && R > 0 && max_ctas > 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(iff::f32::run(
+      cast(x), R, net, cast(w_img), w_rows, cast(q_img), static_cast<const unsigned char*>(valid),
       static_cast<float*>(logits), static_cast<float*>(part_m), static_cast<float*>(part_d),
-      nblocks, static_cast<float*>(m), static_cast<float*>(d), static_cast<float*>(w),
+      max_ctas, static_cast<float*>(m), static_cast<float*>(d), static_cast<float*>(w),
       static_cast<cudaStream_t>(stream)));
 }
 

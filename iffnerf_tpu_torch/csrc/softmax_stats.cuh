@@ -9,11 +9,9 @@
 // partial (m_b[p], d_b[p]), and lse_merge reduces the partials:
 //   m = max_b m_b,  d = sum_b d_b * exp(m_b - m),  w = (valid ? 1 : 0) / d.
 //
-// online_update and write_block_stats serve the fused ray scorer's float32
-// FMA tiles: a 64-ray x 256-patch tile, 256 threads, warp `wp` owns rays
-// wp*8 .. wp*8+7, lane `ln` owns patch columns ln + 32*j, j < 8. The
-// tensor-core tiles have their own layouts and helpers (mma_bf16.cuh, and
-// the banked scorer's epilogue in banked_attention.cu).
+// Each kernel keeps its running pairs in its own accumulator layout
+// (mma_bf16.cuh for the bf16 ray scorer, the epilogues of
+// banked_attention.cu and of the float32 ray scorer).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,54 +21,7 @@ namespace iff {
 
 constexpr float kNegInf = -1e30f;   // as the TPU kernels' _NEG_INF
 constexpr int kThreads = 256;
-constexpr int kTileRays = 64;       // rays per tile
-constexpr int kRaysPerWarp = 8;
 constexpr int kPatches = 256;       // patch columns (16 x 16 grid)
-constexpr int kColsPerLane = 8;
-
-// Folds one tile's logits l[i][j] (ray i of this warp, column j of this
-// lane) into the running (m, d). Only the first `nvalid` rays exist.
-__device__ __forceinline__ void online_update(const float (&l)[kRaysPerWarp][kColsPerLane],
-                                              int nvalid, float (&m_run)[kColsPerLane],
-                                              float (&d_run)[kColsPerLane]) {
-#pragma unroll
-  for (int j = 0; j < kColsPerLane; ++j) {
-    float tmax = kNegInf;
-#pragma unroll
-    for (int i = 0; i < kRaysPerWarp; ++i)
-      if (i < nvalid) tmax = fmaxf(tmax, l[i][j]);
-    const float m_new = fmaxf(m_run[j], tmax);
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < kRaysPerWarp; ++i)
-      if (i < nvalid) s += expf(l[i][j] - m_new);
-    d_run[j] = d_run[j] * expf(m_run[j] - m_new) + s;
-    m_run[j] = m_new;
-  }
-}
-
-// Folds the 8 warps' running pairs into the block's partial (m_b, d_b).
-// `red` is 2 * 8 * 256 floats of shared memory that no thread still reads.
-__device__ __forceinline__ void write_block_stats(const float (&m_run)[kColsPerLane],
-                                                  const float (&d_run)[kColsPerLane],
-                                                  float* red, float* part_m, float* part_d) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* red_m = red;
-  float* red_d = red + 8 * kPatches;
-#pragma unroll
-  for (int j = 0; j < kColsPerLane; ++j) {
-    red_m[warp * kPatches + lane + 32 * j] = m_run[j];
-    red_d[warp * kPatches + lane + 32 * j] = d_run[j];
-  }
-  __syncthreads();
-  const int p = threadIdx.x;  // one patch per thread
-  float m = kNegInf;
-  for (int w = 0; w < 8; ++w) m = fmaxf(m, red_m[w * kPatches + p]);
-  float d = 0.f;
-  for (int w = 0; w < 8; ++w) d += red_d[w * kPatches + p] * expf(red_m[w * kPatches + p] - m);
-  part_m[blockIdx.x * kPatches + p] = m;
-  part_d[blockIdx.x * kPatches + p] = d;
-}
 
 // Max (kMax) or sum of v over the block; every thread gets the result.
 // `red` holds 32 floats of shared memory.

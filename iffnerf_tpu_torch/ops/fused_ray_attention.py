@@ -14,10 +14,13 @@ for CUDA tensors (it replaces the TPU kernel ``_kernel`` of the JAX
 package's ``ops/fused_ray_attention.py``; the source says what bounds it
 on an H100 and how it is built), which writes the logits and the softmax
 statistics: bf16 on the tensor cores (``mma.sync``, from transposed copies
-of the weights, made once per set of parameters), float32 on FMAs. The
-epilogue ``exp(l - m) @ w`` stays in torch, as it stayed outside the TPU
-kernel. CPU tensors take ``fused_ray_scores_plain``. Any ray count runs
-through the kernel: the last tile is masked.
+of the weights), float32 as three TF32 ``wgmma`` products a step (from the
+weights split into TF32 hi and lo and cut into steps, ``_step_image``).
+Both layouts are made once per set of parameters; the queries' float32
+steps once a call. The epilogue ``exp(l - m) @ w`` stays in torch, as it
+stayed outside the TPU kernel. CPU tensors take
+``fused_ray_scores_plain``. Any ray count runs through the kernel: the
+last tile is masked.
 """
 
 from __future__ import annotations
@@ -33,15 +36,19 @@ from iffnerf_tpu_torch.ops.banked_attention import PATCHES, softmax_scores
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "iff_fused_ray_scores_f32": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P,
-                                 _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P,
-                                 _P, _I, _P, _P, _P, _P],
+    "iff_fused_ray_scores_f32": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
+                                 _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+                                 _P, _P, _P],
     "iff_fused_ray_scores_bf16": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P,
                                   _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P,
                                   _P, _P, _I, _P, _P, _P, _P],
 }
 BF16_WIDTHS = (128, 256, 384, 512)  # layer widths of the bf16 kernel
-TILE_RAYS = 64  # rays per tile of either kernel (kTileRays, kRows)
+F32_WIDTHS = (128, 256, 384)        # of the float32 kernel (wgmma N 64-192)
+TILE_RAYS = 64  # rays per tile of either kernel (kRays, kRows)
+# the float32 kernel's shared memory (csrc/fused_ray_attention.cu, f32::plan)
+_SMEM_BYTES, _MAX_STAGES, _CHUNK, _CHUNK_BYTES = 232448, 8, 32, 64 * 128
+_STEP = 8  # depth of a float32 step: one TF32 k-step
 _LAYERS = (("ray_mlp", 0), ("ray_mlp", 1), ("ray_mlp2", 0), ("ray_mlp2", 1),
            ("k_proj", None))
 _NET = {}  # the kernel's weights for the last params seen, see _kernel_net
@@ -64,10 +71,57 @@ def _transposed(w, k_pad):
     return out
 
 
+def _tf32_split(w):
+    """(hi, lo) of float32 ``w``: hi rounded to TF32 (10 mantissa bits, to
+    nearest, ties away from zero: ``cvt.rna.tf32.f32``), lo = w - hi,
+    which is exact."""
+    bits = w.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, w - hi
+
+
+def _step_image(segments):
+    """The float32 kernel's steps of one layer: ``segments`` are the parts
+    of its weight [K_i, N] that meet the parts of its input in turn (the
+    skip layer: the h2 rows, then the x rows), each padded with zero rows
+    to a multiple of 32. -> [steps * 2N, 8]: for each step of 8 deep, the
+    N rows of hi, then of lo, of w^T. Within a 32-deep chunk, step kk's
+    column c is depth 8 (c % 4) + 2 kk + c // 4, the order in which the
+    kernel reads an activation chunk into its registers."""
+    steps = []
+    for w in segments:
+        k, n = w.shape
+        wt = torch.nn.functional.pad(w.T, (0, -k % _CHUNK))   # [N, kc * 32]
+        # depth 8a + 2kk + b (a < 4, kk < 4, b < 2) -> step kk, column a + 4b
+        wt = wt.reshape(n, -1, 4, 4, 2).permute(1, 3, 0, 4, 2)
+        steps.append(wt.reshape(-1, n, _STEP))
+    hi, lo = _tf32_split(torch.cat(steps))                     # [S, N, 8]
+    return torch.stack([hi, lo], 1).reshape(-1, _STEP)
+
+
+def _swizzle32(steps):
+    """Steps [rows, 8] -> the bytes that the kernel's shared memory holds
+    for them, rows of 32 bytes with the 32-byte swizzle: the two 16-byte
+    halves of rows 4-7 of each 8-row atom swapped. Its own inverse. The
+    kernel copies each step as it is, to a stage at a 1024-byte boundary."""
+    x = steps.reshape(-1, 2, 4, 2, 4)   # atom, rows 0-3 | 4-7, row, half, 4 floats
+    return torch.cat([x[:, :1], x[:, 1:].flip(3)], 1).reshape(-1, _STEP)
+
+
+def _net_image(layers):
+    """Steps of the five ray-side layers, in the kernel's order."""
+    (w1, _), (w2, _), (w3, _), (w4, _), (wk, _) = layers
+    h2 = w2.shape[1]
+    return torch.cat([_step_image([w1]), _step_image([w2]),
+                      _step_image([w3[:h2], w3[h2:]]), _step_image([w4]),
+                      _step_image([wk])])
+
+
 def _kernel_net(params, dt):
-    """(layers, transposed) for the kernel: the five layers in ``dt`` and,
-    for bf16, their transposed, depth-padded copies (else None). Built once
-    for a set of parameter tensors and reused while the same tensors,
+    """(layers, layout) for the kernel: the five layers in ``dt`` and their
+    layout: for bf16 the transposed, depth-padded copies, for float32 the
+    TF32-split steps (``_net_image``) as shared memory holds them. Built
+    once for a set of parameter tensors and reused while the same tensors,
     unmodified in place, come back: per image only the rays change."""
     src = [t for layer in _sources(params) for t in (layer["w"], layer["b"])]
     versions = (dt,) + tuple(t._version for t in src)
@@ -75,16 +129,17 @@ def _kernel_net(params, dt):
             or any(a is not b for a, b in zip(_NET["src"], src))):
         layers = _layers(params, dt)
         _check_widths(layers, dt)
-        transposed = None
         if dt == torch.bfloat16:
             (w1, _), (w2, _), (w3, _), (w4, _), (wk, _) = layers
             in_pad = -(-w1.shape[0] // 16) * 16
-            transposed = (_transposed(w1, in_pad),
-                          _transposed(w2, w1.shape[1]),
-                          _transposed(w3, w2.shape[1] + in_pad),
-                          _transposed(w4, w3.shape[1]),
-                          _transposed(wk, w4.shape[1]))
-        _NET.update(src=src, versions=versions, net=(layers, transposed))
+            layout = (_transposed(w1, in_pad),
+                      _transposed(w2, w1.shape[1]),
+                      _transposed(w3, w2.shape[1] + in_pad),
+                      _transposed(w4, w3.shape[1]),
+                      _transposed(wk, w4.shape[1]))
+        else:
+            layout = _swizzle32(_net_image(layers))
+        _NET.update(src=src, versions=versions, net=(layers, layout))
     return _NET["net"]
 
 
@@ -92,7 +147,7 @@ def scaled_queries(q: torch.Tensor, dt) -> torch.Tensor:
     """qs [D, P] = (q / sqrt(D)).T in ``dt``. The divisor is rounded to
     q's dtype first: the JAX package divides a bf16 q by a weakly typed
     Python float, which it casts to bf16 (sqrt(384) -> 19.625)."""
-    div = torch.tensor(math.sqrt(q.shape[1]), dtype=q.dtype, device=q.device)
+    div = torch.full((), math.sqrt(q.shape[1]), dtype=q.dtype, device=q.device)
     return (q / div).T.to(dt).contiguous()
 
 
@@ -101,6 +156,18 @@ def layer_widths(params) -> tuple:
     four ray-side layers (the k projection maps dk to dk)."""
     w1, w2, w3, w4, _ = (layer["w"] for layer in _sources(params))
     return w1.shape[0], w1.shape[1], w2.shape[1], w3.shape[1], w4.shape[1]
+
+
+def f32_stages(widths) -> int:
+    """Ring stages of the float32 kernel at these ``widths``: the shared
+    memory that its activations leave (x, the h1/h2/h3 buffer, and h4
+    and k over both) over a stage's bytes (hi and lo of the widest
+    layer's step), at most 8 (``f32::plan`` in the source)."""
+    in_dim, h1, h2, h3, dk = widths
+    xc, hc = -(-in_dim // _CHUNK), max(h1, h2, h3) // _CHUNK
+    act = max(hc + xc, dk // _CHUNK) * _CHUNK_BYTES
+    slot = 2 * max(h1, h2, h3, dk, PATCHES) * _STEP * 4
+    return min(_MAX_STAGES, (_SMEM_BYTES - 1024 - 16 * _MAX_STAGES - act) // slot)
 
 
 def kernel_takes(dtype, p: int, widths) -> bool:
@@ -113,8 +180,9 @@ def kernel_takes(dtype, p: int, widths) -> bool:
         return False
     if dtype == torch.bfloat16:
         return all(n in BF16_WIDTHS for n in (h1, h2, h3, dk))
-    return (dtype == torch.float32 and not any(n % 128 for n in (h1, h2, h3, dk))
-            and in_dim + max(h1, h3) >= dk)
+    return (dtype == torch.float32 and in_dim > 0
+            and all(n in F32_WIDTHS for n in (h1, h2, h3, dk))
+            and f32_stages(widths) >= 2)
 
 
 def _check_widths(layers, dt):
@@ -128,7 +196,8 @@ def _check_widths(layers, dt):
     if not kernel_takes(dt, PATCHES, (in_dim, h1, h2, h3, dk)):
         raise ValueError(f"unsupported widths {(in_dim, h1, h2, h3, dk)} in "
                          f"{dt}: the bf16 kernel takes {BF16_WIDTHS}, the "
-                         f"float32 one multiples of 128")
+                         f"float32 one {F32_WIDTHS} with two ring stages "
+                         f"of shared memory")
 
 
 def fused_ray_scores_plain(params, q, patch_valid, x):
@@ -173,7 +242,7 @@ def fused_ray_scores(params, q, patch_valid, x):
                          f"{tuple(patch_valid.shape)}")
     if not x.is_contiguous() or x.shape[0] == 0:
         raise ValueError("x must be contiguous and hold at least one ray")
-    layers, transposed = _kernel_net(params, dt)
+    layers, layout = _kernel_net(params, dt)
     (w1, b1), (w2, b2), (w3, b3), (w4, b4), (wk, bk) = layers
     r, in_dim = x.shape
     h1, h2, h3, dk = w1.shape[1], w2.shape[1], w3.shape[1], w4.shape[1]
@@ -188,8 +257,10 @@ def fused_ray_scores(params, q, patch_valid, x):
     lib = _build.load("fused_ray_attention", _SIGNATURES)
     qs = scaled_queries(q, dt)                                  # [D, P]
     valid = patch_valid.to(torch.uint8).contiguous()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblocks = min(-(-r // TILE_RAYS), (1 if bf16 else 2) * sms)
+    sms = _build.sm_count(dev)
+    # bf16: a block a tile, at most one an SM; float32: the partial rows
+    # the kernel may use (a CTA an SM at most)
+    nblocks = min(-(-r // TILE_RAYS), sms) if bf16 else sms
     f32 = dict(dtype=torch.float32, device=dev)
     logits = torch.empty((r, PATCHES), **f32)
     part_m = torch.empty((nblocks, PATCHES), **f32)
@@ -199,7 +270,7 @@ def fused_ray_scores(params, q, patch_valid, x):
            part_d.data_ptr(), nblocks, m.data_ptr(), dsum.data_ptr(),
            w.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if bf16:   # tensor-core tiles: transposed, depth-padded weights
-        w1t, w2t, w3t, w4t, wkt = transposed
+        w1t, w2t, w3t, w4t, wkt = layout
         in_pad = w1t.shape[1]
         qt = qs.T.contiguous()                                    # q [P, D]
         rc = lib.iff_fused_ray_scores_bf16(
@@ -207,12 +278,12 @@ def fused_ray_scores(params, q, patch_valid, x):
             h1, w2t.data_ptr(), b2.data_ptr(), h2, w3t.data_ptr(),
             b3.data_ptr(), h3, w4t.data_ptr(), b4.data_ptr(), dk,
             wkt.data_ptr(), bk.data_ptr(), qt.data_ptr(), PATCHES, *out)
-    else:
+    else:      # TF32-split steps of the weights and of the queries
+        q_image = _swizzle32(_step_image([qs]))
         rc = lib.iff_fused_ray_scores_f32(
-            x.data_ptr(), r, in_dim, w1.data_ptr(), b1.data_ptr(), h1,
-            w2.data_ptr(), b2.data_ptr(), h2, w3.data_ptr(), b3.data_ptr(),
-            h3, w4.data_ptr(), b4.data_ptr(), dk, wk.data_ptr(),
-            bk.data_ptr(), qs.data_ptr(), PATCHES, *out)
+            x.data_ptr(), r, in_dim, h1, h2, h3, dk, layout.data_ptr(),
+            layout.shape[0], b1.data_ptr(), b2.data_ptr(), b3.data_ptr(),
+            b4.data_ptr(), bk.data_ptr(), q_image.data_ptr(), PATCHES, *out)
     _build.check(rc, "fused_ray_scores kernel launch")
     fused_ray_scores.launches += 1
     return torch.exp(logits - m) @ w

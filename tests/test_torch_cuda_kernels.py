@@ -9,7 +9,10 @@ more tiles than two an SM and the main path's 540 000, and its float32
 route also the depths 32, 64 and 128; both routes are held to bit-equal
 repeats, zeros for an all-invalid mask and the refusal of depths they do
 not take, and ``score_rays`` to the exact path's scores, with no launch,
-for the shapes the kernel refuses. Each kernel wrapper raises under grad
+for the shapes the kernel refuses. The fused ray scorer's float32 route
+covers one ray to the main path's 540 000 within rtol 1e-5 and a largest
+relative error of 5e-6, bit-equal repeats, an all-invalid mask and a
+width it refuses. Each kernel wrapper raises under grad
 (the kernels have no backward yet) and runs under ``torch.no_grad()``. The row gather covers both its routes,
 the field's row widths, ragged and empty index counts, the edge indices, a table whose
 rows are not 16-byte aligned and the mask lookup's stacked corners; the
@@ -47,6 +50,7 @@ from iffnerf_tpu_torch.ops.grid_sample import (
     grid_sample_3d,
 )
 from iffnerf_tpu_torch.pose.id_module import IDConfig, init_id_module, score_rays
+from iffnerf_tpu_torch.pose.solve import _scores_maybe_fused
 from iffnerf_tpu_torch.pose.vit import ViTConfig
 
 pytestmark = pytest.mark.cuda
@@ -244,6 +248,67 @@ def test_fused_kernel_matches_plain(dev, dtype, r):
     # float32 summation order; bf16 activations may round differently,
     # which moves a score by well under 1e-3 of itself
     _assert_scores_close(got, want, rtol=1e-5 if dtype == "float32" else 1e-3)
+
+
+def _fused_f32_case(dev, r):
+    cfg = IDConfig()
+    params = init_id_module(torch.Generator().manual_seed(0), cfg, device=dev)
+    g = torch.Generator().manual_seed(r)
+    x = torch.randn((r, cfg.ray_in_dim), generator=g).to(dev)
+    q = torch.randn((256, 384), generator=g).to(dev)
+    return params, x, q
+
+
+@pytest.mark.parametrize("r", [1, 63, 64, 65, 1021, 540000])
+def test_fused_f32_kernel_matches_plain(dev, r):
+    """The float32 route's three TF32 products a step: rtol 1e-5, and no
+    score off by more than 5e-6 of itself (one TF32 product alone gives
+    about 2e-5: tests/test_torch_fused_tf32_split.py)."""
+    params, x, q = _fused_f32_case(dev, r)
+    got = fused_ray_scores(params, q, _valid(dev), x)
+    torch.cuda.synchronize()
+    want = fused_ray_scores_plain(params, q, _valid(dev), x)
+    _assert_scores_close(got, want, rtol=1e-5)
+    assert float(((got - want).abs() / want.abs()).max()) <= 5e-6
+
+
+def test_fused_f32_kernel_is_deterministic(dev):
+    """Tiles and partial statistics are folded in a fixed order."""
+    params, x, q = _fused_f32_case(dev, 70001)
+    first = fused_ray_scores(params, q, _valid(dev), x)
+    assert torch.equal(first, fused_ray_scores(params, q, _valid(dev), x))
+
+
+@pytest.mark.parametrize("r", [129, 70001])
+def test_fused_f32_kernel_all_invalid_mask_gives_zeros(dev, r):
+    params, x, q = _fused_f32_case(dev, r)
+    none = torch.zeros(256, dtype=torch.bool, device=dev)
+    assert not bool(fused_ray_scores(params, q, none, x).any())
+
+
+def test_fused_f32_kernel_refuses_a_width_and_scoring_goes_exact(dev):
+    """Layers 512 wide, which the float32 kernel does not take: the wrapper
+    raises before any launch, and the fused-scoring route scores on the
+    plain chain, as the JAX package falls back to XLA."""
+    cfg = IDConfig(ray_feature_c=512, backbone=ViTConfig(depth=1))
+    params = init_id_module(torch.Generator().manual_seed(2), cfg, device=dev)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((1021, cfg.ray_in_dim), generator=g).to(dev)
+    q = torch.randn((256, 384), generator=g).to(dev)
+    rd = torch.randn((1021, 3), generator=g)
+    rays = (torch.rand((1021, 3), generator=g).to(dev) * 2 - 1,
+            (rd / rd.norm(dim=-1, keepdim=True)).to(dev),
+            torch.rand((1021, 3), generator=g).to(dev))
+    img = torch.rand((96, 96, 3), generator=g).to(dev)
+    mask = torch.ones((96, 96), dtype=torch.bool, device=dev)
+    before = fused_ray_scores.launches
+    with pytest.raises(ValueError, match="unsupported widths"):
+        fused_ray_scores(params, q, _valid(dev), x)
+    got = _scores_maybe_fused(params, dataclasses.replace(cfg, fused_scoring=True),
+                              img, mask, *rays)
+    want = _scores_maybe_fused(params, cfg, img, mask, *rays)
+    assert fused_ray_scores.launches == before
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("aligned", [True, False])

@@ -66,12 +66,15 @@ def test_banked_kernel_takes(dtype, p, d, takes):
     (torch.bfloat16, 256, (141, 256, 256, 256, 640), False),
     (torch.bfloat16, 256, (141, 192, 256, 256, 384), False),
     (torch.float32, 256, (141, 192, 256, 256, 384), False),
-    (torch.float32, 256, (141, 128, 128, 128, 384), False),
+    (torch.float32, 256, (141, 128, 128, 128, 384), True),
+    (torch.float32, 256, (141, 256, 256, 256, 512), False),
+    (torch.float32, 256, (1000, 256, 256, 256, 384), False),
     (torch.float16, 256, (141, 256, 256, 256, 384), False),
 ])
 def test_fused_kernel_takes(dtype, p, widths, takes):
-    """256 patches; bf16 widths from BF16_WIDTHS; float32 widths that are
-    multiples of 128 with in + max(h1, h3) >= dk."""
+    """256 patches; bf16 widths from BF16_WIDTHS; float32 widths from
+    F32_WIDTHS whose activations leave two ring stages of shared memory
+    (an input of 1000 does not)."""
     assert fused.kernel_takes(dtype, p, widths) is takes
 
 

@@ -160,13 +160,16 @@ def test_bf16_kernel_weight_layout(setup):
 
 
 def test_fused_kernel_net_built_once_per_params(setup):
-    """The kernel's weights (bf16: transposed, depth-padded) are built once
-    for a set of parameter tensors, reused while the same tensors come
-    back, and rebuilt for other tensors or after an in-place update."""
+    """The kernel's weights (bf16: transposed, depth-padded; float32: the
+    TF32-split steps) are built once for a set of parameter tensors, reused
+    while the same tensors come back, and rebuilt for other tensors or after
+    an in-place update."""
     tp = setup[3]
     net = _kernel_net(tp, torch.bfloat16)
     assert _kernel_net(tp, torch.bfloat16) is net
-    assert _kernel_net(tp, torch.float32)[1] is None
+    net32 = _kernel_net(tp, torch.float32)
+    assert _kernel_net(tp, torch.float32) is net32
+    assert net32[1].dtype == torch.float32 and net32[1].shape[1] == 8
     assert _kernel_net(tp, torch.bfloat16) is not net
 
     def clone(layer):
@@ -179,10 +182,18 @@ def test_fused_kernel_net_built_once_per_params(setup):
     assert wt is not net[1]
     for a, b in zip(wt, net[1]):   # the same values: exact
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+    steps = _kernel_net(mine, torch.float32)[1]
+    torch.testing.assert_close(steps, net32[1], rtol=0, atol=0)
     mine["k_proj"]["w"].mul_(2)
     _, wt2 = _kernel_net(mine, torch.bfloat16)
-    # doubling is exact in bf16
+    # doubling is exact in bf16, and in both halves of the TF32 split
     torch.testing.assert_close(wt2[4].float(), 2 * wt[4].float(), rtol=0,
+                               atol=0)
+    steps2 = _kernel_net(mine, torch.float32)[1]
+    k_rows = 384 // 8 * 2 * 384      # the k projection's steps come last
+    torch.testing.assert_close(steps2[-k_rows:], 2 * steps[-k_rows:], rtol=0,
+                               atol=0)
+    torch.testing.assert_close(steps2[:-k_rows], steps[:-k_rows], rtol=0,
                                atol=0)
     bad = dict(mine, k_proj={"w": torch.zeros(384, 200),
                              "b": torch.zeros(200)})
