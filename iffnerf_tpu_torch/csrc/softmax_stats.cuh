@@ -9,9 +9,8 @@
 // partial (m_b[p], d_b[p]), and lse_merge reduces the partials:
 //   m = max_b m_b,  d = sum_b d_b * exp(m_b - m),  w = (valid ? 1 : 0) / d.
 //
-// Each kernel keeps its running pairs in its own accumulator layout
-// (mma_bf16.cuh for the bf16 ray scorer, the epilogues of
-// banked_attention.cu and of the float32 ray scorer).
+// Each kernel keeps its running pairs in its own accumulator layout (the
+// epilogues of banked_attention.cu and of fused_ray_attention.cu).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -12,7 +12,8 @@ not take, and ``score_rays`` to the exact path's scores, with no launch,
 for the shapes the kernel refuses. The fused ray scorer's float32 route
 covers one ray to the main path's 540 000 within rtol 1e-5 and a largest
 relative error of 5e-6, bit-equal repeats, an all-invalid mask and a
-width it refuses. Each kernel wrapper raises under grad
+width it refuses; its bf16 route bit-equal repeats, all-invalid masks,
+layer widths 128 and 512, a width it refuses and an x it cannot copy. Each kernel wrapper raises under grad
 (the kernels have no backward yet) and runs under ``torch.no_grad()``. The row gather covers both its routes,
 the field's row widths, ragged and empty index counts, the edge indices, a table whose
 rows are not 16-byte aligned and the mask lookup's stacked corners; the
@@ -309,6 +310,76 @@ def test_fused_f32_kernel_refuses_a_width_and_scoring_goes_exact(dev):
     want = _scores_maybe_fused(params, cfg, img, mask, *rays)
     assert fused_ray_scores.launches == before
     assert torch.equal(got, want)
+
+
+def _fused_bf16_case(dev, r, width=256):
+    cfg = IDConfig(compute_dtype="bfloat16", ray_feature_c=width,
+                   backbone=ViTConfig(depth=1))
+    params = init_id_module(torch.Generator().manual_seed(width), cfg, device=dev)
+    g = torch.Generator().manual_seed(r)
+    x = torch.randn((r, cfg.ray_in_dim), generator=g).to(dev, torch.bfloat16)
+    q = torch.randn((256, 384), generator=g).to(dev, torch.bfloat16)
+    return cfg, params, x, q
+
+
+def test_fused_bf16_kernel_is_deterministic(dev):
+    """Tiles and partial statistics are folded in a fixed order, and no
+    ring stage is freed before the products that read it complete."""
+    _, params, x, q = _fused_bf16_case(dev, 70001)
+    first = fused_ray_scores(params, q, _valid(dev), x)
+    assert torch.equal(first, fused_ray_scores(params, q, _valid(dev), x))
+
+
+@pytest.mark.parametrize("r", [1, 1021])
+def test_fused_bf16_kernel_all_invalid_mask_gives_zeros(dev, r):
+    _, params, x, q = _fused_bf16_case(dev, r)
+    none = torch.zeros(256, dtype=torch.bool, device=dev)
+    assert not bool(fused_ray_scores(params, q, none, x).any())
+
+
+@pytest.mark.parametrize("width", [128, 512])
+@pytest.mark.parametrize("r", [65, 70001])
+def test_fused_bf16_kernel_matches_plain_at_widths(dev, width, r):
+    """Ray layers 128 wide (wgmma N = 64 a warpgroup) and 512 wide (N =
+    256, two ring stages), against the plain version at rtol 1e-3."""
+    _, params, x, q = _fused_bf16_case(dev, r, width)
+    got = fused_ray_scores(params, q, _valid(dev), x)
+    torch.cuda.synchronize()
+    want = fused_ray_scores_plain(params, q, _valid(dev), x)
+    _assert_scores_close(got, want, rtol=1e-3)
+
+
+def test_fused_bf16_kernel_refuses_a_width_and_scoring_goes_exact(dev):
+    """Layers 192 wide, which the bf16 route does not take: the wrapper
+    raises before any launch, and the fused-scoring route scores on the
+    plain chain, as the JAX package falls back to XLA."""
+    cfg, params, x, q = _fused_bf16_case(dev, 1021, 192)
+    g = torch.Generator().manual_seed(5)
+    rd = torch.randn((1021, 3), generator=g)
+    rays = (torch.rand((1021, 3), generator=g).to(dev) * 2 - 1,
+            (rd / rd.norm(dim=-1, keepdim=True)).to(dev),
+            torch.rand((1021, 3), generator=g).to(dev))
+    img = torch.rand((96, 96, 3), generator=g).to(dev)
+    mask = torch.ones((96, 96), dtype=torch.bool, device=dev)
+    before = fused_ray_scores.launches
+    with pytest.raises(ValueError, match="unsupported widths"):
+        fused_ray_scores(params, q, _valid(dev), x)
+    got = _scores_maybe_fused(params, dataclasses.replace(cfg, fused_scoring=True),
+                              img, mask, *rays)
+    want = _scores_maybe_fused(params, cfg, img, mask, *rays)
+    assert fused_ray_scores.launches == before
+    assert torch.equal(got, want)
+
+
+def test_fused_bf16_kernel_refuses_an_unaligned_x(dev):
+    """Rows of 141 bf16 from an odd row on start at a 2-byte boundary: the
+    kernel copies a tile's rows 16 bytes at a time, so the wrapper raises
+    before any launch."""
+    _, params, x, q = _fused_bf16_case(dev, 1021)
+    before = fused_ray_scores.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fused_ray_scores(params, q, _valid(dev), x[1:])
+    assert fused_ray_scores.launches == before
 
 
 @pytest.mark.parametrize("aligned", [True, False])

@@ -19,7 +19,7 @@ from iffnerf_tpu_torch.ops.banked_attention import (
 )
 from iffnerf_tpu_torch.ops.fused_ray_attention import (
     _kernel_net,
-    _transposed,
+    _swizzle32,
     fused_ray_scores_plain,
 )
 from iffnerf_tpu_torch.ops.topk import exact_topk
@@ -137,40 +137,52 @@ def test_fused_plain_matches_pallas(setup, dtype):
 
 
 def test_bf16_kernel_weight_layout(setup):
-    """The transposed, depth-padded weights that the fused kernel's bf16
-    route reads give the plain layers' products: x padded with zeros to a
-    multiple of 16, and the skip concat [h, x] laid out as the kernel lays
-    it out in shared memory ([h | x | 0])."""
+    """The steps that the fused kernel's bf16 route streams (16 deep, the N
+    rows of w^T each, as shared memory holds them) give the plain layers'
+    products against the activations in the same depth order: x padded
+    with zeros to whole ring stages of 64 deep (141 -> 192), and the skip
+    layer's steps the h2 rows, then the x rows, as the kernel reads
+    [h2 | x] from its chunks."""
     _, tcfg, _, tp, s = setup
-    x = tid.ray_mlp_inputs(tcfg, *_rays(s, t))
-    in_dim = x.shape[1]
-    in_pad = -(-in_dim // 16) * 16
-    xp = torch.nn.functional.pad(x, (0, in_pad - in_dim))
-    w1 = tp["ray_mlp"][0]["w"]
-    w3 = tp["ray_mlp2"][0]["w"]
+    x = tid.ray_mlp_inputs(tcfg, *_rays(s, t)).to(torch.bfloat16).float()
+    layers, steps = _kernel_net(tp, torch.bfloat16)
+    steps = _swizzle32(steps).float()          # unswizzled: [rows, 16]
+    (w1, _), (w2, _), (w3, _), _, _ = layers
+    in_dim, n = x.shape[1], w1.shape[1]
+    xs = -(-in_dim // 64) * 4                  # steps of x: 12
+    l1, _, l3 = torch.split(steps[:(2 * xs + 32) * n],
+                            [xs * n, 16 * n, (16 + xs) * n])
+
+    def product(a, image):   # the steps' rows as w^T [N, K'], then a w
+        return a @ image.reshape(-1, n, 16).transpose(0, 1).reshape(n, -1).T
+
+    xp = torch.nn.functional.pad(x, (0, 16 * xs - in_dim))
     h = torch.from_numpy(np.random.default_rng(3).random(
-        (x.shape[0], w3.shape[0] - in_dim), dtype=np.float32))
+        (x.shape[0], w2.shape[1]), dtype=np.float32)).to(torch.bfloat16).float()
     # the same float32 sums plus zero terms, in another blocking
-    torch.testing.assert_close(xp @ _transposed(w1, in_pad).T, x @ w1,
+    torch.testing.assert_close(product(xp, l1), x @ w1.float(),
                                rtol=1e-5, atol=1e-5)
-    hx = torch.cat([h, xp], dim=-1)
-    torch.testing.assert_close(hx @ _transposed(w3, hx.shape[1]).T,
-                               torch.cat([h, x], dim=-1) @ w3,
+    torch.testing.assert_close(product(torch.cat([h, xp], -1), l3),
+                               torch.cat([h, x], -1) @ w3.float(),
                                rtol=1e-5, atol=1e-5)
 
 
 def test_fused_kernel_net_built_once_per_params(setup):
-    """The kernel's weights (bf16: transposed, depth-padded; float32: the
-    TF32-split steps) are built once for a set of parameter tensors, reused
-    while the same tensors come back, and rebuilt for other tensors or after
-    an in-place update."""
+    """The kernel's weight steps (bf16: 16 deep; float32: the TF32-split
+    8-deep steps) are built once for a set of parameter tensors and a
+    dtype, reused while the same tensors come back (each dtype keeps its
+    own entry, so routes that alternate reuse both), and rebuilt for other
+    tensors or after an in-place update."""
     tp = setup[3]
     net = _kernel_net(tp, torch.bfloat16)
     assert _kernel_net(tp, torch.bfloat16) is net
     net32 = _kernel_net(tp, torch.float32)
     assert _kernel_net(tp, torch.float32) is net32
     assert net32[1].dtype == torch.float32 and net32[1].shape[1] == 8
-    assert _kernel_net(tp, torch.bfloat16) is not net
+    assert net[1].dtype == torch.bfloat16 and net[1].shape[1] == 16
+    for _ in range(2):   # alternating dtypes rebuilds neither
+        assert _kernel_net(tp, torch.bfloat16) is net
+        assert _kernel_net(tp, torch.float32) is net32
 
     def clone(layer):
         return {k: v.clone() for k, v in layer.items()}
@@ -178,19 +190,21 @@ def test_fused_kernel_net_built_once_per_params(setup):
     mine = {"ray_mlp": [clone(l) for l in tp["ray_mlp"]],
             "ray_mlp2": [clone(l) for l in tp["ray_mlp2"]],
             "k_proj": clone(tp["k_proj"])}
-    layers, wt = _kernel_net(mine, torch.bfloat16)
-    assert wt is not net[1]
-    for a, b in zip(wt, net[1]):   # the same values: exact
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _, st = _kernel_net(mine, torch.bfloat16)
+    assert st is not net[1]
+    torch.testing.assert_close(st, net[1], rtol=0, atol=0)   # the same values
     steps = _kernel_net(mine, torch.float32)[1]
     torch.testing.assert_close(steps, net32[1], rtol=0, atol=0)
     mine["k_proj"]["w"].mul_(2)
-    _, wt2 = _kernel_net(mine, torch.bfloat16)
-    # doubling is exact in bf16, and in both halves of the TF32 split
-    torch.testing.assert_close(wt2[4].float(), 2 * wt[4].float(), rtol=0,
-                               atol=0)
+    # doubling is exact in bf16, and in both halves of the TF32 split; the
+    # k projection's steps come last, in whole swizzle atoms
+    st2 = _kernel_net(mine, torch.bfloat16)[1]
+    k16 = 384 // 16 * 384
+    torch.testing.assert_close(st2[-k16:].float(), 2 * st[-k16:].float(),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(st2[:-k16], st[:-k16], rtol=0, atol=0)
     steps2 = _kernel_net(mine, torch.float32)[1]
-    k_rows = 384 // 8 * 2 * 384      # the k projection's steps come last
+    k_rows = 384 // 8 * 2 * 384
     torch.testing.assert_close(steps2[-k_rows:], 2 * steps[-k_rows:], rtol=0,
                                atol=0)
     torch.testing.assert_close(steps2[:-k_rows], steps[:-k_rows], rtol=0,
