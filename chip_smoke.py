@@ -10,8 +10,11 @@ a field at lego's widths (TensorVMSplit, 300^3 grid, Ref shading, an 8 %
 occupied alpha mask; made from the seed, saved and loaded back) through
 ``explore_field`` (20 000 surface points x 27 isocell directions) and
 ``test_pose_estimation`` on four synthetic 800x800 frames held in memory
-(no image file is read). It checks what comes out, and times kernels,
-estimates and the object side with CUDA events and the host clock. Each
+(no image file is read), and ID-module training at full width
+(``train_id_module``: float32, accumulation 32, 540 000 rays renewed by
+``explore_field``) with a reduced run held against the same run on the
+CPU. It checks what comes out, and times kernels, estimates, the object
+side and training steps with CUDA events and the host clock. Each
 phase prints one JSON line; then come the card's name and power limit (as
 nvidia-smi gives them), the kernels line, and last
 ``{"ok": true, "device": {...}}``.
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from iffnerf_tpu_torch.checkpoint import save_field
+from iffnerf_tpu_torch.checkpoint import _flatten, _numpy_leaves, save_field
 from iffnerf_tpu_torch.device import resolve_device
 from iffnerf_tpu_torch.models.field import (
     FieldConfig,
@@ -95,7 +98,18 @@ from iffnerf_tpu_torch.pose.solve import (
     estimate_pose_single_banked,
     solve_pose_from_topk,
 )
+from iffnerf_tpu_torch.pose import trainer as trainer_module
 from iffnerf_tpu_torch.pose.test import test_pose_estimation
+from iffnerf_tpu_torch.pose.trainer import (
+    LEARNING_RATES,
+    blend_batch,
+    id_train_step,
+    leaves,
+    make_id_optimizer,
+    train_id_module,
+    trainable,
+)
+from iffnerf_tpu_torch.pose.vit import ViTConfig
 
 SEED = 0
 N_RAYS = 20000 * 27      # 20k surface points x 27 isocell directions
@@ -150,6 +164,18 @@ COLOUR_ATOL = 1e-4
 # non-cubic grids with unequal ranks: float4 words, and 4-byte words
 NON_CUBIC = {"non_cubic": ((160, 170, 180), (16, 12, 8), (48, 40, 24)),
              "non_cubic_scalar": ((16, 17, 18), (2, 3, 4), (3, 4, 5))}
+# ID-module training at the pose CLI's defaults: 1500 iterations, 32 images
+# an optimizer step, the rays renewed every 10; a pool of lego's 100 train
+# frames. One warm-up step, then ID_TIMED timed steps with a renewal among
+# them (renewal every 2 iterations in this run)
+ID_ITERS, ID_ACCUM, ID_RENEWAL_EVERY, ID_POOL = 1500, 32, 10, 100
+ID_TIMED = 3
+# the reduced card-vs-CPU run: ViT depth, rays, accumulation, steps, frames
+ID_SMALL_DEPTH, ID_SMALL_RAYS, ID_SMALL_ACCUM, ID_SMALL_STEPS = 2, 8192, 4, 2
+ID_SMALL_POOL = 8
+# leaves the loss is invariant to (a bias shifting every logit of a patch;
+# tests/test_torch_id_train.py): their gradients are noise, bounded apart
+ID_INVARIANT = ("k_proj/b", "ray_mlp2/1/b")
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
@@ -883,16 +909,16 @@ def _look_at_c2w(campos):
     return (c2w @ np.diag([1.0, -1.0, -1.0, 1.0])).astype(np.float32)
 
 
-def synthetic_frames(dev):
-    """N_FRAMES 800x800 RGBA frames in device memory (random RGB, the blob
+def synthetic_frames(dev, n=N_FRAMES):
+    """``n`` 800x800 RGBA frames in device memory (random RGB, the blob
     mask as alpha) with cameras on a sphere of radius 4 round the object."""
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    rgb = torch.rand((N_FRAMES, 800, 800, 3), generator=g, device=dev)
+    rgb = torch.rand((n, 800, 800, 3), generator=g, device=dev)
     alpha = blob_mask(800, 800, dev).float()[None, ..., None].expand(
-        N_FRAMES, 800, 800, 1)
+        n, 800, 800, 1)
     poses = np.stack([_look_at_c2w(4.0 * np.array(
         [math.cos(t) * math.cos(0.5), math.sin(t) * math.cos(0.5), math.sin(0.5)]))
-        for t in np.linspace(0, 2 * math.pi, N_FRAMES, endpoint=False)])
+        for t in np.linspace(0, 2 * math.pi, n, endpoint=False)])
     return types.SimpleNamespace(
         all_rgbs=torch.cat([rgb, alpha], dim=-1), poses=poses,
         img_wh=(800, 800), K=None)
@@ -1055,7 +1081,7 @@ def phase_object(id_params, id_cfg, dev):
          frame_ms=frame_ms, frame_ms_median=statistics.median(frame_ms),
          translation_error=t_err, angular_error=a_err, scores_loss=loss,
          recall=recall)
-    return counts, (config, params), chunk_coords
+    return counts, (config, params), mask, chunk_coords
 
 
 def gather_bound(table, idx):
@@ -1248,6 +1274,204 @@ def gather_times(field, chunk_coords, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# ID-module training
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def timed_id_steps():
+    """Times the trainer's optimizer steps while open (the loop looks the
+    step up in its module each iteration) -> a list with, for each step,
+    its host seconds up to a synchronize, its loss and its peak device
+    memory."""
+    steps = []
+    step = trainer_module.id_train_step
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = step(*args, **kw)
+        steps.append({"s": _sync_s(t0), "loss": float(loss),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+        return loss
+
+    trainer_module.id_train_step = timed
+    try:
+        yield steps
+    finally:
+        trainer_module.id_train_step = step
+
+
+def _step_split(params, cfg, frames, rays, dev):
+    """Two more optimizer steps through ``id_train_step``: one with CUDA
+    events at its marks -> device ms of each part (ray features forward,
+    the per-image losses and their gradients, the ray MLP's backward,
+    Adam); one under the profiler -> host and kernel ms an image, the busy
+    share and the kernels that take the most device time."""
+    p = trainable(params, dev)
+    opt = make_id_optimizer(p)
+    row = torch.as_tensor(np.random.default_rng(SEED + 5).integers(
+        0, ID_POOL, ID_ACCUM), device=dev)
+    imgs, masks = blend_batch(frames.all_rgbs[row])
+    poses = torch.as_tensor(frames.poses, device=dev)[row]
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+    events[0][1].record()
+
+    def mark(label):
+        events.append((label, torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    id_train_step(p, opt, imgs, masks, poses, rays[0], -rays[1], rays[2], cfg,
+                  ID_ACCUM, mark=mark)
+    torch.cuda.synchronize()
+    split = {f"{label}_ms": a.elapsed_time(b)
+             for (_, a), (label, b) in zip(events, events[1:])}
+    split["per_image_ms"] = split["image_losses_ms"] / ID_ACCUM
+
+    def step():
+        id_train_step(p, opt, imgs, masks, poses, rays[0], -rays[1], rays[2],
+                      cfg, ID_ACCUM)
+        return ID_ACCUM
+
+    split["profile_per_image"] = _profiled("id_train_step", step)
+    return split
+
+
+def _params_close(ref, new):
+    """The CPU parity tests' rule (tests/test_torch_id_train.py), at each
+    leaf's own rate: rtol 1e-3 and atol max(5e-5, 0.1 lr); the invariant
+    leaves within 2.1 x steps x lr. -> the largest share of its bound that
+    a leaf's difference takes (at most 1 when all hold), and that leaf."""
+    ref, new = (_flatten(_numpy_leaves(p)) for p in (ref, new))
+    worst = (0.0, "")
+    for name, a in ref.items():
+        lr = LEARNING_RATES[name.split("/")[0]]
+        diff = np.abs(new[name] - a)
+        if name in ID_INVARIANT:
+            share = float(diff.max()) / (2.1 * ID_SMALL_STEPS * lr)
+        else:
+            share = float((diff / (max(5e-5, 0.1 * lr)
+                                   + 1e-3 * np.abs(a))).max())
+        worst = max(worst, (share, name))
+    return worst
+
+
+def phase_id_train(field, mask, dev):
+    """ID-module training through ``train_id_module`` at full width:
+    DINOv2 ViT-S/14 depth 12 in float32, 540 000 rays from ``explore_field``
+    on the lego-width field, 32 images a step from a pool of 100 synthetic
+    800x800 RGBA frames, random weights from the seed. One warm-up step and
+    ID_TIMED timed steps, renewals at iterations 0 and 2 (so one lies in
+    the timed span); launch counts set to 0 before the run and read after
+    it. Then the split of one step, and a reduced run (depth 2, 8 192 rays,
+    accumulation 4, 2 steps) on the card and on the CPU from the same
+    parameters, index rows and rays, held to the CPU parity tests' rule.
+    -> the run's launch counts."""
+    config, fparams = field
+    cfg = IDConfig()
+    check(cfg.compute_dtype == "float32", "training is float32")
+    init = init_id_module(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    frames = synthetic_frames(dev, ID_POOL)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    renewals, last = [], {}
+
+    def renew():
+        before = _counts()
+        t0 = time.perf_counter()
+        last["rays"] = explore_field(
+            gen, config, fparams, mask, gen_points=GEN_POINTS,
+            n_iteration=N_EPOCHS, max_resampling_iterations=MAX_RESAMPLING,
+            device=dev)
+        renewals.append({"s": _sync_s(t0), "launches": {
+            k: v - before[k] for k, v in _counts().items()}})
+        return last["rays"]
+
+    with timed_id_steps() as steps:
+        _reset_counts()
+        t0 = time.perf_counter()
+        trained, model_up = train_id_module(
+            init, cfg, renew, frames, frames, n_iterations=1 + ID_TIMED,
+            gradient_accumulation_steps=ID_ACCUM, renewal_every_n_iterations=2,
+            rng=np.random.default_rng(SEED), log_fn=lambda *a: None,
+            device=dev)
+        run_s = _sync_s(t0)
+        counts = _counts()
+    n = GEN_POINTS * N_ISOCELL
+    check(len(steps) == 1 + ID_TIMED and len(renewals) == 2,
+          f"{len(steps)} steps and {len(renewals)} renewals")
+    check(last["rays"][0].shape == (n, 3), "540 000 rays a renewal")
+    losses = [st["loss"] for st in steps]
+    check(all(math.isfinite(x) for x in losses), f"finite losses {losses}")
+    check(all(a != b for a, b in zip(losses, losses[1:])),
+          f"the loss changes from step to step {losses}")
+    check(all(bool(torch.isfinite(t).all()) for t in leaves(trained)),
+          "finite trained parameters")
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(leaves(trained), leaves(init)))
+    check(moved > 0, "the parameters moved")
+    check(counts["banked_scores"] == 0 and counts["fused_ray_scores"] == 0,
+          f"training scores with the exact torch path: {counts}")
+    for r in renewals:
+        check(r["launches"]["gather_rows"] > 0
+              and r["launches"]["field_features"] > 0,
+              f"a renewal launched K3 and field_features: {r}")
+    timed = [st["s"] for st in steps[1:]]
+    step_s = statistics.median(timed)
+    renewal_s = renewals[1]["s"]
+    n_renewals = ID_ITERS // ID_RENEWAL_EVERY
+    split = _step_split(trained, cfg, frames, last["rays"], dev)
+    share = n_renewals * renewal_s / (n_renewals * renewal_s
+                                      + ID_ITERS * step_s)
+    small = phase_id_train_small(init, frames, last["rays"], dev)
+    emit(phase="id_train", depth=cfg.backbone.depth, n_rays=n,
+         accum_steps=ID_ACCUM, pool=ID_POOL, steps=len(steps),
+         warmup_step_s=steps[0]["s"], step_s=timed, step_s_median=step_s,
+         step_s_range=[min(timed), max(timed)], losses=losses,
+         peak_mem_gb=max(st["peak_mem_gb"] for st in steps),
+         peak_mem_gb_by_step=[st["peak_mem_gb"] for st in steps],
+         split=split, renewal_s=[r["s"] for r in renewals],
+         renewal_launches=[r["launches"] for r in renewals],
+         run_s=run_s, launches=counts,
+         run_of_1500_s=ID_ITERS * step_s + n_renewals * renewal_s,
+         renewal_share_of_1500=share, largest_param_move=moved,
+         model_up=model_up.tolist(), card_vs_cpu=small)
+    return counts
+
+
+def phase_id_train_small(init, frames, rays, dev):
+    """The reduced run on the card and on the CPU: a depth-2 ViT (the first
+    two blocks of the full-width initialisation), the first 8 192 rays, 4
+    images a step from 8 frames, 2 steps, the same index rows -> the
+    largest share of the tolerance a leaf takes, and the run's seconds on
+    each device."""
+    cfg = IDConfig(backbone=ViTConfig(depth=ID_SMALL_DEPTH))
+    init = dict(init, backbone=dict(
+        init["backbone"], blocks=init["backbone"]["blocks"][:ID_SMALL_DEPTH]))
+    init = trainable(init, torch.device("cpu"))
+    rays = tuple(a[:ID_SMALL_RAYS].cpu() for a in rays)
+    pool = types.SimpleNamespace(
+        all_rgbs=frames.all_rgbs[:ID_SMALL_POOL].cpu(),
+        poses=frames.poses[:ID_SMALL_POOL], img_wh=frames.img_wh)
+    out, secs = {}, {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        out[name], _ = train_id_module(
+            init, cfg, lambda: rays, pool, pool, n_iterations=ID_SMALL_STEPS,
+            gradient_accumulation_steps=ID_SMALL_ACCUM,
+            rng=np.random.default_rng(SEED), log_fn=lambda *a: None,
+            device=device)
+        secs[name] = _sync_s(t0)
+    worst, leaf = _params_close(out["cpu"], out["card"])
+    check(worst <= 1.0, f"card and CPU parameters agree after "
+          f"{ID_SMALL_STEPS} steps (worst share of the bound {worst}, {leaf})")
+    return {"depth": ID_SMALL_DEPTH, "n_rays": ID_SMALL_RAYS,
+            "accum_steps": ID_SMALL_ACCUM, "steps": ID_SMALL_STEPS,
+            "worst_share_of_tolerance": worst, "worst_leaf": leaf,
+            "card_s": secs["card"], "cpu_s": secs["cpu"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1275,11 +1499,12 @@ def main() -> int:
     # the unbanked route in float32: K2's three-TF32 route every image
     k2f32_counts, fused32_ms = phase_fused_estimate(
         params, cfg32, imgs[:N_WARM + 3], mask, rays)
-    obj_counts, field, chunk_coords = phase_object(params, cfg16, dev)
+    obj_counts, field, field_mask, chunk_coords = phase_object(params, cfg16,
+                                                               dev)
     ff_err = phase_field_kernel(field, chunk_coords, dev)
     rows = phase_times(params, (cfg16, cfg32), img0, mask, rays, field,
                        chunk_coords)
-    del field, chunk_coords
+    del chunk_coords
     bank = ray_bank(params, cfg16, ro, rd, rr)
     bank32 = ray_bank(params, cfg32, ro, rd, rr)
     fused16 = IDConfig(compute_dtype="bfloat16", fused_scoring=True)
@@ -1294,6 +1519,10 @@ def main() -> int:
         "fused_float32": lambda img: estimate_pose_single(
             params, fused32, img, mask, ro, rd, rr, UP, k=K_TOP)}, imgs)
     del bank, bank32
+    torch.cuda.empty_cache()
+    # ID-module training: its renewals launch K3 and field_features
+    id_counts = phase_id_train(field, field_mask, dev)
+    del field, field_mask
 
     n_est = N_WARM + N_TIMED
     kernels = [
@@ -1348,6 +1577,8 @@ def main() -> int:
              source="iffnerf_tpu_torch/csrc/gather_rows.cu",
              replaces="extra/pallas_gather_bench.py:46",
              launches=obj_counts["gather_rows"], max_abs_err=k3_err,
+             launches_by_path={"object": obj_counts["gather_rows"],
+                               "id_train": id_counts["gather_rows"]},
              **rows["gather_rows/mask_stacked"]),
         dict(name="field_features", route="cuda",
              source="iffnerf_tpu_torch/csrc/field_features.cu",
@@ -1356,6 +1587,8 @@ def main() -> int:
                        " the work pallas_gather served, its gather fused with"
                        " the lerps",
              launches=obj_counts["field_features"], max_abs_err=ff_err,
+             launches_by_path={"object": obj_counts["field_features"],
+                               "id_train": id_counts["field_features"]},
              **rows["field_features/colour_chunk/both"]),
     ]
     emit(phase="latency", banked_ms_per_image=banked_ms,

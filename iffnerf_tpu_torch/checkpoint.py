@@ -3,7 +3,8 @@
 The JAX package saves parameters as a flat ``.npz`` whose keys join the
 pytree path with ``/`` (``"backbone/blocks/0/qkv/w"``); sequences are
 keyed by their decimal index. This module keeps its own copy of that key
-scheme, so it reads those files without importing the JAX package.
+scheme, so it reads and writes those files without importing the JAX
+package.
 Layouts are kept as they are: Linear weights ``[in, out]``, the ViT patch
 embedding ``[p, p, 3, D]``, field planes ``[H, W, R]``. Nothing is
 transposed, except by ``load_torch_checkpoint``, which converts the
@@ -55,6 +56,21 @@ def _unflatten(flat: dict):
     return listify(root)
 
 
+def _numpy_leaves(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_numpy_leaves(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            # numpy has no bf16: its bits as a 2-byte void, which is how
+            # an .npz of the JAX package holds a bf16 leaf
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
+    return np.asarray(tree)
+
+
 def _to_torch(arr: np.ndarray, device, dtype) -> torch.Tensor:
     arr = np.asarray(arr)
     # bf16 arrives as ml_dtypes.bfloat16 from a live pytree and as 2-byte
@@ -81,6 +97,17 @@ def params_from_numpy(tree_or_flat, device=None, dtype=None):
     return _unflatten({k: _to_torch(v, dev, dtype) for k, v in flat.items()})
 
 
+def save_pytree(path: str, tree, meta: dict | None = None) -> None:
+    """Writes a nested dict/tuple of tensors or arrays as the JAX package's
+    ``save_pytree`` does (e.g. ``id_module.npz``): one array a leaf under
+    its ``/``-joined path, ``meta`` as JSON bytes under ``meta_json``."""
+    blobs = _flatten(_numpy_leaves(tree))
+    if meta:
+        blobs["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
+                                           dtype=np.uint8)
+    np.savez(path, **blobs)
+
+
 def load_pytree(path: str, device=None, dtype=None):
     """Reads a ``save_pytree`` checkpoint (e.g. the ``id_module.npz`` that
     ``train_eval_pose_est.py`` writes) -> (params, meta dict)."""
@@ -97,16 +124,6 @@ def load_pytree(path: str, device=None, dtype=None):
 # mask bit-packed (np.packbits) and the FieldConfig as ``config_json``
 # (reference models/tensorBase.py:424-458)
 # ---------------------------------------------------------------------------
-
-
-def _numpy_leaves(tree):
-    if isinstance(tree, dict):
-        return {k: _numpy_leaves(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return tuple(_numpy_leaves(v) for v in tree)
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
-    return np.asarray(tree)
 
 
 def save_field(path: str, config: FieldConfig, params,

@@ -1,5 +1,6 @@
-"""Pose pipeline: the object side (surface sampling, isocell rays) and the
-single-image estimate against a per-object ray bank."""
+"""Pose pipeline: the object side (surface sampling, isocell rays), the
+ID-module trainer and the single-image estimate against a per-object ray
+bank."""
 
 from iffnerf_tpu_torch.pose.geometry import (
     compute_angular_error,
@@ -29,4 +30,9 @@ from iffnerf_tpu_torch.pose.solve import (
     solve_pose_from_topk,
 )
 from iffnerf_tpu_torch.pose.test import test_pose_estimation
+from iffnerf_tpu_torch.pose.trainer import (
+    id_train_step,
+    make_id_optimizer,
+    train_id_module,
+)
 from iffnerf_tpu_torch.pose.vit import ViTConfig

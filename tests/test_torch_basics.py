@@ -177,10 +177,13 @@ def test_port_imports_no_jax():
         import sys
         import iffnerf_tpu_torch
         import iffnerf_tpu_torch.checkpoint
+        import iffnerf_tpu_torch.config
         import iffnerf_tpu_torch.data
         import iffnerf_tpu_torch.data.base
         import iffnerf_tpu_torch.data.blender
+        import iffnerf_tpu_torch.data.nsvf
         import iffnerf_tpu_torch.data.rays_np
+        import iffnerf_tpu_torch.data.tankstemple
         import iffnerf_tpu_torch.device
         import iffnerf_tpu_torch.models
         import iffnerf_tpu_torch.models.field
@@ -209,8 +212,11 @@ def test_port_imports_no_jax():
         import iffnerf_tpu_torch.pose.sampling
         import iffnerf_tpu_torch.pose.solve
         import iffnerf_tpu_torch.pose.test
+        import iffnerf_tpu_torch.pose.trainer
         import iffnerf_tpu_torch.pose.vit
         import iffnerf_tpu_torch.pose_cli
+        import iffnerf_tpu_torch.train
+        import iffnerf_tpu_torch.train.trainer
         import chip_smoke
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
@@ -233,7 +239,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         estimate_pose_single_banked,
         init_id_module,
         ray_bank,
+        train_id_module,
     )
+    from iffnerf_tpu_torch import pose_cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, tcfg = configs()
@@ -249,6 +257,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         estimate_pose_single_banked({}, tcfg, np.zeros((96, 96, 3)),
                                     np.ones((96, 96)), torch.zeros(8, 384),
                                     z, z, UP)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_id_module({}, tcfg, lambda: (z, z, z), None, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pose_cli.main(["--exp_patch", ".", "--out_path", "out.json"])
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu():

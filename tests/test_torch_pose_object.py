@@ -1,7 +1,8 @@
 """Port parity for the object side of pose: isocell directions, the surface
 sampler (one epoch with the JAX package's own draws handed to the port),
 normals, ray colours, ``explore_field``, the per-frame evaluation
-``test_pose_estimation``, the Blender loader and the pose CLI. The field
+``test_pose_estimation``, the Blender and Tanks&Temples loaders and the
+pose CLI (training, resuming, ``--config``, ``--backbone_ckpt``). The field
 is made by the JAX package and reaches the port through ``load_field``."""
 
 import json
@@ -13,8 +14,9 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from iffnerf_tpu.checkpoint import save_field, save_pytree
+from iffnerf_tpu.checkpoint import load_pytree, save_field, save_pytree
 from iffnerf_tpu.data.blender import load_blender as jload_blender
+from iffnerf_tpu.data.tankstemple import load_tankstemple as jload_tankstemple
 from iffnerf_tpu.models import render as jrender
 from iffnerf_tpu.models.field import make_alpha_mask as jmake_alpha_mask
 from iffnerf_tpu.pose import isocell as jiso
@@ -22,10 +24,13 @@ from iffnerf_tpu.pose import sampling as jsamp
 from iffnerf_tpu.pose.test import test_pose_estimation as jtest_pose_estimation
 from iffnerf_tpu_torch import pose_cli
 from iffnerf_tpu_torch.data.blender import load_blender as tload_blender
+from iffnerf_tpu_torch.data.tankstemple import load_tankstemple as tload_tankstemple
 from iffnerf_tpu_torch.models import field as tfield
 from iffnerf_tpu_torch.models import render as trender
+from iffnerf_tpu_torch.pose import id_module as tid
 from iffnerf_tpu_torch.pose import isocell as tiso
 from iffnerf_tpu_torch.pose import sampling as tsamp
+from iffnerf_tpu_torch.pose import trainer as ttrainer
 from iffnerf_tpu_torch.pose.test import test_pose_estimation as ttest_pose_estimation
 
 from fixtures import make_blender_fixture
@@ -297,35 +302,206 @@ def test_pose_estimation_refuses_what_is_not_ported(scene):
                               inerf_refinement=True, device="cpu")
 
 
-def test_pose_cli_on_the_fixture(scene, vm, tmp_path):
+def _count_steps(monkeypatch):
+    """Counts the trainer's optimizer steps (the loop looks the step up in
+    its module at each iteration)."""
+    steps = []
+    step = ttrainer.id_train_step
+
+    def counted(*a, **kw):
+        steps.append(1)
+        return step(*a, **kw)
+
+    monkeypatch.setattr(ttrainer, "id_train_step", counted)
+    return steps
+
+
+def _check_rows(rows, sequence_id, n):
+    assert len(rows) == n
+    for i, row in enumerate(rows):
+        assert set(row) == ROW_KEYS
+        assert (row["sequence_id"], row["frame_id"]) == (sequence_id, i)
+        assert np.isfinite(row["pred_c2w"]).all()
+        assert np.asarray(row["pred_c2w"]).shape == (4, 4)
+        assert 0.0 <= row["recall"] <= 1.0
+
+
+def test_pose_cli_on_the_fixture(scene, vm, tmp_path, monkeypatch):
     """The pose CLI over one tensorf_<obj>_VM run with a field checkpoint
-    and an id_module.npz written by the JAX package; without the
-    id_module.npz it raises."""
-    jcfg, _ = configs(depth=1)
-    jp, _ = params(13, jcfg)
+    written by the JAX package. Without an id_module.npz it trains one
+    (two steps of two images), saves it with epoch 2 where the JAX package
+    loads it, and writes the rows; a second run resumes from it at epoch 2
+    and takes no step."""
+    monkeypatch.chdir(tmp_path)  # the trainer writes runs/
+    steps = _count_steps(monkeypatch)
     run = tmp_path / "log" / "tensorf_lego_VM"
     run.mkdir(parents=True)
     save_field(str(run / "tensorf_lego_VM.npz"), *vm[0])
     argv = ["--datadir", os.path.dirname(scene), "--exp_patch",
             str(tmp_path / "log"), "--out_path", str(tmp_path / "out.json"),
             "--gen_points", "32", "--id_backbone_depth", "1",
-            "--device", "cpu"]
-    with pytest.raises(FileNotFoundError, match="id_module.npz"):
-        pose_cli.main(argv)
-    save_pytree(str(run / "id_module.npz"),
-                jax.tree_util.tree_map(np.asarray, jp), {"epoch": 1})
+            "--id_iters", "2", "--accum_steps", "2", "--device", "cpu"]
     pose_cli.main(argv + ["--save_debug", "1"])
+    assert len(steps) == 2
+    trained, meta = load_pytree(str(run / "id_module.npz"))
+    assert meta == {"epoch": 2}
+    jcfg, _ = configs(depth=1)
+    assert jax.tree.structure(trained) == jax.tree.structure(
+        params(13, jcfg)[0])
     with open(tmp_path / "out.json") as fh:
-        rows = json.load(fh)
-    assert len(rows) == 2
-    for i, row in enumerate(rows):
-        assert set(row) == ROW_KEYS
-        assert (row["sequence_id"], row["frame_id"]) == ("lego", i)
-        assert np.isfinite(row["pred_c2w"]).all()
-        assert np.asarray(row["pred_c2w"]).shape == (4, 4)
-        assert 0.0 <= row["recall"] <= 1.0
+        _check_rows(json.load(fh), "lego", 2)
     assert (tmp_path / "sample_results_0.npz").exists()
     assert not (tmp_path / "sample_results_1.npz").exists()
+
+    rows = pose_cli.main(argv)
+    assert len(steps) == 2
+    _check_rows(rows, "lego", 2)
+    resumed, meta = load_pytree(str(run / "id_module.npz"))
+    assert meta == {"epoch": 2}
+    for a, b in zip(jax.tree.leaves(resumed), jax.tree.leaves(trained)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_pose_cli_backbone_ckpt(scene, vm, tmp_path, monkeypatch):
+    """--backbone_ckpt replaces the initial backbone: with --id_iters 0 the
+    saved id_module.npz holds that file's backbone and the --seed's other
+    parameters."""
+    monkeypatch.chdir(tmp_path)
+    run = tmp_path / "log" / "tensorf_lego_VM"
+    run.mkdir(parents=True)
+    save_field(str(run / "tensorf_lego_VM.npz"), *vm[0])
+    jcfg, _ = configs(depth=1)
+    backbone = jax.tree.map(np.asarray, params(14, jcfg)[0]["backbone"])
+    save_pytree(str(tmp_path / "dinov2.npz"), backbone)
+    pose_cli.main(["--datadir", scene, "--exp_patch", str(tmp_path / "log"),
+                   "--out_path", str(tmp_path / "out.json"),
+                   "--gen_points", "32", "--id_backbone_depth", "1",
+                   "--id_iters", "0", "--backbone_ckpt",
+                   str(tmp_path / "dinov2.npz"), "--seed", "3",
+                   "--device", "cpu"])
+    saved, meta = load_pytree(str(run / "id_module.npz"))
+    assert meta == {"epoch": 0}
+    for a, b in zip(jax.tree.leaves(saved["backbone"]),
+                    jax.tree.leaves(backbone)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    _, tcfg = configs(depth=1)
+    init = tid.init_id_module(torch.Generator().manual_seed(3), tcfg,
+                              device="cpu")
+    np.testing.assert_array_equal(np.asarray(saved["q_proj"]["w"]),
+                                  init["q_proj"]["w"].numpy())
+    with open(tmp_path / "out.json") as fh:
+        _check_rows(json.load(fh), "lego", 2)
+
+
+TT_INTRINSICS = np.array([[1100.0, 0, 960, 0], [0, 1100.0, 540, 0],
+                          [0, 0, 1, 0], [0, 0, 0, 1]])
+
+
+def make_tankstemple_fixture(root, wh=(48, 27), n=(2, 1, 2), seed=0):
+    """A Tanks&Temples (NSVF layout) micro-scene: intrinsics.txt for
+    1920x1080, bbox.txt, pose/ and rgb/ with 0_ train, 1_ val and 2_ test
+    frames; RGB PNGs of a coloured disc on white (the loader synthesizes
+    the mask from the distance to white), cameras on a sphere of radius 4
+    looking at the origin (OpenCV convention)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "pose"))
+    os.makedirs(os.path.join(root, "rgb"))
+    np.savetxt(os.path.join(root, "intrinsics.txt"), TT_INTRINSICS)
+    np.savetxt(os.path.join(root, "bbox.txt"),
+               [[-1.0, -1.0, -1.0, 1.0, 1.0, 1.0, 0.1]])
+    w, h = wh
+    yy, xx = np.mgrid[0:h, 0:w]
+    for prefix, count in zip(("0_", "1_", "2_"), n):
+        for k in range(count):
+            theta = rng.uniform(0, 2 * np.pi)
+            campos = 4.0 * np.array([np.cos(theta) * 0.8, np.sin(theta) * 0.8,
+                                     0.6])
+            z = -campos / np.linalg.norm(campos)
+            x = np.cross(z, [0.0, 0.0, -1.0])
+            x /= np.linalg.norm(x)
+            c2w = np.eye(4)
+            c2w[:3, 0], c2w[:3, 1], c2w[:3, 2] = x, np.cross(z, x), z
+            c2w[:3, 3] = campos
+            name = f"{prefix}{k:04d}"
+            np.savetxt(os.path.join(root, "pose", f"{name}.txt"), c2w)
+            disc = (yy - h / 2) ** 2 + (xx - w / 2) ** 2 < (h / 3) ** 2
+            img = np.full((h, w, 3), 255, np.uint8)
+            img[disc] = rng.integers(0, 200, 3)
+            Image.fromarray(img, "RGB").save(
+                os.path.join(root, "rgb", f"{name}.png"))
+    return root
+
+
+@pytest.fixture(scope="module")
+def tt_scene(tmp_path_factory):
+    return make_tankstemple_fixture(str(tmp_path_factory.mktemp("tt") / "truck"))
+
+
+@pytest.mark.parametrize("downsample", [40.0, 20.0])
+def test_tankstemple_loader_matches(tt_scene, downsample):
+    """Every split, at the images' own size (1920x1080 / 40) and resized
+    up by LANCZOS (/ 20)."""
+    for split in ("train", "val", "test"):
+        want = jload_tankstemple(tt_scene, split=split, downsample=downsample,
+                                 is_stack=True)
+        got = tload_tankstemple(tt_scene, split=split, downsample=downsample,
+                                is_stack=True)
+        for name in ("all_rays", "all_rgbs", "poses", "K", "scene_bbox",
+                     "directions", "render_path"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(want, name), err_msg=name)
+        assert (got.img_wh, got.near_far, got.white_bg) == (
+            want.img_wh, want.near_far, want.white_bg)
+    assert got.all_rgbs.shape[-1] == 4 and 0 < got.all_rgbs[..., 3].mean() < 1
+
+
+def test_pose_cli_reads_config_and_tankstemple(tt_scene, vm, tmp_path,
+                                               monkeypatch):
+    """Flags from a --config file (CLI flags over it), and a Tanks&Temples
+    run: a tensorf_<obj>_VMtt dir read with the tankstemple loader."""
+    monkeypatch.chdir(tmp_path)
+    steps = _count_steps(monkeypatch)
+    run = tmp_path / "log" / "tensorf_truck_VMtt"
+    run.mkdir(parents=True)
+    save_field(str(run / "tensorf_truck_VMtt.npz"), *vm[0])
+    cfg = tmp_path / "truck.txt"
+    cfg.write_text("# a small pose config\n"
+                   "dataset_name = tankstemple\n"
+                   "downsample_train = 40\n"
+                   "gen_points = 500  # overridden on the command line\n"
+                   "id_backbone_depth = 1\n"
+                   "id_iters = 1\n"
+                   "accum_steps = 2\n"
+                   "device = cpu\n")
+    argv = ["--config", str(cfg), "--datadir", os.path.dirname(tt_scene),
+            "--exp_patch", str(tmp_path / "log"), "--out_path",
+            str(tmp_path / "out.json"), "--gen_points", "32"]
+    args = pose_cli.parse_args(argv)
+    assert (args.dataset_name, args.downsample_train, args.gen_points,
+            args.id_iters, args.accum_steps, args.device) == (
+        "tankstemple", 40.0, 32, 1, 2, "cpu")
+    rows = pose_cli.main(argv)
+    assert len(steps) == 1
+    _check_rows(rows, "truck", 2)
+    _, meta = load_pytree(str(run / "id_module.npz"))
+    assert meta == {"epoch": 1}
+
+
+@pytest.mark.parametrize("name", sorted(
+    os.listdir(os.path.join(os.path.dirname(__file__), "..", "configs"))))
+def test_config_parser_matches_jax(name):
+    """The copied flag system reads every config file of the repo, with a
+    flag over it, as the JAX package's does."""
+    from iffnerf_tpu.config import config_parser as jconfig_parser
+    from iffnerf_tpu_torch.config import config_parser as tconfig_parser
+
+    path = os.path.join(os.path.dirname(__file__), "..", "configs", name)
+    cmd = ["--config", path, "--n_iters", "7"]
+    want = vars(jconfig_parser(cmd))
+    got = vars(tconfig_parser(cmd))
+    assert got == want and got["n_iters"] == 7
 
 
 def test_pose_cli_goes_on_past_a_failing_object(scene, vm, tmp_path,
@@ -349,11 +525,14 @@ def test_pose_cli_goes_on_past_a_failing_object(scene, vm, tmp_path,
         return load_model(path, **kw)
 
     monkeypatch.setattr(pose_cli, "load_model", load_or_fail)
-    # no <datadir>/<obj> folder: both objects read the one fixture scene
+    monkeypatch.chdir(tmp_path)  # the trainer writes runs/
+    # no <datadir>/<obj> folder: both objects read the one fixture scene;
+    # --id_iters 1 resumes at the id_module.npz's epoch, with no step
     rows = pose_cli.main(["--datadir", scene, "--exp_patch",
                           str(tmp_path / "log"), "--out_path",
                           str(tmp_path / "out.json"), "--gen_points", "32",
-                          "--id_backbone_depth", "1", "--device", "cpu"])
+                          "--id_backbone_depth", "1", "--id_iters", "1",
+                          "--device", "cpu"])
     with open(tmp_path / "out.json") as fh:
         saved = json.load(fh)
     assert saved == rows and len(saved) == 2
