@@ -13,7 +13,12 @@ occupied alpha mask; made from the seed, saved and loaded back) through
 (no image file is read), and ID-module training at full width
 (``train_id_module``: float32, accumulation 32, 540 000 rays renewed by
 ``explore_field``) with a reduced run held against the same run on the
-CPU. It checks what comes out, and times kernels, estimates, the object
+CPU, and TensoRF field training at configs/lego.txt's widths
+(``train_field`` from a 128^3 field on 100 synthetic 800x800 frames,
+through a mask update with shrink, an upsample, a mask update with ray
+filtering and the upsample to 300^3, with ``field_features``' backward
+kernel held to its plain version, an eval render and a reduced run
+against the CPU). It checks what comes out, and times kernels, estimates, the object
 side and training steps with CUDA events and the host clock. Each
 phase prints one JSON line; then come the card's name and power limit (as
 nvidia-smi gives them), the kernels line, and last
@@ -42,13 +47,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from iffnerf_tpu_torch.checkpoint import _flatten, _numpy_leaves, save_field
-from iffnerf_tpu_torch.device import resolve_device
+from iffnerf_tpu_torch.checkpoint import (
+    _flatten,
+    _numpy_leaves,
+    load_field,
+    save_field,
+)
+from iffnerf_tpu_torch.config import config_parser
+from iffnerf_tpu_torch.data.rays_np import ray_directions_Ks_np
+from iffnerf_tpu_torch.device import leaves, resolve_device, trainable
 from iffnerf_tpu_torch.models.field import (
     FieldConfig,
+    init_field,
     make_alpha_mask,
     normalize_coord,
     sample_alpha,
+    upsample_volume_grid,
 )
 from iffnerf_tpu_torch.models.render import compute_alpha, sample_point_color_fn
 from iffnerf_tpu_torch.ops import _build
@@ -62,8 +76,11 @@ from iffnerf_tpu_torch.ops.banked_attention import (
 )
 from iffnerf_tpu_torch.ops.field_features import (
     MAT_MODE,
+    TABLES,
     VEC_MODE,
     field_features,
+    field_features_backward,
+    field_features_backward_plain,
     field_features_plain,
     kernel_layout,
 )
@@ -110,6 +127,10 @@ from iffnerf_tpu_torch.pose.trainer import (
     trainable,
 )
 from iffnerf_tpu_torch.pose.vit import ViTConfig
+from iffnerf_tpu_torch.render.renderer import evaluation
+from iffnerf_tpu_torch.train import trainer as field_trainer
+from iffnerf_tpu_torch.train.trainer import field_config_from_args, train_field
+from iffnerf_tpu_torch.utils.misc import N_to_reso, cal_n_samples, n_voxel_schedule
 
 SEED = 0
 N_RAYS = 20000 * 27      # 20k surface points x 27 isocell directions
@@ -176,6 +197,19 @@ ID_SMALL_POOL = 8
 # leaves the loss is invariant to (a bias shifting every logit of a patch;
 # tests/test_torch_id_train.py): their gradients are noise, bounded apart
 ID_INVARIANT = ("k_proj/b", "ray_mlp2/1/b")
+# TensoRF training at configs/lego.txt's widths: a pool of lego's 100
+# train frames at 800x800 (blender's camera_angle_x), 12 of 30 000
+# iterations with the mask updates and upsamples at 3 and 6, from a 128^3
+# field; the backward kernel against its plain version within
+# FIELD_GRAD_TOL of each leaf's largest |grad| (float32 sums of up to
+# thousands of terms a texel, added by atomics in another order than
+# autograd's index_add: n x 6e-8 of the terms' magnitudes at worst), the
+# plain version in chunks of FT_PLAIN_CHUNK samples
+FT_WH, FT_CAMERA_ANGLE_X, FT_POOL = 800, 0.6911112070083618, 100
+FT_ITERS, FT_EVENTS, FT_BATCH, FT_GRID_INIT = 12, (3, 6), 4096, 128
+FIELD_GRAD_TOL, FT_PLAIN_CHUNK, FT_REPS = 1e-4, 1 << 20, 5
+# the reduced card-vs-CPU run: grid, upsampled grid, batch, steps
+FT_SMALL_GRID, FT_SMALL_UP, FT_SMALL_BATCH, FT_SMALL_STEPS = 32, 40, 256, 3
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
@@ -382,6 +416,37 @@ def phase_device():
          nvcc_s={k: round(v, 3) for k, v in built.items()}, ptxas=ptxas)
 
 
+def _field_features_under_grad(call, config, field, xyz):
+    """field_features under grad: one forward launch, one backward launch
+    when the loss is differentiated, app_plane[0]'s gradient against the
+    plain version's, and an xyz that requires grad refused before any
+    launch -> the share of FIELD_GRAD_TOL the gradient's error takes."""
+    before = (field_features.launches, field_features_backward.launches)
+    sigma, app = call()
+    (sigma.sum() + app.square().sum()).backward()
+    torch.cuda.synchronize()
+    check((field_features.launches, field_features_backward.launches)
+          == (before[0] + 1, before[1] + 1),
+          "field_features under grad: one forward and one backward launch")
+    got = field["app_plane"][0].grad
+    with torch.no_grad():
+        _, app_plain = field_features_plain(field, xyz, True, gather_rows_plain)
+    want = field_features_backward_plain(
+        field, xyz, torch.ones_like(sigma), 2 * app_plain)["app_plane"][0]
+    share = float((got - want).abs().max()) / (
+        FIELD_GRAD_TOL * float(want.abs().max()))
+    check(share <= 1.0, f"field_features' gradient under autograd: {share}")
+    try:
+        field_features(config, field, xyz.clone().requires_grad_(), True)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused and field_features.launches == before[0] + 1,
+          "field_features refuses a coordinate gradient before any launch")
+    return {"differentiable": True, "grad_share_of_tolerance": share,
+            "refused_xyz_grad": refused}
+
+
 def phase_banked_kernel(params, cfgs, img, mask, rays):
     """K1 against its plain version: f32 and bf16 banks, full and ragged
     ray counts, a mask with invalid patches and an all-invalid one."""
@@ -416,11 +481,14 @@ def phase_banked_kernel(params, cfgs, img, mask, rays):
 
 
 def phase_guards(params, cfg, img, mask, rays):
-    """What the wrappers refuse. Each of the four kernel wrappers raises
-    under grad with an input that requires it (no kernel has a backward
-    yet), before any launch, and runs under torch.no_grad(); shapes the
-    banked kernel refuses (64 patches, a bf16 depth of 96, a float32 depth
-    of 48) go through score_rays to the exact path, with no launch."""
+    """What the wrappers refuse. K1, K2 and K3 raise under grad with an
+    input that requires it (they have no backward), before any launch, and
+    run under torch.no_grad(); field_features, which has a backward, runs
+    under grad (one forward launch, one backward launch on backward, the
+    table's gradient within FIELD_GRAD_TOL of the plain version's) and
+    refuses a coordinate gradient before any launch; shapes the banked
+    kernel refuses (64 patches, a bf16 depth of 96, a float32 depth of 48)
+    go through score_rays to the exact path, with no launch."""
     dev = img.device
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     q, pv, _ = image_queries(params, cfg, img, mask)
@@ -443,6 +511,9 @@ def phase_guards(params, cfg, img, mask, rays):
     grad = {}
     for name, (wrapper, call) in calls.items():
         before = wrapper.launches
+        if name == "field_features":
+            grad[name] = _field_features_under_grad(call, fcfg, field, xyz)
+            continue
         try:
             call()
             raised = False
@@ -536,13 +607,15 @@ def _reset_counts():
     fused_ray_scores.launches = 0
     gather_rows.launches = 0
     field_features.launches = 0
+    field_features_backward.launches = 0
 
 
 def _counts():
     return {"banked_scores": banked_scores_fused.launches,
             "fused_ray_scores": fused_ray_scores.launches,
             "gather_rows": gather_rows.launches,
-            "field_features": field_features.launches}
+            "field_features": field_features.launches,
+            "field_features_backward": field_features_backward.launches}
 
 
 def _compare_routes(outs, refs, tag, min_overlap=K_TOP, c2w_tol=1e-4):
@@ -844,17 +917,34 @@ def count_torch_lerps():
             setattr(field_features_module, name, fn)
 
 
-def make_lego_field(dev):
+def cluster_volume(grid, spread, dev):
+    """The test fixture's cluster (tests/fixtures.py): a central ball and
+    six satellites, on a [grid]^3 lattice over +-1.5, the satellites'
+    centres ``spread`` times the fixture's -> bool [grid]^3 (z, y, x)."""
+    lin = torch.linspace(-1.5, 1.5, grid, device=dev)
+    z, y, x = torch.meshgrid(lin, lin, lin, indexing="ij")
+    balls = [((0.0, 0.0, 0.0), 0.22)] + [
+        (tuple(0.47 * s * (j == axis) for j in range(3)), 0.125)
+        for axis in range(3) for s in (1, -1)]
+    vol = torch.zeros((grid,) * 3, dtype=torch.bool, device=dev)
+    for (cx, cy, cz), rad in balls:
+        vol |= ((x - spread * cx) ** 2 + (y - spread * cy) ** 2
+                + (z - spread * cz) ** 2) < (2.85 * rad) ** 2
+    return vol
+
+
+def make_lego_field(dev, grid=GRID, spread=2.5):
     """A TensorVMSplit field at configs/lego.txt's widths, drawn from the
-    seed: 300^3 grid, density ranks 16, appearance ranks 48, app_dim 27,
-    Ref shading (feature_c 128, view_pe = fea_pe = 2), AABB +-1.5. The
-    density factors have mean 0.5, so the density feature is about 12 and
-    sigma = softplus(12 - 10) about 2 inside the mask: the colour pass sees
-    opaque surfaces, as on a trained field. The alpha mask is the test
-    fixture's cluster (tests/fixtures.py) scaled to fill the AABB, about 8 %
-    occupied, lego's share. -> (config, numpy params, mask)."""
+    seed: a ``grid``^3 grid (300 by default), density ranks 16, appearance
+    ranks 48, app_dim 27, Ref shading (feature_c 128, view_pe = fea_pe =
+    2), AABB +-1.5. The density factors have mean 0.5, so the density
+    feature is about 12 and sigma = softplus(12 - 10) about 2 inside the
+    mask: the colour pass sees opaque surfaces, as on a trained field. The
+    alpha mask is the test fixture's cluster (``cluster_volume``) scaled
+    by ``spread``: 2.5 fills the AABB, about 8 % occupied, lego's share.
+    -> (config, numpy params, mask)."""
     rng = np.random.default_rng(SEED)
-    cfg = FieldConfig(model_name="TensorVMSplit", grid_size=(GRID,) * 3,
+    cfg = FieldConfig(model_name="TensorVMSplit", grid_size=(grid,) * 3,
                       density_n_comp=(16, 16, 16), app_n_comp=(48, 48, 48),
                       app_dim=27, shading_mode="Ref", feature_c=128,
                       view_pe=2, fea_pe=2)
@@ -873,9 +963,9 @@ def make_lego_field(dev):
     for kind, comps, mean, std in (("density", cfg.density_n_comp, 0.5, 0.1),
                                    ("app", cfg.app_n_comp, 0.0, 0.1)):
         params[f"{kind}_plane"] = tuple(
-            normal((GRID, GRID, comps[i]), mean, std) for i in range(3))
+            normal((grid, grid, comps[i]), mean, std) for i in range(3))
         params[f"{kind}_line"] = tuple(
-            normal((GRID, comps[i]), mean, std) for i in range(3))
+            normal((grid, comps[i]), mean, std) for i in range(3))
     params["basis_mat"] = linear(sum(cfg.app_n_comp), cfg.app_dim, bias=False)
     a, fc = cfg.app_dim, cfg.feature_c
     params["shading"] = {
@@ -884,16 +974,7 @@ def make_lego_field(dev):
         "specular": linear(fc + ide_output_dim(4) + 1, 3),
         "normal": linear(a, 3)}
 
-    lin = torch.linspace(-1.5, 1.5, GRID, device=dev)
-    z, y, x = torch.meshgrid(lin, lin, lin, indexing="ij")
-    balls = [((0.0, 0.0, 0.0), 0.22)] + [
-        (tuple(0.47 * s * (j == axis) for j in range(3)), 0.125)
-        for axis in range(3) for s in (1, -1)]
-    vol = torch.zeros((GRID,) * 3, dtype=torch.bool, device=dev)
-    for (cx, cy, cz), rad in balls:
-        vol |= ((x - 2.5 * cx) ** 2 + (y - 2.5 * cy) ** 2
-                + (z - 2.5 * cz) ** 2) < (2.85 * rad) ** 2
-    del x, y, z
+    vol = cluster_volume(grid, spread, dev)
     mask = make_alpha_mask(vol.float(), cfg.aabb_np)
     return cfg, params, mask
 
@@ -1472,6 +1553,470 @@ def phase_id_train_small(init, frames, rays, dev):
             "card_s": secs["card"], "cpu_s": secs["cpu"]}
 
 
+# ---------------------------------------------------------------------------
+# Field training
+# ---------------------------------------------------------------------------
+
+
+def _ray_grid(dev):
+    """lego's camera (800x800, camera_angle_x 0.6911) -> (unit camera-frame
+    directions [H*W, 3], mip radii [H*W, 1]) on ``dev``, as the Blender
+    loader computes them (data/rays_np.py)."""
+    focal = 0.5 * FT_WH / math.tan(0.5 * FT_CAMERA_ANGLE_X)
+    K = np.array([[[focal, 0, FT_WH / 2], [0, focal, FT_WH / 2], [0, 0, 1]]],
+                 np.float32)
+    dirs, dx, dy = (a[0].reshape(-1, 3)
+                    for a in ray_directions_Ks_np(FT_WH, FT_WH, K))
+    radii = (0.5 * (np.linalg.norm(dx - dirs, axis=-1)
+                    + np.linalg.norm(dy - dirs, axis=-1))
+             * (2.0 / math.sqrt(12.0)))[:, None]
+    unit = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return (torch.as_tensor(unit, dtype=torch.float32, device=dev),
+            torch.as_tensor(radii, dtype=torch.float32, device=dev))
+
+
+def synthetic_ray_pool(dev, n, seed, stacked=False):
+    """``n`` synthetic 800x800 RGBA frames made on the card, as a Blender
+    split: cameras on a sphere of radius 4 looking at the origin (the test
+    fixture's rig), rays with mip radii, and a smooth colour pattern that
+    changes with the view under the blob mask as alpha. -> a dataset
+    namespace: flat ``all_rays`` [n*H*W, 7] and ``all_rgbs`` [n*H*W, 4],
+    or stacked [n, H, W, C] with ``stacked``."""
+    rng = np.random.default_rng(seed)
+    dirs, radii = _ray_grid(dev)
+    hw = FT_WH * FT_WH
+    rays = torch.empty((n, hw, 7), device=dev)
+    rgbs = torch.empty((n, hw, 4), device=dev)
+    yy, xx = (torch.arange(FT_WH, device=dev, dtype=torch.float32) / FT_WH,) * 2
+    pattern = torch.stack(torch.meshgrid(yy, xx, indexing="ij"), -1).reshape(-1, 2)
+    alpha = blob_mask(FT_WH, FT_WH, dev).float().reshape(-1, 1)
+    for k in range(n):
+        theta = 2 * math.pi * (k + rng.random()) / n
+        phi = math.radians(10 + 50 * rng.random())
+        c2w = torch.as_tensor(_look_at_c2w(4.0 * np.array(
+            [math.cos(theta) * math.cos(phi), math.sin(theta) * math.cos(phi),
+             math.sin(phi)])), device=dev)
+        rays[k, :, :3] = c2w[:3, 3]
+        rays[k, :, 3:6] = dirs @ c2w[:3, :3].T
+        rays[k, :, 6:] = radii
+        rgbs[k, :, :3] = 0.5 + 0.4 * torch.sin(
+            6.0 * pattern[:, :1] * torch.tensor([1.0, 2.0, 3.0], device=dev)
+            + 4.0 * pattern[:, 1:] + theta)
+        rgbs[k, :, 3:] = alpha
+    shape = (n, FT_WH, FT_WH) if stacked else (n * hw,)
+    return types.SimpleNamespace(
+        all_rays=rays.reshape(shape + (7,)), all_rgbs=rgbs.reshape(shape + (4,)),
+        white_bg=True, near_far=(2.0, 6.0), img_wh=(FT_WH, FT_WH),
+        scene_bbox=np.array([[-1.5] * 3, [1.5] * 3], np.float32))
+
+
+def field_train_args(ckpt=None):
+    """configs/lego.txt through the port's parser, cut to FT_ITERS
+    iterations with the upsamples and mask updates at FT_EVENTS."""
+    cmd = ["--config", str(Path(__file__).resolve().parent / "configs"
+                           / "lego.txt"),
+           "--n_iters", str(FT_ITERS), "--N_vis", "0", "--ckpt_every", "0",
+           "--progress_refresh_rate", str(FT_ITERS)]
+    for it in FT_EVENTS:
+        cmd += ["--upsamp_list", str(it), "--update_AlphaMask_list", str(it)]
+    if ckpt is not None:
+        cmd += ["--ckpt", str(ckpt)]
+    return config_parser(cmd)
+
+
+@contextlib.contextmanager
+def timed_field_steps():
+    """Times the field trainer's steps while open (the loop looks the step
+    up in its module each iteration) -> a list with, for each step, its
+    host seconds up to a synchronize, its mse, grid, samples a ray and
+    peak device memory."""
+    steps = []
+    step = field_trainer.train_step
+
+    def timed(config, params, opt, *args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mse = step(config, params, opt, *args, **kw)
+        steps.append({"s": _sync_s(t0), "mse": float(mse),
+                      "grid": list(config.grid_size),
+                      "n_samples": kw["n_samples"],
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+        return mse
+
+    field_trainer.train_step = timed
+    try:
+        yield steps
+    finally:
+        field_trainer.train_step = step
+
+
+@contextlib.contextmanager
+def captured_backwards():
+    """Keeps a copy of the inputs of the first backward launch at each grid
+    while open -> {grid (h, w, l of pair 0): (params, xyz, dsigma, dapp)}."""
+    out = {}
+    launch = field_features_module._launch_backward
+
+    def capture(tables, dims, flat, dsigma, dapp, wanted):
+        key = tuple(dims[:3])
+        if key not in out:
+            params = {name: tuple(a.detach().clone()
+                                  for a in tables[3 * j:3 * j + 3])
+                      for j, name in enumerate(TABLES)}
+            out[key] = (params, flat.clone(), dsigma.clone(),
+                        None if dapp is None else dapp.clone())
+        return launch(tables, dims, flat, dsigma, dapp, wanted)
+
+    field_features_module._launch_backward = capture
+    try:
+        yield out
+    finally:
+        field_features_module._launch_backward = launch
+
+
+def plain_backward_chunked(params, xyz, dsigma, dapp):
+    """field_features_backward_plain summed over chunks of FT_PLAIN_CHUNK
+    samples (a gradient is a sum over samples; one call at a step's 4
+    million samples would hold tens of GB of corner rows)."""
+    total = None
+    for i in range(0, xyz.shape[0], FT_PLAIN_CHUNK):
+        part = field_features_backward_plain(
+            params, xyz[i:i + FT_PLAIN_CHUNK], dsigma[i:i + FT_PLAIN_CHUNK],
+            None if dapp is None else dapp[i:i + FT_PLAIN_CHUNK])
+        total = part if total is None else {
+            k: tuple(a + b for a, b in zip(total[k], part[k])) for k in part}
+    return total
+
+
+def backward_errors(params, xyz, dsigma, dapp):
+    """The backward kernel against its plain version -> the largest share
+    of FIELD_GRAD_TOL x (leaf's largest |grad|) that a leaf's error takes,
+    that leaf, and the largest abs error; raises beyond the tolerance."""
+    got = field_features_backward(FieldConfig(), params, xyz, dsigma, dapp)
+    torch.cuda.synchronize()
+    want = plain_backward_chunked(params, xyz, dsigma, dapp)
+    worst, leaf, err_max = 0.0, "", 0.0
+    for name in want:
+        for i, (a, b) in enumerate(zip(got[name], want[name])):
+            err = float((a - b).abs().max())
+            share = err / (FIELD_GRAD_TOL * max(float(b.abs().max()), 1e-30))
+            err_max = max(err_max, err)
+            if share >= worst:
+                worst, leaf = share, f"{name}[{i}]"
+    check(worst <= 1.0, f"field_features backward vs plain: {leaf} at "
+          f"{worst} of its tolerance")
+    return {"n": xyz.shape[0], "worst_share_of_tolerance": worst,
+            "worst_leaf": leaf, "max_abs_err": err_max,
+            "samples_with_grad": int((dsigma != 0).sum())}
+
+
+def backward_bound(params, xyz, dsigma, dapp):
+    """Bytes: the coordinates and upstream gradients read once, and each
+    table row that a sample with a nonzero upstream word touches read once
+    and its gradient row written once -> (ms, bound_by)."""
+    n = xyz.shape[0]
+    _, dims = kernel_layout(params, dapp is not None)
+    moved = n * 12 + n * 4 + (0 if dapp is None else dapp.numel() * 4)
+    live = {"density": dsigma != 0,
+            "app": None if dapp is None else (dapp != 0).any(-1)}
+    for i in range(3):
+        h, w, length, rd, ra = dims[5 * i:5 * i + 5]
+        m0, m1 = MAT_MODE[i]
+        for kind, ranks in (("density", rd), ("app", ra)):
+            if live[kind] is None:
+                continue
+            pts = xyz[live[kind]]
+            plane, valid2, _ = corners_2d(h, w, torch.stack(
+                [pts[:, m0], pts[:, m1]], -1))
+            line, valid1, _ = corners_1d(length, pts[:, VEC_MODE[i]])
+            rows = (torch.unique(plane[valid2]).numel()
+                    + torch.unique(line[valid1]).numel())
+            moved += 2 * rows * ranks * 4
+    return bound(moved, 0.0, torch.float32)
+
+
+def library_backward(params, xyz, dsigma, dapp):
+    """The same gradients through F.grid_sample's backward (ATen's
+    grid_sampler_2d backward), a timing yardstick -> a function that runs
+    the backward once (the forward graph built once and kept)."""
+    tables = library_tables(params)
+    flat = [t.requires_grad_() for kind in ("density", "app")
+            for pair in tables[kind] for t in pair]
+    sigma, app = library_features(tables, xyz, True)
+
+    def run():
+        return torch.autograd.grad((sigma, app), flat, (dsigma, dapp),
+                                   retain_graph=True)
+    return run
+
+
+def _step_split_field(config, params, mask, pool, n_samples, dev):
+    """Two more steps on the trained field: the second one with CUDA events
+    after its forward, backward and Adam (the first builds Adam's state),
+    then one under the profiler -> ms of each part and the profile."""
+    p = trainable(params, dev)
+    opt = field_trainer.make_optimizer(p, 0.02, 1e-3, 1.0)
+    idx = torch.as_tensor(np.random.default_rng(SEED + 7).integers(
+        0, pool.all_rays.shape[0], FT_BATCH), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bg = torch.ones(3, device=dev)
+    weights = {"l1": 4e-5, "tv_d": 0.0, "tv_a": 0.0}
+    kw = dict(n_samples=n_samples, gen=gen, use_l1=True)
+
+    def step(mark=None):
+        field_trainer.train_step(config, p, opt, mask, pool.all_rays[idx],
+                                 pool.all_rgbs[idx], bg, weights, mark=mark,
+                                 **kw)
+    step()
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+    events[0][1].record()
+
+    def mark(label):
+        events.append((label, torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    step(mark)
+    torch.cuda.synchronize()
+    split = {f"{label}_ms": a.elapsed_time(b)
+             for (_, a), (label, b) in zip(events, events[1:])}
+
+    def one():
+        step()
+        return 1
+
+    split["profile"] = _profiled("field_train_step", one)
+    return split
+
+
+def phase_field_train_small(pool, dev):
+    """The reduced run on the card and on the CPU: a 32^3 lego-width field
+    (Ref shading) with the cluster mask, 256 rays a step from the pool, 3
+    steps with the upsample to 40^3 and Adam rebuilt before the third, the
+    same initial parameters, indices and jitter on both -> the largest
+    share of the tolerance a leaf takes (the ID-training rule of the CPU
+    parity tests, rtol 1e-3 and atol max(5e-5, 0.1 lr), at each group's
+    rate), and the run's seconds on each device."""
+    args = field_train_args()
+    config = field_config_from_args(args, [[-1.5] * 3, [1.5] * 3],
+                                    (FT_SMALL_GRID,) * 3, (2.0, 6.0))
+    init = init_field(torch.Generator().manual_seed(SEED), config)
+    vol = cluster_volume(FT_SMALL_GRID, 1.75, torch.device("cpu")).float()
+    rng = np.random.default_rng(SEED + 11)
+    rows = torch.as_tensor(rng.integers(0, pool.all_rays.shape[0],
+                                        (FT_SMALL_STEPS, FT_SMALL_BATCH)))
+    rays = pool.all_rays[rows.to(dev)].cpu()
+    rgbs = pool.all_rgbs[rows.to(dev)].cpu()
+    jitter = torch.as_tensor(rng.random((FT_SMALL_STEPS, FT_SMALL_BATCH, 1),
+                                        dtype=np.float32))
+    lr_factor = args.lr_decay_target_ratio ** (1.0 / 30000)
+    out, secs = {}, {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        cfg = config
+        p = trainable(init, device)
+        mask = make_alpha_mask(vol.to(device), cfg.aabb_np)
+        opt = field_trainer.make_optimizer(p, args.lr_init, args.lr_basis,
+                                           lr_factor)
+        for k in range(FT_SMALL_STEPS):
+            if k == FT_SMALL_STEPS - 1:
+                with torch.no_grad():
+                    cfg, p = upsample_volume_grid(cfg, p, (FT_SMALL_UP,) * 3)
+                p = trainable(p, device)
+                opt = field_trainer.make_optimizer(p, args.lr_init,
+                                                   args.lr_basis, lr_factor)
+            field_trainer.train_step(
+                cfg, p, opt, mask, rays[k].to(device), rgbs[k].to(device),
+                torch.ones(3, device=device),
+                {"l1": args.L1_weight_inital, "tv_d": 0.0, "tv_a": 0.0},
+                n_samples=cal_n_samples(cfg.grid_size, args.step_ratio),
+                jitter=jitter[k].to(device), use_l1=True)
+        out[name] = p
+        secs[name] = _sync_s(t0)
+    ref, new = (_flatten(_numpy_leaves(out[k])) for k in ("cpu", "card"))
+    worst = (0.0, "")
+    for name, a in ref.items():
+        lr = (args.lr_basis if name.split("/")[0] in field_trainer.NETWORK
+              else args.lr_init)
+        diff = np.abs(new[name] - a)
+        share = float((diff / (max(5e-5, 0.1 * lr) + 1e-3 * np.abs(a))).max())
+        worst = max(worst, (share, name))
+    check(worst[0] <= 1.0, f"card and CPU field parameters agree after "
+          f"{FT_SMALL_STEPS} steps (worst share {worst[0]}, {worst[1]})")
+    return {"grid": FT_SMALL_GRID, "upsampled_to": FT_SMALL_UP,
+            "batch": FT_SMALL_BATCH, "steps": FT_SMALL_STEPS,
+            "worst_share_of_tolerance": worst[0], "worst_leaf": worst[1],
+            "card_s": secs["card"], "cpu_s": secs["cpu"]}
+
+
+def estimate_full_run(steps, events, aabb):
+    """A 30 000-iteration lego run from this run's numbers: the step time
+    at each grid of lego's schedule (five upsamples at 2000, 3000, 4000,
+    5500 and 7000; mask updates at 2000 and 4000) from a line through the
+    two measured medians in samples a ray, times its steps, plus two mask
+    updates and five upsamples at this run's mean event times."""
+    args = field_train_args()
+    first = [st for st in steps if st["grid"] == steps[0]["grid"]][1:]
+    last = [st for st in steps if st["grid"] == steps[-1]["grid"]][1:]
+    (n0, t0), (n1, t1) = ((st[0]["n_samples"],
+                           statistics.median(x["s"] for x in st))
+                          for st in (first, last))
+    slope = (t1 - t0) / max(n1 - n0, 1)
+    bounds = [0, 2000, 3000, 4000, 5500, 7000, 30000]
+    grids = [N_to_reso(args.N_voxel_init, [[-1.5] * 3, [1.5] * 3])] + [
+        N_to_reso(n, aabb) for n in n_voxel_schedule(
+            args.N_voxel_init, args.N_voxel_final, 5)]
+    total, per_grid = 0.0, []
+    for (a, b), grid in zip(zip(bounds, bounds[1:]), grids):
+        ns = cal_n_samples(grid, args.step_ratio)
+        t = t0 + slope * (ns - n0)
+        per_grid.append({"iters": b - a, "grid": grid, "n_samples": ns,
+                         "step_s": t})
+        total += (b - a) * t
+    masks = [e["s"] for e in events if e["event"].startswith("alpha")]
+    ups = [e["s"] for e in events if e["event"] == "upsample"]
+    events_s = 2 * statistics.mean(masks) + 5 * statistics.mean(ups)
+    return {"steps_s": total, "events_s": events_s,
+            "total_s": total + events_s, "per_grid": per_grid}
+
+
+def phase_field_train(dev):
+    """TensoRF training through ``train_field`` (reconstruction's loop) at
+    configs/lego.txt's widths: from a 128^3 field whose density follows
+    the fixture's cluster (the alpha mask of its checkpoint, 8 % of the
+    AABB), on a pool of 100 synthetic 800x800 frames made on the card
+    (lego's train split, 64 M rays), batch 4 096, cut to FT_ITERS
+    iterations with the mask update and shrink, an upsample, the mask
+    update with ray filtering and the upsample to 300^3 at FT_EVENTS.
+    Launch counts set to 0 just before the run and read just after it;
+    each step timed, the inputs of the first backward at 128^3 and at the
+    final grid kept and the backward kernel held to its plain version on
+    them. Then the split and profile of a step, one 800x800 eval render
+    (seconds, PSNR, SSIM), the reduced card-vs-CPU run, and the estimate
+    of a 30 000-iteration run. -> (the run's launch counts, the kernels
+    line's entry for the backward)."""
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    pool = synthetic_ray_pool(dev, FT_POOL, SEED + 20)
+    test = synthetic_ray_pool(dev, 1, SEED + 21, stacked=True)
+    pool_s = _sync_s(t0)
+    args = field_train_args(WORK_DIR / "lego_field_128.npz")
+    cfg0, np_params, mask0 = make_lego_field(dev, FT_GRID_INIT, spread=1.75)
+    config = field_config_from_args(args, pool.scene_bbox,
+                                    (FT_GRID_INIT,) * 3, pool.near_far)
+    widths = ("grid_size", "density_n_comp", "app_n_comp", "app_dim",
+              "shading_mode", "feature_c", "view_pe", "fea_pe", "aabb")
+    check(all(getattr(cfg0, k) == getattr(config, k) for k in widths),
+          "the 128^3 field has configs/lego.txt's widths")
+    save_field(args.ckpt, config, np_params, mask0)
+    del np_params, mask0
+    config, params, mask = load_field(args.ckpt, device=dev)
+    events = []
+    torch.cuda.synchronize()
+    with timed_field_steps() as steps, captured_backwards() as caught, \
+            count_torch_lerps() as torch_lerps:
+        _reset_counts()
+        t0 = time.perf_counter()
+        config, params, mask = train_field(
+            args, config, params, mask, pool, test,
+            str(WORK_DIR / "field_train"), log_fn=lambda *a: None,
+            device=dev, events=events,
+            reso_cur=N_to_reso(args.N_voxel_init, pool.scene_bbox))
+        run_s = _sync_s(t0)
+        counts = _counts()
+    check(len(steps) == FT_ITERS, f"{len(steps)} steps")
+    check(counts["field_features"] > 0 and counts["field_features_backward"]
+          == FT_ITERS and counts["gather_rows"] > 0,
+          f"the run launched field_features, its backward and K3: {counts}")
+    check(torch_lerps["n"] == 0, f"{torch_lerps['n']} texel lerps in torch")
+    check(counts["banked_scores"] == 0 and counts["fused_ray_scores"] == 0,
+          f"field training runs no scoring kernel: {counts}")
+    kinds = [e["event"] for e in events]
+    check(kinds == ["alpha-mask update + shrink", "upsample",
+                    "alpha-mask update + ray filtering", "upsample"],
+          f"the phase events {kinds}")
+    grid = tuple(config.grid_size)
+    check(math.prod(grid) > 0.9 * args.N_voxel_final, f"final grid {grid}")
+    mses = [st["mse"] for st in steps]
+    check(all(math.isfinite(x) for x in mses), f"finite losses {mses}")
+    check(all(a != b for a, b in zip(mses, mses[1:])),
+          f"the loss changes from step to step {mses}")
+    check(all(bool(torch.isfinite(a).all()) for a in leaves(params)),
+          "finite trained parameters")
+
+    keys = list(caught)
+    check(len(keys) == 3, f"backward inputs of three grids: {keys}")
+    bwd_checks = {}
+    for label, key in (("grid_128", keys[0]), ("grid_final", keys[-1])):
+        p, xyz, dsigma, dapp = caught[key]
+        bwd_checks[label] = backward_errors(p, xyz, dsigma, dapp)
+        bwd_checks[label]["grid"] = [key[1], key[0], key[2]]
+    p, xyz, dsigma, dapp = caught[keys[-1]]
+    del caught
+    b_ms, b_by = backward_bound(p, xyz, dsigma, dapp)
+    lib = library_backward(p, xyz, dsigma, dapp)
+    row = {"n": xyz.shape[0],
+           "ms": time_ms(lambda: field_features_backward(
+               FieldConfig(), p, xyz, dsigma, dapp), reps=FT_REPS),
+           "plain_ms": time_ms(lambda: plain_backward_chunked(
+               p, xyz, dsigma, dapp), reps=3),
+           "library_ms": time_ms(lib, reps=FT_REPS),
+           "bound_ms": b_ms, "bound_by": b_by}
+    del lib, p, xyz, dsigma, dapp
+    torch.cuda.empty_cache()
+
+    n_final = cal_n_samples(config.grid_size, args.step_ratio)
+    split = _step_split_field(config, params, mask, pool, n_final, dev)
+    log = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    psnr = evaluation(test, config, params, mask, None, N_vis=-1,
+                      n_samples=n_final, white_bg=True, device=dev, log=log)
+    eval_s = _sync_s(t0)
+    eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(psnr) == 1 and math.isfinite(psnr[0]), f"eval PSNR {psnr}")
+    small = phase_field_train_small(pool, dev)
+    full = estimate_full_run(steps, events, np.asarray(config.aabb))
+
+    def timed(grid_steps):
+        xs = [st["s"] for st in grid_steps[1:]]
+        return {"median_s": statistics.median(xs), "range_s": [min(xs), max(xs)],
+                "first_s": grid_steps[0]["s"], "n_samples": grid_steps[0]["n_samples"],
+                "rays_samples": FT_BATCH * grid_steps[0]["n_samples"],
+                "peak_mem_gb": max(st["peak_mem_gb"] for st in grid_steps)}
+    by_grid = {}
+    for st in steps:
+        by_grid.setdefault(tuple(st["grid"]), []).append(st)
+    emit(phase="field_train", iters=FT_ITERS, events_at=FT_EVENTS,
+         batch=FT_BATCH, pool_rays=FT_POOL * FT_WH * FT_WH, pool_s=pool_s,
+         final_grid=list(grid), final_aabb=[list(a) for a in config.aabb],
+         run_s=run_s, step_s=[st["s"] for st in steps], mse=mses,
+         steps_by_grid={"x".join(map(str, k)): timed(v)
+                        for k, v in by_grid.items()},
+         phase_events=events, split=split,
+         peak_mem_gb=max(st["peak_mem_gb"] for st in steps),
+         launches=counts, backward_checks=bwd_checks,
+         backward_tolerance=FIELD_GRAD_TOL, eval_render={
+             "s": eval_s, "psnr": psnr[0], "ssim": log["ssim"][0],
+             "n_samples": n_final, "peak_mem_gb": eval_peak},
+         card_vs_cpu=small, run_of_30000=full)
+    entry = dict(
+        name="field_features_backward", route="cuda",
+        source="iffnerf_tpu_torch/csrc/field_features.cu",
+        replaces="iffnerf_tpu/ops/packed_sample.py:234",
+        replaces_kind="the XLA custom VJPs of the packed gathers"
+                      " (_gather_contract_bwd, _lerp_contract_mm_bwd); no"
+                      " pallas_call differentiates this work",
+        design="the forward's lanes recompute each sample's corners and"
+               " add w x other factor x upstream into zeroed gradient"
+               " tables with float4 (or scalar) atomicAdd, skipping zero"
+               " upstream words",
+        launches=counts["field_features_backward"],
+        launches_by_path={"field_train": counts["field_features_backward"]},
+        max_abs_err=bwd_checks["grid_final"]["max_abs_err"], **row)
+    return counts, entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1523,6 +2068,10 @@ def main() -> int:
     # ID-module training: its renewals launch K3 and field_features
     id_counts = phase_id_train(field, field_mask, dev)
     del field, field_mask
+    torch.cuda.empty_cache()
+    # TensoRF training: field_features and its backward every step, K3's
+    # mask lookup every step
+    ft_counts, ft_backward = phase_field_train(dev)
 
     n_est = N_WARM + N_TIMED
     kernels = [
@@ -1578,7 +2127,8 @@ def main() -> int:
              replaces="extra/pallas_gather_bench.py:46",
              launches=obj_counts["gather_rows"], max_abs_err=k3_err,
              launches_by_path={"object": obj_counts["gather_rows"],
-                               "id_train": id_counts["gather_rows"]},
+                               "id_train": id_counts["gather_rows"],
+                               "field_train": ft_counts["gather_rows"]},
              **rows["gather_rows/mask_stacked"]),
         dict(name="field_features", route="cuda",
              source="iffnerf_tpu_torch/csrc/field_features.cu",
@@ -1588,8 +2138,10 @@ def main() -> int:
                        " the lerps",
              launches=obj_counts["field_features"], max_abs_err=ff_err,
              launches_by_path={"object": obj_counts["field_features"],
-                               "id_train": id_counts["field_features"]},
+                               "id_train": id_counts["field_features"],
+                               "field_train": ft_counts["field_features"]},
              **rows["field_features/colour_chunk/both"]),
+        ft_backward,
     ]
     emit(phase="latency", banked_ms_per_image=banked_ms,
          banked_float32_ms_per_image=banked32_ms, fused_ms_per_image=fused_ms,

@@ -39,6 +39,33 @@ def tree_to(tree, device):
     return tree.to(device=device)
 
 
+def leaves(tree) -> list:
+    """The tensors of a nested dict/tuple, in its order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor of a nested dict/tuple; lists become tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def trainable(params, device):
+    """Float32 copies of ``params`` on ``device`` that require grad. An
+    optimizer must hold the very tensors a step reads, so they are made
+    before it and never moved again: ``tree_to`` rebuilds the containers
+    and ``.to`` another device returns new tensors."""
+    return tree_map(lambda t: t.detach().to(device=device, dtype=torch.float32)
+                    .clone().requires_grad_(True), params)
+
+
 def as_tensor(x, device, dtype=None) -> torch.Tensor:
     """numpy array / tensor / sequence -> tensor on ``device``."""
     if isinstance(x, torch.Tensor):

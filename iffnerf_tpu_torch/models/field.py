@@ -1,5 +1,6 @@
-"""Tensor-factorized radiance fields (TensorVMSplit / TensorCP), inference
-(reference models/tensoRF.py:151-443, models/tensorBase.py:262-773).
+"""Tensor-factorized radiance fields (TensorVMSplit / TensorCP): inference
+and the training math (reference models/tensoRF.py:151-443,
+models/tensorBase.py:262-773).
 
 A frozen ``FieldConfig`` carries the static description (grid, ranks,
 AABB, derived step size and sample counts); parameters are a dict of
@@ -18,6 +19,11 @@ the row-gather kernel (``ops/gather.py``). The footprint packing, the
 compaction ladder and the grouped bit-row mask gate of the JAX package work
 around the TPU's gather row rate and are not ported; their ``FieldConfig``
 fields are kept so that ``config_json`` round-trips.
+
+Training adds ``init_field`` (from a ``torch.Generator``), the
+regularisers, and the phase events of the JAX package's trainer:
+``upsample_volume_grid``, ``shrink`` and ``update_alpha_mask``. Each
+event returns new tensors and a new config; nothing is changed in place.
 """
 
 from __future__ import annotations
@@ -29,14 +35,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from iffnerf_tpu_torch.nn import linear_apply
+from iffnerf_tpu_torch.models.shading import init_shading
+from iffnerf_tpu_torch.nn import linear_apply, linear_init
 from iffnerf_tpu_torch.ops.field_features import (
+    MAT_MODE,
     VEC_MODE,
     field_features,
     vm_app_products,
     vm_density,
 )
 from iffnerf_tpu_torch.ops.grid_sample import grid_sample_1d, grid_sample_3d
+from iffnerf_tpu_torch.ops.interpolate import resize_bilinear_ac, resize_linear_ac
+
+# lattice points a chunk of get_dense_alpha (bounds its device temporaries)
+DENSE_ALPHA_CHUNK = 1 << 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +121,9 @@ class FieldConfig:
             near, far = self.near_far
             return int((far - near) / self.step_size_bg)
         return 0
+
+    def replace(self, **kw) -> "FieldConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,3 +253,235 @@ def compute_features(config: FieldConfig, params, xyz: torch.Tensor,
     return (compute_densityfeature(config, params, xyz) if with_density
             else None,
             compute_appfeature(config, params, xyz) if with_app else None)
+
+
+# ---------------------------------------------------------------------------
+# Initialisation (reference tensoRF.py:155-170, :323-326)
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
+    return scale * torch.randn(shape, generator=gen, device=gen.device)
+
+
+def _init_vm(gen: torch.Generator, n_comp, grid_size, scale: float):
+    """Per-axis plane [g[m1], g[m0], R] and line [g[vec], R] gaussians
+    (reference init_one_svd, tensoRF.py:160-170)."""
+    planes, lines = [], []
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        planes.append(_normal(gen, (grid_size[m1], grid_size[m0], n_comp[i]),
+                              scale))
+        lines.append(_normal(gen, (grid_size[VEC_MODE[i]], n_comp[i]), scale))
+    return tuple(planes), tuple(lines)
+
+
+def _init_cp(gen: torch.Generator, n_comp: int, grid_size, scale: float):
+    return tuple(_normal(gen, (grid_size[VEC_MODE[i]], n_comp), scale)
+                 for i in range(3))
+
+
+def init_field(gen: torch.Generator, config: FieldConfig):
+    """All field parameters, drawn from ``gen`` on its device (reference
+    init_svd_volume, tensoRF.py:155-158 / :323-326, and the shading head)."""
+    params = {}
+    if config.model_name == "TensorVMSplit":
+        params["density_plane"], params["density_line"] = _init_vm(
+            gen, config.density_n_comp, config.grid_size, 0.1)
+        params["app_plane"], params["app_line"] = _init_vm(
+            gen, config.app_n_comp, config.grid_size, 0.1)
+        in_dim = sum(config.app_n_comp)
+    elif config.model_name == "TensorCP":
+        params["density_line"] = _init_cp(gen, config.density_n_comp[0],
+                                          config.grid_size, 0.2)
+        params["app_line"] = _init_cp(gen, config.app_n_comp[0],
+                                      config.grid_size, 0.2)
+        in_dim = config.app_n_comp[0]
+    else:
+        raise ValueError(f"unknown model_name {config.model_name}")
+    params["basis_mat"] = linear_init(gen, in_dim, config.app_dim, bias=False)
+    params["shading"] = init_shading(
+        gen, config.shading_mode, config.app_dim, config.view_pe,
+        config.pos_pe, config.fea_pe, config.feature_c)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Regularisers (reference tensoRF.py:182-214, :427-443; utils.py:120-137)
+# ---------------------------------------------------------------------------
+
+
+def _tv_plane(plane: torch.Tensor) -> torch.Tensor:
+    """TVLoss on one [H, W, R] plane: reference TVLoss(weight=1) on the
+    [1, R, H, W] tensor (utils.py:120-136)."""
+    h, w, r = plane.shape
+    h_tv = torch.sum(torch.square(plane[1:] - plane[:-1]))
+    w_tv = torch.sum(torch.square(plane[:, 1:] - plane[:, :-1]))
+    return 2.0 * (h_tv / (r * (h - 1) * w) + w_tv / (r * h * (w - 1)))
+
+
+def _tv_lines(lines) -> torch.Tensor:
+    """CP's TV: only the length term of the reference's TVLoss on a
+    [1, R, L, 1] tensor (tensoRF.py:433-437)."""
+    total = 0.0
+    for line in lines:
+        length, r = line.shape
+        total = total + 2.0 * torch.sum(
+            torch.square(line[1:] - line[:-1])) / (r * (length - 1))
+    return total
+
+
+def tv_loss_density(config: FieldConfig, params) -> torch.Tensor:
+    if config.model_name == "TensorVMSplit":
+        return sum(_tv_plane(p) for p in params["density_plane"]) * 1e-2
+    return _tv_lines(params["density_line"]) * 1e-3
+
+
+def tv_loss_app(config: FieldConfig, params) -> torch.Tensor:
+    if config.model_name == "TensorVMSplit":
+        return sum(_tv_plane(p) for p in params["app_plane"]) * 1e-2
+    return _tv_lines(params["app_line"]) * 1e-3
+
+
+def density_l1(config: FieldConfig, params) -> torch.Tensor:
+    """L1 sparsity of the density factors (tensoRF.py:197-202, :427-431)."""
+    total = 0.0
+    for i in range(3):
+        if config.model_name == "TensorVMSplit":
+            total = total + torch.mean(torch.abs(params["density_plane"][i]))
+        total = total + torch.mean(torch.abs(params["density_line"][i]))
+    return total
+
+
+def _vector_diffs(lines) -> torch.Tensor:
+    """Mean |off-diagonal| of the line components' Gram matrices
+    (reference vectorDiffs, tensoRF.py:182-192)."""
+    total = 0.0
+    for line in lines:
+        r = line.shape[1]
+        gram = line.T @ line
+        off = gram.reshape(-1)[1:].reshape(r - 1, r + 1)[:, :-1]
+        total = total + torch.mean(torch.abs(off))
+    return total
+
+
+def vector_comp_diffs(config: FieldConfig, params) -> torch.Tensor:
+    return (_vector_diffs(params["density_line"])
+            + _vector_diffs(params["app_line"]))
+
+
+# ---------------------------------------------------------------------------
+# Phase events: upsample, shrink, alpha-mask update
+# ---------------------------------------------------------------------------
+
+
+def upsample_volume_grid(config: FieldConfig, params, res_target):
+    """Bilinear grid upsample (reference tensoRF.py:258-278, :377-395)
+    -> (new config, new params), new tensors for every factor."""
+    res_target = tuple(int(r) for r in res_target)
+    new_params = dict(params)
+
+    def lines_up(lines):
+        return tuple(resize_linear_ac(lines[i], res_target[VEC_MODE[i]], 0)
+                     for i in range(3))
+
+    for kind in ("density", "app"):
+        if config.model_name == "TensorVMSplit":
+            new_params[f"{kind}_plane"] = tuple(
+                resize_bilinear_ac(params[f"{kind}_plane"][i], res_target[m1],
+                                   res_target[m0])
+                for i, (m0, m1) in enumerate(MAT_MODE))
+        new_params[f"{kind}_line"] = lines_up(params[f"{kind}_line"])
+    return config.replace(grid_size=res_target), new_params
+
+
+def shrink(config: FieldConfig, params, new_aabb, mask_grid_size):
+    """Crop the factor grids to a tightened AABB (reference
+    tensoRF.py:280-316); the index arithmetic on the host in numpy, as the
+    JAX package does. ``new_aabb`` [2, 3]; ``mask_grid_size`` the alpha
+    mask's (x, y, z) size, which decides whether the AABB is snapped to the
+    grid. -> (new config, new params), the factors as contiguous copies."""
+    new_aabb = np.asarray(new_aabb, dtype=np.float32)
+    units = config.units
+    aabb = config.aabb_np
+    grid_size = np.asarray(config.grid_size, dtype=np.int64)
+
+    t_l = np.round(np.round((new_aabb[0] - aabb[0]) / units)).astype(np.int64)
+    b_r = np.round((new_aabb[1] - aabb[0]) / units).astype(np.int64) + 1
+    b_r = np.minimum(b_r, grid_size)
+
+    new_params = dict(params)
+    for kind in ("density", "app"):
+        new_params[f"{kind}_line"] = tuple(
+            params[f"{kind}_line"][i][t_l[VEC_MODE[i]]:b_r[VEC_MODE[i]]]
+            .contiguous() for i in range(3))
+        if config.model_name == "TensorVMSplit":
+            new_params[f"{kind}_plane"] = tuple(
+                params[f"{kind}_plane"][i][t_l[m1]:b_r[m1], t_l[m0]:b_r[m0]]
+                .contiguous() for i, (m0, m1) in enumerate(MAT_MODE))
+
+    if not np.array_equal(np.asarray(mask_grid_size), grid_size):
+        t_l_r = t_l / (grid_size - 1)
+        b_r_r = (b_r - 1) / (grid_size - 1)
+        new_aabb = np.stack([(1 - t_l_r) * aabb[0] + t_l_r * aabb[1],
+                             (1 - b_r_r) * aabb[0] + b_r_r * aabb[1]]
+                            ).astype(np.float32)
+    new_size = tuple(int(x) for x in (b_r - t_l))
+    return config.replace(aabb=tuple(map(tuple, new_aabb.tolist())),
+                          grid_size=new_size), new_params
+
+
+def _lattice_axis(g: int) -> np.ndarray:
+    """``jnp.linspace(0, 1, g)`` as the JAX package's CPU backend rounds it:
+    i * (1 / (g - 1)) in float32, the last point 1."""
+    if g == 1:
+        return np.zeros(1, np.float32)
+    axis = np.arange(g, dtype=np.float32) * (np.float32(1) / np.float32(g - 1))
+    axis[-1] = 1.0
+    return axis
+
+
+def get_dense_alpha(config: FieldConfig, params, mask: AlphaMask | None,
+                    grid_size=None):
+    """Alpha on a dense lattice over the AABB (reference
+    tensorBase.py:643-665), evaluated in chunks of DENSE_ALPHA_CHUNK points
+    through the density-only features -> (alpha [gx, gy, gz], dense_xyz
+    [gx, gy, gz, 3]) on the parameters' device."""
+    from iffnerf_tpu_torch.models.render import compute_alpha  # cycle
+
+    grid_size = tuple(int(g) for g in (grid_size or config.grid_size))
+    dev = params["density_line"][0].device
+    aabb = torch.as_tensor(config.aabb_np, device=dev)
+    axes = [torch.as_tensor(_lattice_axis(g), device=dev) for g in grid_size]
+    samples = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+    dense_xyz = aabb[0] * (1 - samples) + aabb[1] * samples
+    flat = dense_xyz.reshape(-1, 3)
+    alpha = torch.cat([
+        compute_alpha(config, params, mask, flat[i:i + DENSE_ALPHA_CHUNK],
+                      config.step_size)
+        for i in range(0, flat.shape[0], DENSE_ALPHA_CHUNK)])
+    return alpha.reshape(grid_size), dense_xyz
+
+
+@torch.no_grad()
+def update_alpha_mask(config: FieldConfig, params, mask: AlphaMask | None,
+                      grid_size=(200, 200, 200)):
+    """Rebuild the occupancy mask and tighten the AABB (reference
+    updateAlphaMask, tensorBase.py:667-696) -> (new mask, new aabb [2, 3]
+    numpy, occupied fraction)."""
+    grid_size = tuple(int(g) for g in grid_size)
+    alpha, dense_xyz = get_dense_alpha(config, params, mask, grid_size)
+    # x-major -> z-major volume, 3^3 max-pool with -inf padding, threshold
+    vol = torch.clamp(alpha, 0.0, 1.0).permute(2, 1, 0).contiguous()
+    vol = F.max_pool3d(vol[None, None], kernel_size=3, stride=1,
+                       padding=1)[0, 0]
+    vol = (vol >= config.alpha_mask_thres).float()
+    new_mask = make_alpha_mask(vol, config.aabb_np, config.contraction_type)
+    occupied = vol > 0.5
+    valid = dense_xyz.permute(2, 1, 0, 3)[occupied]
+    if valid.shape[0] == 0:
+        new_aabb = config.aabb_np
+    else:
+        new_aabb = torch.stack([valid.amin(0), valid.amax(0)]).cpu().numpy()
+    occupancy = float(vol.sum() / vol.numel())  # float32, as JAX's
+    return new_mask, new_aabb, occupancy

@@ -1,11 +1,12 @@
-"""Volume-rendering forward pass, dense inference
-(reference models/tensorBase.py:494-536, :623-638, :698-917).
+"""Volume-rendering forward pass, dense (reference
+models/tensorBase.py:494-536, :623-638, :698-917).
 
 As in the JAX package, the reference's boolean-mask gathers become masked
 dense compute: every sample's density and appearance is evaluated and
-invalid ones are zeroed. Only the AABB and point-colour samplers are
-ported; NDC and infinity sampling, and training-time jitter, come with the
-training slice.
+invalid ones are zeroed. The AABB sampler takes the training jitter, one
+uniform draw a ray from a ``torch.Generator`` or handed in as ``jitter``;
+the point-colour sampler is the pose pipeline's. NDC, infinity and
+unisphere sampling are not ported and raise.
 """
 
 from __future__ import annotations
@@ -42,9 +43,12 @@ def _in_aabb(aabb, xyz):
     return ~torch.any((aabb[0] > xyz) | (xyz > aabb[1]), dim=-1)
 
 
-def sample_ray(config: FieldConfig, rays_o, rays_d, n_samples: int = -1):
-    """Equidistant samples from the AABB entry point, without training
-    jitter (reference sample_ray, tensorBase.py:494-536).
+def sample_ray(config: FieldConfig, rays_o, rays_d, *, gen=None,
+               jitter=None, is_train: bool = True, n_samples: int = -1):
+    """Equidistant samples from the AABB entry point, jittered in training
+    by one uniform draw a ray (reference sample_ray, tensorBase.py:494-536).
+    The draw is ``jitter`` [N, 1] when given, else ``torch.rand`` from
+    ``gen``; ``is_train`` needs one of them.
 
     Returns (xyz [N, S, 3], z_vals [N, S], valid [N, S])."""
     if config.contraction_type == "unisphere":
@@ -54,7 +58,16 @@ def sample_ray(config: FieldConfig, rays_o, rays_d, n_samples: int = -1):
     aabb = _aabb(config, rays_o)
     t_min, _ = _aabb_t_range(aabb, rays_o, rays_d)
     t_min = torch.clamp(t_min, near, far)
-    rng = torch.arange(n, dtype=rays_o.dtype, device=rays_o.device)[None, :]
+    total = n + config.n_samples_bg
+    rng = torch.arange(total, dtype=rays_o.dtype, device=rays_o.device)[None, :]
+    if is_train:
+        if jitter is None:
+            if gen is None:
+                raise ValueError("training sampling needs a generator or a "
+                                 "jitter draw")
+            jitter = torch.rand((rays_o.shape[0], 1), generator=gen,
+                                device=gen.device)
+        rng = rng + jitter.to(device=rays_o.device, dtype=rays_o.dtype)
     z_vals = t_min[:, None] + config.step_size * rng
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     return xyz, z_vals, _in_aabb(aabb, xyz)
@@ -87,11 +100,12 @@ def compute_alpha(config: FieldConfig, params, mask: AlphaMask | None,
 
 
 def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
-                rays_chunk: torch.Tensor, *, white_bg: bool = False,
-                bg_color=None, sample_mode: str = "aabb",
+                rays_chunk: torch.Tensor, *, gen=None, jitter=None,
+                white_bg: bool = False, bg_color=None, is_train: bool = False,
+                ndc_ray: bool = False, sample_mode: str = "aabb",
                 n_samples: int = -1):
-    """Volumetric forward at inference (reference TensorBase.forward,
-    tensorBase.py:775-917):
+    """Volumetric forward (reference TensorBase.forward,
+    tensorBase.py:775-917), differentiable in ``params``:
 
       * appearance features are accumulated along the ray first and the
         shading head runs once per ray on the accumulated feature;
@@ -100,8 +114,12 @@ def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
       * rgb composited as rgb*acc + bg*(1-acc), clipped.
 
     ``sample_mode`` is "aabb" or "point_color"; rays_chunk is [N, 6|7]
-    (ori, dir, optional mip radius). Returns (rgb [N,3], depth [N],
-    acc [N], alpha [N,S], z_vals [N,S], dists [N,S])."""
+    (ori, dir, optional mip radius). ``is_train`` jitters the AABB samples
+    (``sample_ray``'s ``gen`` or ``jitter``). The depth carries no
+    gradient, as in the JAX package. Returns (rgb [N,3], depth [N], acc [N],
+    alpha [N,S], z_vals [N,S], dists [N,S])."""
+    if ndc_ray:
+        raise NotImplementedError("ndc sampling is not ported")
     rays_o = rays_chunk[:, :3]
     viewdirs = rays_chunk[:, 3:6]
     if sample_mode == "point_color":
@@ -109,8 +127,9 @@ def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
             config, rays_o, viewdirs,
             n_samples=n_samples if n_samples > 0 else 20)
     elif sample_mode == "aabb":
-        xyz, z_vals, ray_valid = sample_ray(config, rays_o, viewdirs,
-                                            n_samples=n_samples)
+        xyz, z_vals, ray_valid = sample_ray(
+            config, rays_o, viewdirs, gen=gen, jitter=jitter,
+            is_train=is_train, n_samples=n_samples)
     else:
         raise NotImplementedError(f"sample_mode {sample_mode!r} is not ported")
 
@@ -141,7 +160,7 @@ def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
     rgb_map = torch.clamp(rgb_map, 0.0, 1.0)
 
     depth_map = (torch.sum(weight * z_vals, dim=-1)
-                 + (1.0 - acc_map) * rays_chunk[..., -1])
+                 + (1.0 - acc_map) * rays_chunk[..., -1]).detach()
     return rgb_map, depth_map, acc_map, alpha, z_vals, dists
 
 

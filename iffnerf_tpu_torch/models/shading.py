@@ -4,7 +4,8 @@
 Every head takes ``(params, pts, viewdirs, features)`` and returns
 ``(rgb, extra)``; the Ref head also gives ``compute_normals``
 (models/ref.py:154-155), the surface normals of the pose pipeline.
-Inference only: parameters come from a checkpoint.
+``init_shading`` makes a head's parameters from a ``torch.Generator``
+(reference models/tensorBase.py:328-352).
 """
 
 from __future__ import annotations
@@ -14,9 +15,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from iffnerf_tpu_torch.nn import linear_apply, mlp_apply
+from iffnerf_tpu_torch.nn import linear_apply, linear_init, mlp_apply, mlp_init
 from iffnerf_tpu_torch.ops.encoding import positional_encoding
-from iffnerf_tpu_torch.ops.ide import integrated_dir_enc
+from iffnerf_tpu_torch.ops.ide import ide_output_dim, integrated_dir_enc
 from iffnerf_tpu_torch.ops.image import linear_to_srgb
 from iffnerf_tpu_torch.ops.sh import eval_sh_bases
 
@@ -27,6 +28,51 @@ def reflect(viewdirs: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
     """Mirror viewdirs about normals (reference models/ref_utils.py:6-20)."""
     return (2.0 * torch.sum(normals * viewdirs, dim=-1, keepdim=True)
             * normals - viewdirs)
+
+
+def init_ref(gen: torch.Generator, in_channels: int, feature_c: int = 128,
+             deg_view: int = 4, predicted_normals: bool = True):
+    """Ref head parameters (reference models/ref.py:48-101)."""
+    params = {
+        "diffuse": linear_init(gen, in_channels, 3),
+        "tint": linear_init(gen, in_channels, 3),
+        "roughness": linear_init(gen, in_channels, 1),
+        "bottleneck": linear_init(gen, in_channels, feature_c),
+        "specular": linear_init(gen, feature_c + ide_output_dim(deg_view) + 1,
+                                3),
+    }
+    if predicted_normals:
+        params["normal"] = linear_init(gen, in_channels, 3)
+    return params
+
+
+def init_mlp_head(gen: torch.Generator, dims):
+    """An MLP head: Linear layers of ``dims``, the last bias zero
+    (reference models/tensorBase.py:165-259)."""
+    return {"mlp": mlp_init(gen, dims, zero_last_bias=True)}
+
+
+def init_shading(gen: torch.Generator, shading_mode: str, app_dim: int,
+                 view_pe: int, pos_pe: int, fea_pe: int, feature_c: int):
+    """Parameters of the head ``shading_mode`` (reference
+    models/tensorBase.py:328-352)."""
+    if shading_mode == "Ref":
+        return init_ref(gen, app_dim, feature_c)
+    if shading_mode == "MLP_Fea":
+        in_c = 2 * view_pe * 3 + 2 * fea_pe * app_dim + 3 + app_dim
+        return init_mlp_head(gen, [in_c, feature_c, feature_c, 3])
+    if shading_mode == "MLP_PE":
+        in_c = (3 + 2 * view_pe * 3) + (3 + 2 * pos_pe * 3) + app_dim
+        return init_mlp_head(gen, [in_c, feature_c, feature_c, 3])
+    if shading_mode == "MLP":
+        in_c = (3 + 2 * view_pe * 3) + app_dim
+        return init_mlp_head(gen, [in_c, feature_c, feature_c, 3])
+    if shading_mode == "MLP_GARF":
+        in_c = 3 + app_dim
+        return init_mlp_head(gen, [in_c, in_c, in_c, in_c])
+    if shading_mode in ("SH", "RGB"):
+        return {}
+    raise ValueError(f"Unrecognized shading mode: {shading_mode}")
 
 
 def ref_normals(params, features: torch.Tensor) -> torch.Tensor:

@@ -20,11 +20,15 @@ def uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
             - 1.0) * bound
 
 
-def linear_init(gen: torch.Generator, in_dim: int, out_dim: int):
-    """Parameters for a Linear layer: {'w': [in, out], 'b': [out]}."""
+def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
+                bias: bool = True):
+    """Parameters for a Linear layer: {'w': [in, out], 'b': [out]} (no
+    'b' without ``bias``)."""
     bound = 1.0 / math.sqrt(in_dim)
-    return {"w": uniform(gen, (in_dim, out_dim), bound),
-            "b": uniform(gen, (out_dim,), bound)}
+    params = {"w": uniform(gen, (in_dim, out_dim), bound)}
+    if bias:
+        params["b"] = uniform(gen, (out_dim,), bound)
+    return params
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -43,10 +47,15 @@ def linear_apply(params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def mlp_init(gen: torch.Generator, dims: list[int]):
-    """Stack of Linear layers: dims = [in, h1, ..., out]."""
-    return tuple(linear_init(gen, dims[i], dims[i + 1])
-                 for i in range(len(dims) - 1))
+def mlp_init(gen: torch.Generator, dims: list[int],
+             zero_last_bias: bool = False):
+    """Stack of Linear layers: dims = [in, h1, ..., out]; the last bias
+    zero with ``zero_last_bias`` (the reference's MLP heads)."""
+    layers = tuple(linear_init(gen, dims[i], dims[i + 1])
+                   for i in range(len(dims) - 1))
+    if zero_last_bias:
+        layers[-1]["b"] = torch.zeros_like(layers[-1]["b"])
+    return layers
 
 
 def mlp_apply(layers, x: torch.Tensor, activation=torch.relu) -> torch.Tensor:

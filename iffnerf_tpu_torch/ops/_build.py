@@ -118,8 +118,9 @@ def check(rc: int, what: str) -> None:
 
 def refuse_grad(what: str, tensors) -> None:
     """Raises before a launch when autograd would track one of ``tensors``:
-    the kernels have no backward yet (ROADMAP item 21), and a result that
-    silently carries no gradient is worse than an error. Run under
+    the scoring kernels and the row gather have no backward (the row
+    gather's is ROADMAP item 21; ``field_features`` has one), and a result
+    that silently carries no gradient is worse than an error. Run under
     ``torch.no_grad()``, or on the CPU, where the plain versions are
     differentiable."""
     if torch.is_grad_enabled() and any(

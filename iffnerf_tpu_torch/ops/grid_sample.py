@@ -78,27 +78,31 @@ def corners_3d(d: int, h: int, w: int, coords: torch.Tensor):
     return torch.stack(idx), torch.stack(valid), (wx, wy, wz)
 
 
-def _fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` [R, C] at int32 ``idx`` [...] -> [..., C]."""
-    rows = gather_rows(table, idx.reshape(-1))
+def _fetch(table: torch.Tensor, idx: torch.Tensor, gather=None) -> torch.Tensor:
+    """Rows of ``table`` [R, C] at int32 ``idx`` [...] -> [..., C], through
+    ``gather`` (None: ``gather_rows``)."""
+    rows = (gather or gather_rows)(table, idx.reshape(-1))
     return rows.reshape(idx.shape + (table.shape[1],))
 
 
-def grid_sample_1d(line: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def grid_sample_1d(line: torch.Tensor, coords: torch.Tensor,
+                   gather=None) -> torch.Tensor:
     """Linear interpolation along ``line`` [L, C] at ``coords`` [...] ->
-    [..., C]."""
+    [..., C]; ``gather`` fetches the texels (None: ``gather_rows``)."""
     idx, valid, w1 = corners_1d(line.shape[0], coords)
-    f0, f1 = _fetch(line, idx) * valid[..., None]
+    f0, f1 = _fetch(line, idx, gather) * valid[..., None]
     w1 = w1[..., None]
     return f0 * (1.0 - w1) + f1 * w1
 
 
-def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor,
+                   gather=None) -> torch.Tensor:
     """Bilinear interpolation on ``plane`` [H, W, C] at ``coords`` [..., 2]
-    (x indexes W, y indexes H) -> [..., C]."""
+    (x indexes W, y indexes H) -> [..., C]; ``gather`` fetches the texels
+    (None: ``gather_rows``)."""
     h, w, c = plane.shape
     idx, valid, (wx, wy) = corners_2d(h, w, coords)
-    f00, f01, f10, f11 = (_fetch(plane.reshape(h * w, c), idx)
+    f00, f01, f10, f11 = (_fetch(plane.reshape(h * w, c), idx, gather)
                           * valid[..., None])
     wx, wy = wx[..., None], wy[..., None]
     top = f00 * (1.0 - wx) + f01 * wx

@@ -237,7 +237,7 @@ def _ray_keys(params, config, rays_ori, rays_dir, rays_rgb):
 
 
 def score_rays(params, config: IDConfig, q, patch_valid, rays_ori, rays_dir,
-               rays_rgb, bank=None):
+               rays_rgb, axis_name: str | None = None, bank=None):
     """Ray-side scoring: K projection, QK^T logits, softmax over the ray
     axis, validity-weighted column sum (identification_module.py:162-168).
     ``bank`` supplies precomputed keys (``ray_bank``) and skips the
@@ -249,7 +249,12 @@ def score_rays(params, config: IDConfig, q, patch_valid, rays_ori, rays_dir,
     path runs, as the JAX package falls back to XLA where its kernel
     cannot tile: float32 logits divided by sqrt(D) after the matmul.
 
+    ``axis_name``, the JAX package's mesh axis of a sharded ray set, is
+    not ported: the sharded route raises.
+
     Returns (scores [R], attention [P, R] | None)."""
+    if axis_name is not None:
+        raise NotImplementedError("the sharded scoring route is not ported")
     if bank is not None and config.fused_bank:
         from iffnerf_tpu_torch.ops import banked_attention as banked
 

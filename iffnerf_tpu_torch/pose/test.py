@@ -91,8 +91,8 @@ def _timed_ms(fn, dev):
 def test_pose_estimation(dataset, id_params, id_config: IDConfig, rays_ori,
                          rays_dirs, rays_rgb, model_up, sequence_id: str = "",
                          compute_loss: bool = True,
-                         inerf_refinement: bool = False, k: int = 100,
-                         log_fn=print, mesh=None, save: bool = False,
+                         inerf_refinement: bool = False, nerf=None,
+                         k: int = 100, log_fn=print, mesh=None, save: bool = False,
                          save_all: bool = False, save_dir: str = ".",
                          device=None):
     """Per-frame banked estimates over ``dataset`` on ``device`` (CUDA
@@ -106,10 +106,12 @@ def test_pose_estimation(dataset, id_params, id_config: IDConfig, rays_ori,
     ``save`` dumps the tensors of image 0 (every image with ``save_all``)
     to ``save_dir/sample_results_<i>.npz`` with the reference's field names
     (test.py:93-105,140-145,178-190). The sharded route (``mesh``) and the
-    iNeRF refinement are not ported and raise."""
+    iNeRF refinement (``inerf_refinement``, with its field ``nerf``) are
+    not ported and raise. The parameters are the JAX package's, in its
+    order, with ``device`` last."""
     if mesh is not None:
         raise NotImplementedError("the sharded pose route is not ported")
-    if inerf_refinement:
+    if inerf_refinement or nerf is not None:
         raise NotImplementedError("the iNeRF refinement is not ported")
     dev = resolve_device(device)
     id_params = tree_to(id_params, dev)

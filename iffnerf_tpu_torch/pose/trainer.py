@@ -25,7 +25,13 @@ import math
 import numpy as np
 import torch
 
-from iffnerf_tpu_torch.device import as_tensor, resolve_device
+from iffnerf_tpu_torch.device import (
+    as_tensor,
+    leaves,
+    resolve_device,
+    trainable,
+    tree_map,
+)
 from iffnerf_tpu_torch.nn import linear_apply
 from iffnerf_tpu_torch.pose.id_module import (
     IDConfig,
@@ -40,33 +46,6 @@ LEARNING_RATES = {"ray_mlp": 4.0e-3, "ray_mlp2": 4.0e-3, "q_proj": 4.0e-3,
 # the parameters each image's loss reaches; the ray MLP's are reached
 # through the ray features alone
 IMAGE_SIDE = ("backbone", "q_proj", "k_proj")
-
-
-def leaves(tree) -> list:
-    """The tensors of a nested dict/tuple, in its order."""
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in leaves(v)]
-    return [tree]
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return tuple(_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def trainable(params, device):
-    """Float32 copies of ``params`` on ``device`` that require grad. The
-    optimizer must hold the very tensors the step reads, so they are made
-    here, before it, and never moved again: ``tree_to`` rebuilds the
-    containers (lists come back as tuples) and ``.to`` another device
-    returns new tensors."""
-    return _map(lambda t: t.detach().to(device=device, dtype=torch.float32)
-                .clone().requires_grad_(True), params)
 
 
 def make_id_optimizer(params) -> torch.optim.Adam:
@@ -221,4 +200,4 @@ def train_id_module(id_params, id_config: IDConfig, rays_generator,
                 eval_fn(params, rays, model_up)
 
     writer.close()
-    return _map(lambda t: t.detach(), params), model_up
+    return tree_map(lambda t: t.detach(), params), model_up

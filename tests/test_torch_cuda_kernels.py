@@ -13,13 +13,18 @@ for the shapes the kernel refuses. The fused ray scorer's float32 route
 covers one ray to the main path's 540 000 within rtol 1e-5 and a largest
 relative error of 5e-6, bit-equal repeats, an all-invalid mask and a
 width it refuses; its bf16 route bit-equal repeats, all-invalid masks,
-layer widths 128 and 512, a width it refuses and an x it cannot copy. Each kernel wrapper raises under grad
-(the kernels have no backward yet) and runs under ``torch.no_grad()``. The row gather covers both its routes,
+layer widths 128 and 512, a width it refuses and an x it cannot copy. The scoring kernels and the row
+gather raise under grad (they have no backward) and run under
+``torch.no_grad()``; ``field_features`` under grad launches its forward and
+its backward kernel, and its gradient is held to autograd's through the
+grid samplers. The row gather covers both its routes,
 the field's row widths, ragged and empty index counts, the edge indices, a table whose
 rows are not 16-byte aligned and the mask lookup's stacked corners; the
 fused field kernel covers lego's widths and non-cubic grids with unequal
 ranks (float4 and 4-byte words), empty to colour-chunk sample counts, in
-its density-only and appearance modes.
+its density-only and appearance modes, and so does its backward kernel
+(``field_features_backward``, float4 and scalar atomics) against
+``field_features_backward_plain``.
 """
 
 import dataclasses
@@ -39,8 +44,11 @@ from iffnerf_tpu_torch.ops.fused_ray_attention import (
 )
 from iffnerf_tpu_torch.ops.field_features import (
     MAT_MODE,
+    TABLES,
     VEC_MODE,
     field_features,
+    field_features_backward,
+    field_features_backward_plain,
     field_features_plain,
 )
 from iffnerf_tpu_torch.ops.gather import gather_rows, gather_rows_plain
@@ -166,6 +174,7 @@ def _grad_cases(dev):
     config, field = _field(FIELDS["non_cubic_scalar"], dev)
     field["app_line"][1].requires_grad_()
     xyz = (torch.rand((1021, 3), generator=g) * 2 - 1).to(dev)
+    _grad_cases.field = (config, field, xyz)
     return {"banked_scores_fused": lambda: banked_scores_fused(bank, q, _valid(dev)),
             "fused_ray_scores": lambda: fused_ray_scores(params, q, _valid(dev), x),
             "gather_rows": lambda: gather_rows(table, idx),
@@ -175,14 +184,35 @@ def _grad_cases(dev):
 @pytest.mark.parametrize("name", ["banked_scores_fused", "fused_ray_scores",
                                   "gather_rows", "field_features"])
 def test_kernel_wrappers_refuse_grad_and_run_without_it(dev, name):
-    """No kernel has a backward yet (ROADMAP item 21): under grad with an
-    input that requires it, each wrapper raises before any launch; under
-    torch.no_grad() it runs."""
+    """K1, K2 and K3 have no backward: under grad with an input that
+    requires it, each wrapper raises before any launch; under
+    torch.no_grad() it runs. field_features has one: under grad it
+    launches its forward once and, on backward, its backward kernel once,
+    and the table's gradient is autograd's through the grid samplers on
+    plain gathers within FIELD_GRAD_TOL of its largest."""
     call = _grad_cases(dev)[name]
     counter = {"banked_scores_fused": banked_scores_fused,
                "fused_ray_scores": fused_ray_scores, "gather_rows": gather_rows,
                "field_features": field_features}[name]
     before = counter.launches
+    if name == "field_features":
+        back = field_features_backward.launches
+        sigma, app = call()
+        (sigma.sum() + app.square().sum()).backward()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert field_features_backward.launches == back + 1
+        config, field, xyz = _grad_cases.field
+        leaf = field["app_line"][1]
+        got = leaf.grad
+        with torch.no_grad():
+            _, want_app = field_features_plain(field, xyz, True,
+                                               gather_rows_plain)
+        want = field_features_backward_plain(
+            field, xyz, torch.ones_like(sigma), 2 * want_app)["app_line"][1]
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=FIELD_GRAD_TOL * float(want.abs().max()))
+        return
     with pytest.raises(RuntimeError, match="ROADMAP item 21"):
         call()
     assert counter.launches == before
@@ -478,3 +508,73 @@ def test_field_kernel_matches_plain(dev, vm_field, n, with_app, monkeypatch):
         assert a.shape == b.shape
         scale = float(b.abs().max()) if n else 0.0
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * scale)
+
+
+# the backward kernel against autograd's gradient through the samplers:
+# float32 sums of up to thousands of terms a texel (2e5 samples on grids of
+# 16-300 texels a side), added by atomics in another order than autograd's
+# index_add; the worst case grows as n x 6e-8 of the terms' magnitudes
+FIELD_GRAD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("with_app", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 1021, 204660])
+def test_field_backward_kernel_matches_plain(dev, vm_field, n, with_app):
+    """The backward kernel's 6 or 12 table gradients against
+    field_features_backward_plain, each within FIELD_GRAD_TOL of its
+    largest, at points in and beyond [-1, 1] (flagged-out corners add
+    nothing) and on the grid's corners, with upstream gradients of both
+    signs and a tenth of them zero (skipped)."""
+    config, params = vm_field
+    g = torch.Generator().manual_seed(100 + n)
+    xyz = torch.rand((n, 3), generator=g) * 2.4 - 1.2
+    xyz[:2] = torch.tensor([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]])[:n]
+    dsigma = torch.randn(n, generator=g)
+    dsigma[::10] = 0.0
+    dapp = torch.randn((n, sum(config.app_n_comp)), generator=g)
+    dapp[::7] = 0.0
+    xyz, dsigma, dapp = xyz.to(dev), dsigma.to(dev), dapp.to(dev)
+    before = field_features_backward.launches
+    got = field_features_backward(config, params, xyz, dsigma,
+                                  dapp if with_app else None)
+    torch.cuda.synchronize()
+    assert field_features_backward.launches == before + (n > 0)
+    want = field_features_backward_plain(params, xyz, dsigma,
+                                         dapp if with_app else None)
+    assert sorted(got) == sorted(TABLES if with_app else TABLES[:2])
+    for name in want:
+        for i, (a, b) in enumerate(zip(got[name], want[name])):
+            assert a.shape == b.shape
+            scale = float(b.abs().max()) if n else 0.0
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=FIELD_GRAD_TOL * scale,
+                                       msg=f"{name}[{i}]")
+
+
+def test_field_features_autograd_runs_the_backward_kernel(dev):
+    """A loss through field_features and basis_mat under autograd: the
+    tables' gradients come from the backward kernel (one launch) and equal
+    the plain route's within FIELD_GRAD_TOL; xyz that requires grad
+    raises."""
+    config, field = _field(FIELDS["non_cubic"], dev)
+    leaves = {k: tuple(a.clone().requires_grad_() for a in field[k])
+              for k in TABLES}
+    g = torch.Generator().manual_seed(3)
+    xyz = (torch.rand((50000, 3), generator=g) * 2 - 1).to(dev)
+    w = torch.randn((sum(config.app_n_comp), 27), generator=g).to(dev)
+    before = field_features_backward.launches
+    sigma, app = field_features(config, leaves, xyz, True)
+    (sigma.square().sum() + (app @ w).sin().sum()).backward()
+    torch.cuda.synchronize()
+    assert field_features_backward.launches == before + 1
+    plain = {k: tuple(a.detach().clone().requires_grad_() for a in field[k])
+             for k in TABLES}
+    s2, a2 = field_features_plain(plain, xyz, True, gather_rows_plain)
+    (s2.square().sum() + (a2 @ w).sin().sum()).backward()
+    for name in TABLES:
+        for a, b in zip(leaves[name], plain[name]):
+            torch.testing.assert_close(
+                a.grad, b.grad, rtol=0,
+                atol=FIELD_GRAD_TOL * float(b.grad.abs().max()))
+    with pytest.raises(NotImplementedError, match="coordinate gradient"):
+        field_features(config, leaves, xyz.clone().requires_grad_(), True)

@@ -25,6 +25,7 @@ from iffnerf_tpu.pose import trainer as jtrainer
 from iffnerf_tpu_torch.checkpoint import _flatten, _numpy_leaves
 from iffnerf_tpu_torch.checkpoint import load_pytree as tload_pytree
 from iffnerf_tpu_torch.checkpoint import save_pytree as tsave_pytree
+from iffnerf_tpu_torch.device import tree_map
 from iffnerf_tpu_torch.pose import trainer as ttrainer
 
 from torch_parity import configs, params, t
@@ -142,7 +143,7 @@ def _port_steps(tcfg, tp, accum, rows, imgs, poses, ori, d, rgb):
         assert marks == ["ray_features", "image_losses", "ray_backward",
                          "adam"]
         losses.append(float(loss))
-    grads = ttrainer._map(lambda x: x.grad, p)
+    grads = tree_map(lambda x: x.grad, p)
     return p, losses, grads
 
 
