@@ -17,9 +17,11 @@ CPU, and TensoRF field training at configs/lego.txt's widths
 (``train_field`` from a 128^3 field on 100 synthetic 800x800 frames,
 through a mask update with shrink, an upsample, a mask update with ray
 filtering and the upsample to 300^3, with ``field_features``' backward
-kernel held to its plain version, an eval render and a reduced run
-against the CPU). It checks what comes out, and times kernels, estimates, the object
-side and training steps with CUDA events and the host clock. Each
+kernel held to its plain version at the 128^3 and the final step's
+samples and on axis-aligned rays, the forward timed at the final step's
+samples, an eval render and a reduced run against the CPU). It checks
+what comes out, and times kernels, estimates, the object side and
+training steps with CUDA events and the host clock. Each
 phase prints one JSON line; then come the card's name and power limit (as
 nvidia-smi gives them), the kernels line, and last
 ``{"ok": true, "device": {...}}``.
@@ -128,6 +130,7 @@ from iffnerf_tpu_torch.pose.trainer import (
 )
 from iffnerf_tpu_torch.pose.vit import ViTConfig
 from iffnerf_tpu_torch.render.renderer import evaluation
+from iffnerf_tpu_torch.tools.ff_time import AXES, ray_ordered_samples, ray_upstream
 from iffnerf_tpu_torch.train import trainer as field_trainer
 from iffnerf_tpu_torch.train.trainer import field_config_from_args, train_field
 from iffnerf_tpu_torch.utils.misc import N_to_reso, cal_n_samples, n_voxel_schedule
@@ -208,6 +211,9 @@ ID_INVARIANT = ("k_proj/b", "ray_mlp2/1/b")
 FT_WH, FT_CAMERA_ANGLE_X, FT_POOL = 800, 0.6911112070083618, 100
 FT_ITERS, FT_EVENTS, FT_BATCH, FT_GRID_INIT = 12, (3, 6), 4096, 128
 FIELD_GRAD_TOL, FT_PLAIN_CHUNK, FT_REPS = 1e-4, 1 << 20, 5
+# the backward on axis-aligned rays at the final grid: rays, samples a ray
+# (not a multiple of a run, so that runs cross ray ends)
+FT_AXIS_RAYS, FT_AXIS_PER_RAY = 4098, 600
 # the reduced card-vs-CPU run: grid, upsampled grid, batch, steps
 FT_SMALL_GRID, FT_SMALL_UP, FT_SMALL_BATCH, FT_SMALL_STEPS = 32, 40, 256, 3
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -1751,10 +1757,11 @@ def library_backward(params, xyz, dsigma, dapp):
     return run
 
 
-def _step_split_field(config, params, mask, pool, n_samples, dev):
+def step_split_field(config, params, mask, pool, n_samples, dev, profile=True):
     """Two more steps on the trained field: the second one with CUDA events
     after its forward, backward and Adam (the first builds Adam's state),
-    then one under the profiler -> ms of each part and the profile."""
+    then, with ``profile``, one under the profiler -> ms of each part and
+    the profile."""
     p = trainable(params, dev)
     opt = field_trainer.make_optimizer(p, 0.02, 1e-3, 1.0)
     idx = torch.as_tensor(np.random.default_rng(SEED + 7).integers(
@@ -1785,7 +1792,8 @@ def _step_split_field(config, params, mask, pool, n_samples, dev):
         step()
         return 1
 
-    split["profile"] = _profiled("field_train_step", one)
+    if profile:
+        split["profile"] = _profiled("field_train_step", one)
     return split
 
 
@@ -1880,7 +1888,7 @@ def estimate_full_run(steps, events, aabb):
             "total_s": total + events_s, "per_grid": per_grid}
 
 
-def phase_field_train(dev):
+def train_with_capture(dev):
     """TensoRF training through ``train_field`` (reconstruction's loop) at
     configs/lego.txt's widths: from a 128^3 field whose density follows
     the fixture's cluster (the alpha mask of its checkpoint, 8 % of the
@@ -1889,12 +1897,10 @@ def phase_field_train(dev):
     iterations with the mask update and shrink, an upsample, the mask
     update with ray filtering and the upsample to 300^3 at FT_EVENTS.
     Launch counts set to 0 just before the run and read just after it;
-    each step timed, the inputs of the first backward at 128^3 and at the
-    final grid kept and the backward kernel held to its plain version on
-    them. Then the split and profile of a step, one 800x800 eval render
-    (seconds, PSNR, SSIM), the reduced card-vs-CPU run, and the estimate
-    of a 30 000-iteration run. -> (the run's launch counts, the kernels
-    line's entry for the backward)."""
+    each step timed, the inputs of the first backward at each grid kept.
+    -> a namespace: args, the trained config, params and mask, the pools,
+    the steps, events, counts, torch lerps, the kept backward inputs
+    (``caught``) and the run's and the pool's seconds."""
     WORK_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     pool = synthetic_ray_pool(dev, FT_POOL, SEED + 20)
@@ -1924,11 +1930,90 @@ def phase_field_train(dev):
             reso_cur=N_to_reso(args.N_voxel_init, pool.scene_bbox))
         run_s = _sync_s(t0)
         counts = _counts()
+    return types.SimpleNamespace(
+        args=args, config=config, params=params, mask=mask, pool=pool,
+        test=test, steps=steps, events=events, counts=counts,
+        torch_lerps=torch_lerps["n"], caught=caught, run_s=run_s,
+        pool_s=pool_s)
+
+
+def axis_ray_inputs(params, dev):
+    """The backward's inputs on axis-aligned rays, where consecutive
+    samples add into the same rows longest: FT_AXIS_RAYS rays along +-x,
+    +-y and +-z in turn, FT_AXIS_PER_RAY samples each half a texel apart
+    (beyond [-1, 1] at both ends), the upstream normal with stretches of
+    zeros (``tools/ff_time.py``'s ``ray_ordered_samples`` and
+    ``ray_upstream``) -> (params, xyz, dsigma, dapp) as captured_backwards
+    keeps them."""
+    grid = tuple(params["density_plane"][0].shape[1::-1]) + (
+        params["density_line"][0].shape[0],)
+    xyz = np.concatenate([
+        ray_ordered_samples(grid, AXES, FT_AXIS_PER_RAY, SEED + 30 + k)
+        for k in range(FT_AXIS_RAYS // len(AXES))])
+    width = sum(a.shape[-1] for a in params["app_plane"])
+    dsigma, dapp = ray_upstream(xyz.shape[0], width, SEED + 31)
+    return (params, *(torch.as_tensor(a, device=dev)
+                      for a in (xyz, dsigma, dapp)))
+
+
+def plain_features_chunked(params, xyz):
+    """field_features_plain on plain gathers, over chunks of FT_PLAIN_CHUNK
+    samples (one call at a step's 4 million samples would hold about 13 GB
+    of corner rows)."""
+    with plain_gathers():
+        return [field_features_plain(params, xyz[i:i + FT_PLAIN_CHUNK], True)
+                for i in range(0, xyz.shape[0], FT_PLAIN_CHUNK)]
+
+
+def forward_row(params, xyz):
+    """field_features (forward) at a training step's samples: graph and
+    eager ms, its bound (bytes), the plain version's ms (chunked) and
+    F.grid_sample's, after checking that both compute the same."""
+    config = FieldConfig()
+    with torch.no_grad():
+        ours = field_features(config, params, xyz, True)
+        tables = library_tables(params)
+        lib = library_features(tables, xyz, True)
+        diff = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(ours, lib))
+        check(diff < 1e-5, f"F.grid_sample yardstick at the step ({diff})")
+        del ours, lib
+        b_ms, b_by, corner_bytes = field_bound(params, xyz, True)
+        row = {"n": xyz.shape[0],
+               "ms": time_ms(lambda: field_features(config, params, xyz, True),
+                             reps=FT_REPS, graph=True),
+               "eager_ms": time_ms(lambda: field_features(config, params, xyz,
+                                                          True), reps=FT_REPS),
+               "plain_ms": time_ms(lambda: plain_features_chunked(params, xyz),
+                                   reps=3),
+               "library_ms": time_ms(lambda: library_features(tables, xyz, True),
+                                     reps=FT_REPS),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "corner_read_bytes": corner_bytes, "library_max_rel_diff": diff}
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_field_train(dev):
+    """``train_with_capture``, its checks, and the backward kernel held to
+    its plain version on the kept inputs at 128^3 and at the final grid,
+    and on ``axis_ray_inputs`` at the final grid; the backward's ms at
+    both steps and on the axis-aligned rays, the forward's row at the final
+    step's samples. Then the split and profile of a step, one 800x800 eval
+    render (seconds, PSNR, SSIM), the reduced card-vs-CPU run, and the
+    estimate of a 30 000-iteration run. -> (the run's launch counts, the
+    kernels line's entry for the backward, the forward's row at the final
+    step)."""
+    run = train_with_capture(dev)
+    args, config, params, mask = run.args, run.config, run.params, run.mask
+    pool, test, steps, events, counts = (run.pool, run.test, run.steps,
+                                         run.events, run.counts)
+    run_s, pool_s = run.run_s, run.pool_s
     check(len(steps) == FT_ITERS, f"{len(steps)} steps")
     check(counts["field_features"] > 0 and counts["field_features_backward"]
           == FT_ITERS and counts["gather_rows"] > 0,
           f"the run launched field_features, its backward and K3: {counts}")
-    check(torch_lerps["n"] == 0, f"{torch_lerps['n']} texel lerps in torch")
+    check(run.torch_lerps == 0, f"{run.torch_lerps} texel lerps in torch")
     check(counts["banked_scores"] == 0 and counts["fused_ray_scores"] == 0,
           f"field training runs no scoring kernel: {counts}")
     kinds = [e["event"] for e in events]
@@ -1944,29 +2029,40 @@ def phase_field_train(dev):
     check(all(bool(torch.isfinite(a).all()) for a in leaves(params)),
           "finite trained parameters")
 
+    caught = run.caught
     keys = list(caught)
     check(len(keys) == 3, f"backward inputs of three grids: {keys}")
+    cases = {"grid_128": caught[keys[0]], "grid_final": caught[keys[-1]]}
+    del caught, run
+    cases["axis_rays"] = axis_ray_inputs(cases["grid_final"][0], dev)
     bwd_checks = {}
-    for label, key in (("grid_128", keys[0]), ("grid_final", keys[-1])):
-        p, xyz, dsigma, dapp = caught[key]
+    for label, (p, xyz, dsigma, dapp) in cases.items():
         bwd_checks[label] = backward_errors(p, xyz, dsigma, dapp)
-        bwd_checks[label]["grid"] = [key[1], key[0], key[2]]
-    p, xyz, dsigma, dapp = caught[keys[-1]]
-    del caught
+        bwd_checks[label]["grid"] = list(p["density_plane"][0].shape[1::-1]) + [
+            p["density_line"][0].shape[0]]
+        bwd_checks[label]["ms"] = time_ms(lambda: field_features_backward(
+            FieldConfig(), p, xyz, dsigma, dapp), reps=FT_REPS)
+    p, xyz, dsigma, dapp = cases.pop("grid_final")
+    del cases
     b_ms, b_by = backward_bound(p, xyz, dsigma, dapp)
     lib = library_backward(p, xyz, dsigma, dapp)
     row = {"n": xyz.shape[0],
            "ms": time_ms(lambda: field_features_backward(
                FieldConfig(), p, xyz, dsigma, dapp), reps=FT_REPS),
+           "graph_ms": time_ms(lambda: field_features_backward(
+               FieldConfig(), p, xyz, dsigma, dapp), reps=FT_REPS, graph=True),
            "plain_ms": time_ms(lambda: plain_backward_chunked(
                p, xyz, dsigma, dapp), reps=3),
            "library_ms": time_ms(lib, reps=FT_REPS),
            "bound_ms": b_ms, "bound_by": b_by}
-    del lib, p, xyz, dsigma, dapp
+    del lib, dsigma, dapp
+    torch.cuda.empty_cache()
+    fwd_row = forward_row(p, xyz)
+    del p, xyz
     torch.cuda.empty_cache()
 
     n_final = cal_n_samples(config.grid_size, args.step_ratio)
-    split = _step_split_field(config, params, mask, pool, n_final, dev)
+    split = step_split_field(config, params, mask, pool, n_final, dev)
     log = {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1996,7 +2092,8 @@ def phase_field_train(dev):
          phase_events=events, split=split,
          peak_mem_gb=max(st["peak_mem_gb"] for st in steps),
          launches=counts, backward_checks=bwd_checks,
-         backward_tolerance=FIELD_GRAD_TOL, eval_render={
+         backward_tolerance=FIELD_GRAD_TOL, forward_at_step=fwd_row,
+         eval_render={
              "s": eval_s, "psnr": psnr[0], "ssim": log["ssim"][0],
              "n_samples": n_final, "peak_mem_gb": eval_peak},
          card_vs_cpu=small, run_of_30000=full)
@@ -2007,14 +2104,19 @@ def phase_field_train(dev):
         replaces_kind="the XLA custom VJPs of the packed gathers"
                       " (_gather_contract_bwd, _lerp_contract_mm_bwd); no"
                       " pallas_call differentiates this work",
-        design="the forward's lanes recompute each sample's corners and"
-               " add w x other factor x upstream into zeroed gradient"
-               " tables with float4 (or scalar) atomicAdd, skipping zero"
-               " upstream words",
+        design="a group of lanes (a word of one axis pair each) walks a run"
+               " of consecutive samples, keeps its corner rows' words and"
+               " running sums in registers and adds a sum (one float4 RED)"
+               " only when its row leaves the footprint or the run ends;"
+               " zero-upstream samples skipped by a warp vote; xyz, dsigma"
+               " and dapp bulk-copied into a 4-stage mbarrier ring by a"
+               " producer warp",
         launches=counts["field_features_backward"],
         launches_by_path={"field_train": counts["field_features_backward"]},
-        max_abs_err=bwd_checks["grid_final"]["max_abs_err"], **row)
-    return counts, entry
+        max_abs_err=bwd_checks["grid_final"]["max_abs_err"],
+        ms_grid_128=bwd_checks["grid_128"]["ms"],
+        ms_axis_rays=bwd_checks["axis_rays"]["ms"], **row)
+    return counts, entry, fwd_row
 
 
 def main() -> int:
@@ -2071,7 +2173,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # TensoRF training: field_features and its backward every step, K3's
     # mask lookup every step
-    ft_counts, ft_backward = phase_field_train(dev)
+    ft_counts, ft_backward, ft_forward = phase_field_train(dev)
 
     n_est = N_WARM + N_TIMED
     kernels = [
@@ -2140,6 +2242,7 @@ def main() -> int:
              launches_by_path={"object": obj_counts["field_features"],
                                "id_train": id_counts["field_features"],
                                "field_train": ft_counts["field_features"]},
+             at_training_step=ft_forward,
              **rows["field_features/colour_chunk/both"]),
         ft_backward,
     ]

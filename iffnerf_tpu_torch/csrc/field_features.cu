@@ -40,27 +40,52 @@
 // the plain route's; only sigma's sum over ranks runs in another order.
 //
 // The backward (field_features_bwd_kernel, iff_field_features_bwd) is the
-// gradient of the same function with respect to the 12 tables. The JAX
-// package differentiates this work in XLA (a sorted scatter-add and a
-// one-hot product, iffnerf_tpu/ops/packed_sample.py:234-305), not in a
-// Pallas kernel. Here it keeps the forward's mapping: each lane recomputes
-// its sample's corners, weights and flags as the forward does, reads its
-// upstream words (dsigma for the density ranks, dapp for the appearance
-// ranks), and only where those are not all zero reads the corner rows and
-// adds w_corner * line * g into each plane corner texel and w_corner *
-// plane * g into each line corner texel with atomicAdd (float4 atomics on
-// global memory, which compute capability 9.x has, when the forward takes
-// float4 words). A flagged-out corner adds nothing. Most samples of a
-// training step carry no gradient (outside the AABB or the alpha mask, or
-// below the appearance threshold), so the zero test keeps their corner
-// reads and atomics off the memory system. The additions land in another
-// order on every run: the gradient is not bit-stable. Bound: bytes (the
-// coordinates and upstream gradients once, each touched row of the tables
-// read and of the gradients written once); what holds it is the atomics'
-// contention, since consecutive samples of a ray share texels.
+// gradient of the same function with respect to the 12 tables: w_corner *
+// line * g into each plane corner texel and w_corner * plane * g into each
+// line corner texel, g the upstream word (dsigma for the density ranks,
+// dapp for the appearance ranks). The JAX package differentiates this work
+// in XLA (a sorted scatter-add and a one-hot product,
+// iffnerf_tpu/ops/packed_sample.py:234-305), not in a Pallas kernel.
+//
+// Bound on an H100 SXM: bytes, and nearly all of them the upstream read:
+// a training step's dapp is 576 B a sample at lego's ranks (2.44 GB at a
+// 300^3 step), most of it zeros (samples outside the AABB or the alpha
+// mask, or below the appearance threshold), and each word has to be read
+// to know. The touched rows of the tables and of their gradients are a
+// few MB. The first design of this backward kept the forward's mapping
+// (a group of lanes a sample, one float4 atomicAdd into each of the 6
+// corners a word) and took 4.2 times the bound: training samples are
+// ray-major at half a texel a step, so consecutive samples add into the
+// same few rows, and those same-address atomics from neighbouring groups
+// and warps serialise in L2.
+//
+// The design here: a group of g lanes (a lane a word of one axis pair, as
+// in the forward) walks a run of kRunSamples consecutive samples in order
+// and keeps, in registers, the words of its 4 plane and 2 line corner rows
+// and a running sum for each. Only when a row leaves the sample's
+// footprint (the cell moved; a row that carries over to the next cell
+// keeps its sum) and at the end of the run does it add the sum into the
+// gradient table, with one float4 (or scalar) atomicAdd whose result is
+// unused (a RED). A straight ray leaves each row once, so a run adds into
+// a row once. A sample whose upstream words are all zero for the group (a
+// warp vote) neither adds nor moves the cell. Runs cross ray boundaries
+// freely: a row is a row. A warp-specialised block streams the upstream:
+// one producer warp bulk-copies each stage's xyz, dsigma and dapp rows
+// (contiguous for a run) into a kStages-deep mbarrier ring in shared
+// memory, under an L2 policy that evicts them first, and the consumer
+// warps read them from there while the next stages are in flight. The
+// stage a run ends with N, and every stage when a pointer is not 16-byte
+// aligned, is read from global memory instead. A flagged-out corner adds
+// nothing and reads as zero. The additions land in another order on every
+// run: the gradient is not bit-stable. What holds the kernel now is the
+// REDs that remain (rays cross each other's rows, the line rows most of
+// all: a few hundred a pair, which every ray adds into), and the reads of
+// the rows a cell enters, which queue behind them in L2.
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "tma_wgmma.cuh"
 
 namespace iff {
 
@@ -136,22 +161,37 @@ struct Axis {
   float w, u;     // weight of the upper corner, 1 - w
 };
 
-__device__ __forceinline__ Axis make_axis(float g, int size) {
+// The lower corner floor(p) of coordinate g on an axis of `size` texels,
+// clamped to [-2, size] (a floor more than a texel outside the grid flags
+// both corners out, whatever its value, so clamping it changes no result
+// and keeps f + 1 from overflowing), and the upper corner's weight.
+struct Floor {
+  int f;
+  float w, u;  // p - floor(p), 1 - w
+};
+
+__device__ __forceinline__ Floor axis_floor(float g, int size) {
   // (g + 1) * 0.5 * (size - 1), each step rounded as torch rounds it
   const float p = __fmul_rn(__fmul_rn(__fadd_rn(g, 1.0f), 0.5f),
                             static_cast<float>(size - 1));
   const float f = floorf(p);
-  // A floor more than a texel outside the grid flags both corners out,
-  // whatever its value, so clamping it first changes no result and keeps
-  // i0 + 1 from overflowing.
-  const int i0 = static_cast<int>(fminf(fmaxf(f, -2.0f), static_cast<float>(size)));
+  Floor a;
+  a.f = static_cast<int>(fminf(fmaxf(f, -2.0f), static_cast<float>(size)));
+  a.w = __fsub_rn(p, f);
+  a.u = __fsub_rn(1.0f, a.w);
+  return a;
+}
+
+__device__ __forceinline__ Axis make_axis(float g, int size) {
+  const Floor fl = axis_floor(g, size);
+  const int i0 = fl.f;
   Axis a;
   a.v0 = (i0 >= 0 && i0 <= size - 1) ? 1.0f : 0.0f;
   a.v1 = (i0 + 1 >= 0 && i0 + 1 <= size - 1) ? 1.0f : 0.0f;
   a.i0 = min(max(i0, 0), size - 1);
   a.i1 = min(max(i0 + 1, 0), size - 1);
-  a.w = __fsub_rn(p, f);
-  a.u = __fsub_rn(1.0f, a.w);
+  a.w = fl.w;
+  a.u = fl.u;
   return a;
 }
 
@@ -233,105 +273,430 @@ struct FieldGrads {
   float* aline[3];
 };
 
+namespace bwd {
+
+constexpr int kStageSamples = 8;    // samples of one run a ring stage
+constexpr int kRunSamples = 32;     // samples a run, a multiple of kStageSamples: short
+                                    // runs keep a block's runs (neighbouring pieces
+                                    // of a ray) evenly loaded
+constexpr int kStages = 4;          // ring depth
+constexpr int kConsumerWarps = 3;   // 6 groups of 16 lanes at lego's ranks: 2 runs
+constexpr int kThreads = 32 * (kConsumerWarps + 1);  // and one producer warp
+constexpr int kBlocksPerSM = 4;
+constexpr int kBarrierBytes = 128;  // the full and empty barriers, then the ring
+constexpr int kSmallSmem = 48 * 1024;
+constexpr int kNoCell = -(1 << 20);  // a corner no sample has
+constexpr int kSpanStages = kRunSamples / kStageSamples;
+static_assert(kRunSamples % kStageSamples == 0 && kStageSamples % 4 == 0,
+              "a stage's xyz and dsigma are whole 16-byte units");
+
+// The host's split of the work. A span is `runs` consecutive runs, read
+// through the ring together; a run needs `parts` groups (each axis pair's
+// words, g at a time); a block's groups hold `runs` runs at once, or, when
+// a run needs more groups than a block has (runs == 1), pass over the span
+// `rounds` times, each time for the next groups' worth of parts.
+struct Plan {
+  int log_g;      // lanes a group: 1 << log_g
+  int parts;      // groups a run
+  int runs;       // runs a span
+  int rounds;     // passes over a span
+  int cols;       // dapp's width, 0 density-only
+  int run_bytes;  // a run's share of a stage: xyz, dsigma, dapp rows
+  int direct;     // read every stage from global memory (an unaligned pointer)
+  long long items;  // spans x rounds
+};
+
 template <int VEC>
-__device__ __forceinline__ void scatter_word(const float* plane, const float* line,
-                                             float* gplane, float* gline, int64_t c,
-                                             int col, int64_t r00, int64_t r01,
-                                             int64_t r10, int64_t r11, const Axis& ax,
-                                             const Axis& ay, const Axis& al,
-                                             const Vec<VEC>& g) {
-  const Vec<VEC> t00 = load_vec<VEC>(plane + r00 * c + col);
-  const Vec<VEC> t01 = load_vec<VEC>(plane + r01 * c + col);
-  const Vec<VEC> t10 = load_vec<VEC>(plane + r10 * c + col);
-  const Vec<VEC> t11 = load_vec<VEC>(plane + r11 * c + col);
-  const Vec<VEC> l0 = load_vec<VEC>(line + al.i0 * c + col);
-  const Vec<VEC> l1 = load_vec<VEC>(line + al.i1 * c + col);
-  const float v[4] = {ay.v0 * ax.v0, ay.v0 * ax.v1, ay.v1 * ax.v0, ay.v1 * ax.v1};
-  Vec<VEC> dpf, dlf;  // d/d(plane value), d/d(line value)
+__device__ __forceinline__ Vec<VEC> zero_vec() {
+  Vec<VEC> x;
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) x.v[q] = 0.0f;
+  return x;
+}
+
+// a word from shared or global memory (a generic address)
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> load_any(const float* p);
+
+template <>
+__device__ __forceinline__ Vec<1> load_any<1>(const float* p) {
+  return {{*p}};
+}
+
+template <>
+__device__ __forceinline__ Vec<4> load_any<4>(const float* p) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  return {{q.x, q.y, q.z, q.w}};
+}
+
+// An L2 policy for the upstream gradients, which stream through once:
+// evicted first, so that the rows of the tables and of their gradients,
+// which other rays come back to, stay longer
+__device__ __forceinline__ uint64_t stream_policy() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+template <class T>
+__device__ __forceinline__ T of_pair(const T (&x)[3], int i) {
+  return i == 0 ? x[0] : (i == 1 ? x[1] : x[2]);
+}
+
+__device__ __forceinline__ float coord(float x0, float x1, float x2, int k) {
+  return k == 0 ? x0 : (k == 1 ? x1 : x2);
+}
+
+// One lane's word of one axis pair: where it reads and adds.
+struct Word {
+  const float* plane;  // the table of its kind (density or appearance)
+  const float* line;
+  float* gplane;       // their gradients, null when not wanted
+  float* gline;
+  int64_t c;           // the kind's ranks
+  int col;             // the word's first rank
+  int h, w, len;
+  int mx, my, ml;      // the coordinates of the plane's x and y and of the line
+  int up;              // the word's first column of dapp
+  bool dens;
+};
+
+// Part `part` of a run -> this lane's word (lane `lane` of a group of g);
+// false when the lane has none or none of its gradients is wanted.
+template <int VEC>
+__device__ __forceinline__ bool resolve(const FieldArgs& a, const FieldGrads& gr, int part,
+                                        int lane, int g, Word& o) {
+  int i = 0, first = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int pk = ((a.rd[k] + a.ra[k]) / VEC + g - 1) / g;
+    if (part >= 0 && part < pk) {
+      i = k;
+      first = part * g;
+    }
+    part -= pk;
+  }
+  const int nd = of_pair(a.rd, i) / VEC;
+  const int j = first + lane;
+  if (j >= nd + of_pair(a.ra, i) / VEC) return false;
+  o.dens = j < nd;
+  o.col = (o.dens ? j : j - nd) * VEC;
+  o.c = o.dens ? of_pair(a.rd, i) : of_pair(a.ra, i);
+  o.plane = o.dens ? of_pair(a.dplane, i) : of_pair(a.aplane, i);
+  o.line = o.dens ? of_pair(a.dline, i) : of_pair(a.aline, i);
+  o.gplane = o.dens ? of_pair(gr.dplane, i) : of_pair(gr.aplane, i);
+  o.gline = o.dens ? of_pair(gr.dline, i) : of_pair(gr.aline, i);
+  o.h = of_pair(a.h, i);
+  o.w = of_pair(a.w, i);
+  o.len = of_pair(a.len, i);
+  // MAT_MODE ((0, 1), (0, 2), (1, 2)), VEC_MODE (2, 1, 0)
+  o.mx = i == 2 ? 1 : 0;
+  o.my = i == 0 ? 1 : 2;
+  o.ml = 2 - i;
+  o.up = of_pair(a.app_off, i) + o.col;
+  return o.gplane != nullptr || o.gline != nullptr;
+}
+
+// A lane's corners: the plane cell (cy, cx) with its rows (y, x), (y,
+// x + 1), (y + 1, x), (y + 1, x + 1) and the line cell cl with rows l, l +
+// 1; for each row its table word (zero for a row outside the grid) and the
+// running sum of what the run adds to it.
+template <int VEC>
+struct Corners {
+  int cy, cx, cl;
+  Vec<VEC> t[4], s[4];
+  Vec<VEC> l[2], b[2];
+};
+
+template <int VEC>
+__device__ __forceinline__ void reset(Corners<VEC>& k) {
+  k.cy = k.cx = k.cl = kNoCell;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) k.s[c] = zero_vec<VEC>();
+#pragma unroll
+  for (int c = 0; c < 2; ++c) k.b[c] = zero_vec<VEC>();
+}
+
+__device__ __forceinline__ bool inside(int y, int x, int h, int w) {
+  return y >= 0 && y < h && x >= 0 && x < w;
+}
+
+template <int VEC>
+__device__ __forceinline__ void flush_plane(const Word& o, int y, int x, const Vec<VEC>& sum) {
+  if (o.gplane && inside(y, x, o.h, o.w) && any_nonzero<VEC>(sum))
+    atomic_add_vec<VEC>(o.gplane + (static_cast<int64_t>(y) * o.w + x) * o.c + o.col, sum);
+}
+
+template <int VEC>
+__device__ __forceinline__ void flush_line(const Word& o, int l, const Vec<VEC>& sum) {
+  if (o.gline && l >= 0 && l < o.len && any_nonzero<VEC>(sum))
+    atomic_add_vec<VEC>(o.gline + static_cast<int64_t>(l) * o.c + o.col, sum);
+}
+
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> plane_word(const Word& o, int y, int x) {
+  return inside(y, x, o.h, o.w)
+             ? load_vec<VEC>(o.plane + (static_cast<int64_t>(y) * o.w + x) * o.c + o.col)
+             : zero_vec<VEC>();
+}
+
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> line_word(const Word& o, int l) {
+  return l >= 0 && l < o.len ? load_vec<VEC>(o.line + static_cast<int64_t>(l) * o.c + o.col)
+                             : zero_vec<VEC>();
+}
+
+// Moves the plane cell to (fy, fx): a row that stays in the footprint
+// keeps its word and sum, a row that leaves adds its sum to the gradient,
+// a row that enters is read.
+template <int VEC>
+__device__ __forceinline__ void move_plane(const Word& o, Corners<VEC>& k, int fy, int fx) {
+  if (fy == k.cy && fx == k.cx) return;
+  unsigned need = 0;  // bit c: read row c
+  const int dx = fx - k.cx;
+  if (dx == 1) {
+    flush_plane<VEC>(o, k.cy, k.cx, k.s[0]);
+    flush_plane<VEC>(o, k.cy + 1, k.cx, k.s[2]);
+    k.t[0] = k.t[1];
+    k.s[0] = k.s[1];
+    k.t[2] = k.t[3];
+    k.s[2] = k.s[3];
+    k.s[1] = k.s[3] = zero_vec<VEC>();
+    need = 0xa;
+  } else if (dx == -1) {
+    flush_plane<VEC>(o, k.cy, k.cx + 1, k.s[1]);
+    flush_plane<VEC>(o, k.cy + 1, k.cx + 1, k.s[3]);
+    k.t[1] = k.t[0];
+    k.s[1] = k.s[0];
+    k.t[3] = k.t[2];
+    k.s[3] = k.s[2];
+    k.s[0] = k.s[2] = zero_vec<VEC>();
+    need = 0x5;
+  } else if (dx != 0) {
+    flush_plane<VEC>(o, k.cy, k.cx, k.s[0]);
+    flush_plane<VEC>(o, k.cy, k.cx + 1, k.s[1]);
+    flush_plane<VEC>(o, k.cy + 1, k.cx, k.s[2]);
+    flush_plane<VEC>(o, k.cy + 1, k.cx + 1, k.s[3]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) k.s[c] = zero_vec<VEC>();
+    need = 0xf;
+  }
+  k.cx = fx;
+  const int dy = fy - k.cy;
+  if (dy == 1) {
+    flush_plane<VEC>(o, k.cy, k.cx, k.s[0]);
+    flush_plane<VEC>(o, k.cy, k.cx + 1, k.s[1]);
+    k.t[0] = k.t[2];
+    k.s[0] = k.s[2];
+    k.t[1] = k.t[3];
+    k.s[1] = k.s[3];
+    k.s[2] = k.s[3] = zero_vec<VEC>();
+    need = (need >> 2) | 0xc;
+  } else if (dy == -1) {
+    flush_plane<VEC>(o, k.cy + 1, k.cx, k.s[2]);
+    flush_plane<VEC>(o, k.cy + 1, k.cx + 1, k.s[3]);
+    k.t[2] = k.t[0];
+    k.s[2] = k.s[0];
+    k.t[3] = k.t[1];
+    k.s[3] = k.s[1];
+    k.s[0] = k.s[1] = zero_vec<VEC>();
+    need = ((need & 3) << 2) | 0x3;
+  } else if (dy != 0) {
+    flush_plane<VEC>(o, k.cy, k.cx, k.s[0]);
+    flush_plane<VEC>(o, k.cy, k.cx + 1, k.s[1]);
+    flush_plane<VEC>(o, k.cy + 1, k.cx, k.s[2]);
+    flush_plane<VEC>(o, k.cy + 1, k.cx + 1, k.s[3]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) k.s[c] = zero_vec<VEC>();
+    need = 0xf;
+  }
+  k.cy = fy;
+  if (need & 1) k.t[0] = plane_word<VEC>(o, fy, fx);
+  if (need & 2) k.t[1] = plane_word<VEC>(o, fy, fx + 1);
+  if (need & 4) k.t[2] = plane_word<VEC>(o, fy + 1, fx);
+  if (need & 8) k.t[3] = plane_word<VEC>(o, fy + 1, fx + 1);
+}
+
+template <int VEC>
+__device__ __forceinline__ void move_line(const Word& o, Corners<VEC>& k, int fl) {
+  if (fl == k.cl) return;
+  const int d = fl - k.cl;
+  unsigned need;
+  if (d == 1) {
+    flush_line<VEC>(o, k.cl, k.b[0]);
+    k.l[0] = k.l[1];
+    k.b[0] = k.b[1];
+    k.b[1] = zero_vec<VEC>();
+    need = 2;
+  } else if (d == -1) {
+    flush_line<VEC>(o, k.cl + 1, k.b[1]);
+    k.l[1] = k.l[0];
+    k.b[1] = k.b[0];
+    k.b[0] = zero_vec<VEC>();
+    need = 1;
+  } else {
+    flush_line<VEC>(o, k.cl, k.b[0]);
+    flush_line<VEC>(o, k.cl + 1, k.b[1]);
+    k.b[0] = k.b[1] = zero_vec<VEC>();
+    need = 3;
+  }
+  k.cl = fl;
+  if (need & 1) k.l[0] = line_word<VEC>(o, fl);
+  if (need & 2) k.l[1] = line_word<VEC>(o, fl + 1);
+}
+
+template <int VEC>
+__device__ __forceinline__ void flush_all(const Word& o, const Corners<VEC>& k) {
+  flush_plane<VEC>(o, k.cy, k.cx, k.s[0]);
+  flush_plane<VEC>(o, k.cy, k.cx + 1, k.s[1]);
+  flush_plane<VEC>(o, k.cy + 1, k.cx, k.s[2]);
+  flush_plane<VEC>(o, k.cy + 1, k.cx + 1, k.s[3]);
+  flush_line<VEC>(o, k.cl, k.b[0]);
+  flush_line<VEC>(o, k.cl + 1, k.b[1]);
+}
+
+// One sample at (x0, x1, x2) with upstream word g into the running sums.
+template <int VEC>
+__device__ __forceinline__ void add_sample(const Word& o, Corners<VEC>& k, float x0, float x1,
+                                           float x2, const Vec<VEC>& g) {
+  const Floor ax = axis_floor(coord(x0, x1, x2, o.mx), o.w);
+  const Floor ay = axis_floor(coord(x0, x1, x2, o.my), o.h);
+  const Floor al = axis_floor(coord(x0, x1, x2, o.ml), o.len);
+  move_plane<VEC>(o, k, ay.f, ax.f);
+  move_line<VEC>(o, k, al.f);
+  const float wc[4] = {ay.u * ax.u, ay.u * ax.w, ay.w * ax.u, ay.w * ax.w};
 #pragma unroll
   for (int q = 0; q < VEC; ++q) {
     // the forward's plane and line values, in its order
-    const float top = lerp(t00.v[q] * v[0], t01.v[q] * v[1], ax.u, ax.w);
-    const float bot = lerp(t10.v[q] * v[2], t11.v[q] * v[3], ax.u, ax.w);
+    const float top = lerp(k.t[0].v[q], k.t[1].v[q], ax.u, ax.w);
+    const float bot = lerp(k.t[2].v[q], k.t[3].v[q], ax.u, ax.w);
     const float pf = lerp(top, bot, ay.u, ay.w);
-    const float lf = lerp(l0.v[q] * al.v0, l1.v[q] * al.v1, al.u, al.w);
-    dpf.v[q] = lf * g.v[q];
-    dlf.v[q] = pf * g.v[q];
-  }
-  if (gplane) {
-    const float wc[4] = {ay.u * ax.u, ay.u * ax.w, ay.w * ax.u, ay.w * ax.w};
-    const int64_t rows[4] = {r00, r01, r10, r11};
+    const float lf = lerp(k.l[0].v[q], k.l[1].v[q], al.u, al.w);
+    const float dpf = lf * g.v[q];  // d/d(plane value)
+    const float dlf = pf * g.v[q];  // d/d(line value)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (v[k] == 0.0f) continue;  // flagged out: the forward read a zero
-      Vec<VEC> d;
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) d.v[q] = wc[k] * dpf.v[q];
-      atomic_add_vec<VEC>(gplane + rows[k] * c + col, d);
-    }
-  }
-  if (gline) {
-    if (al.v0 != 0.0f) {
-      Vec<VEC> d;
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) d.v[q] = al.u * dlf.v[q];
-      atomic_add_vec<VEC>(gline + al.i0 * c + col, d);
-    }
-    if (al.v1 != 0.0f) {
-      Vec<VEC> d;
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) d.v[q] = al.w * dlf.v[q];
-      atomic_add_vec<VEC>(gline + al.i1 * c + col, d);
-    }
+    for (int c = 0; c < 4; ++c) k.s[c].v[q] += wc[c] * dpf;
+    k.b[0].v[q] += al.u * dlf;
+    k.b[1].v[q] += al.w * dlf;
   }
 }
 
 template <int VEC>
-__global__ void __launch_bounds__(kFieldThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     field_features_bwd_kernel(const float* __restrict__ xyz,
                               const float* __restrict__ dsigma,
-                              const float* __restrict__ dapp, const FieldArgs a,
-                              const FieldGrads gr, int64_t N, int log_g) {
-  const int g = 1 << log_g;
-  const int lane = threadIdx.x & (g - 1);
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> log_g;
-  for (int64_t n = tid >> log_g; n < N; n += stride) {
-    const float gs = __ldg(dsigma + n);
-    const float x[3] = {__ldg(xyz + 3 * n), __ldg(xyz + 3 * n + 1), __ldg(xyz + 3 * n + 2)};
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const int m0 = i == 2 ? 1 : 0;
-      const int m1 = i == 0 ? 1 : 2;
-      const Axis ax = make_axis(x[m0], a.w[i]);
-      const Axis ay = make_axis(x[m1], a.h[i]);
-      const Axis al = make_axis(x[2 - i], a.len[i]);
-      const int64_t r00 = static_cast<int64_t>(ay.i0) * a.w[i] + ax.i0;
-      const int64_t r01 = static_cast<int64_t>(ay.i0) * a.w[i] + ax.i1;
-      const int64_t r10 = static_cast<int64_t>(ay.i1) * a.w[i] + ax.i0;
-      const int64_t r11 = static_cast<int64_t>(ay.i1) * a.w[i] + ax.i1;
-      const int nd = gs != 0.0f ? a.rd[i] / VEC : 0;  // no density gradient: skip
-      const int start = gs != 0.0f ? 0 : a.rd[i] / VEC;
-      const int nv = a.rd[i] / VEC + a.ra[i] / VEC;
-      for (int j = start + lane; j < nv; j += g) {
-        if (j < nd) {
-          Vec<VEC> gv;
-#pragma unroll
-          for (int q = 0; q < VEC; ++q) gv.v[q] = gs;
-          scatter_word<VEC>(a.dplane[i], a.dline[i], gr.dplane[i], gr.dline[i], a.rd[i],
-                            j * VEC, r00, r01, r10, r11, ax, ay, al, gv);
-        } else {
-          const int col = (j - a.rd[i] / VEC) * VEC;
-          const Vec<VEC> gv = load_vec<VEC>(dapp + n * a.app_cols + a.app_off[i] + col);
-          if (!any_nonzero<VEC>(gv)) continue;
-          scatter_word<VEC>(a.aplane[i], a.aline[i], gr.aplane[i], gr.aline[i], a.ra[i],
-                            col, r00, r01, r10, r11, ax, ay, al, gv);
+                              const float* __restrict__ dapp,
+                              const __grid_constant__ FieldArgs a,
+                              const __grid_constant__ FieldGrads gr,
+                              const __grid_constant__ Plan p, int64_t N) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  unsigned char* ring = smem + kBarrierBytes;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(full + s, 1);
+      hop::mbar_init(empty + s, kConsumerWarps);
+    }
+    hop::fence_mbar_init();
+  }
+  __syncthreads();
+  const int64_t span_samples = static_cast<int64_t>(p.runs) * kRunSamples;
+  const int stage_bytes = p.runs * p.run_bytes;
+
+  if (warp == kConsumerWarps) {
+    // producer: each stage's rows of every run of the span, a run a lane
+    const uint64_t once = stream_policy();
+    int it = 0;
+    for (int64_t item = blockIdx.x; item < p.items; item += gridDim.x) {
+      const int64_t span0 = item / p.rounds * span_samples;
+      for (int st = 0; st < kSpanStages; ++st, ++it) {
+        const int s = it % kStages;
+        hop::mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+        uint32_t mine = 0;
+        for (int r = lane; r < p.runs; r += 32) {
+          const int64_t n0 = span0 + static_cast<int64_t>(r) * kRunSamples + st * kStageSamples;
+          if (!p.direct && n0 + kStageSamples <= N) mine += p.run_bytes;
+        }
+        const uint32_t bytes = __reduce_add_sync(0xffffffffu, mine);
+        if (lane == 0) hop::mbar_arrive_expect_tx(full + s, bytes);
+        __syncwarp();
+        if (bytes == 0) continue;
+        unsigned char* stage = ring + s * stage_bytes;
+        for (int r = lane; r < p.runs; r += 32) {
+          const int64_t n0 = span0 + static_cast<int64_t>(r) * kRunSamples + st * kStageSamples;
+          if (n0 + kStageSamples > N) continue;
+          unsigned char* dst = stage + r * p.run_bytes;
+          hop::bulk_load(dst, xyz + 3 * n0, kStageSamples * 12, full + s, once);
+          hop::bulk_load(dst + kStageSamples * 12, dsigma + n0, kStageSamples * 4, full + s,
+                         once);
+          if (p.cols)
+            hop::bulk_load(dst + kStageSamples * 16, dapp + n0 * p.cols,
+                           kStageSamples * 4 * p.cols, full + s, once);
         }
       }
     }
+    return;
+  }
+
+  // consumers: group gid of g lanes, the lanes of a group adjacent in a warp
+  const int g = 1 << p.log_g;
+  const int gid = threadIdx.x >> p.log_g;
+  const int groups = (kConsumerWarps * 32) >> p.log_g;
+  const unsigned gmask = g == 32 ? 0xffffffffu : ((1u << g) - 1) << (lane & ~(g - 1));
+  int it = 0;
+  for (int64_t item = blockIdx.x; item < p.items; item += gridDim.x) {
+    const int slot = static_cast<int>(item % p.rounds) * groups + gid;
+    Word o;
+    bool live = false;
+    int run = 0;
+    if (slot < p.runs * p.parts) {
+      run = slot / p.parts;
+      live = resolve<VEC>(a, gr, slot % p.parts, threadIdx.x & (g - 1), g, o);
+    }
+    Corners<VEC> k;
+    reset(k);
+    const int64_t first = item / p.rounds * span_samples + static_cast<int64_t>(run) * kRunSamples;
+    for (int st = 0; st < kSpanStages; ++st, ++it) {
+      const int s = it % kStages;
+      hop::mbar_wait(full + s, (it / kStages) & 1);
+      const int64_t n0 = first + st * kStageSamples;
+      const int64_t left = N - n0;
+      const int count = !live || left <= 0 ? 0
+                        : left < kStageSamples ? static_cast<int>(left) : kStageSamples;
+      const bool staged = !p.direct && left >= kStageSamples;
+      const unsigned char* base = ring + s * stage_bytes + run * p.run_bytes;
+      const float* sx = staged ? reinterpret_cast<const float*>(base) : xyz + 3 * n0;
+      const float* ss = staged ? reinterpret_cast<const float*>(base + kStageSamples * 12)
+                               : dsigma + n0;
+      const float* sa = staged ? reinterpret_cast<const float*>(base + kStageSamples * 16)
+                               : dapp + n0 * p.cols;
+#pragma unroll 1
+      for (int u = 0; u < kStageSamples; ++u) {
+        Vec<VEC> gv = zero_vec<VEC>();
+        if (u < count) {
+          if (o.dens) {
+            const float d = ss[u];
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) gv.v[q] = d;
+          } else {
+            gv = load_any<VEC>(sa + u * p.cols + o.up);
+          }
+        }
+        const unsigned vote = __ballot_sync(0xffffffffu, any_nonzero<VEC>(gv)) & gmask;
+        if (vote != 0 && u < count)
+          add_sample<VEC>(o, k, sx[3 * u], sx[3 * u + 1], sx[3 * u + 2], gv);
+      }
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(empty + s);
+    }
+    if (live) flush_all<VEC>(o, k);
   }
 }
 
+}  // namespace bwd
 }  // namespace iff
 
 namespace {
@@ -410,12 +775,14 @@ extern "C" int iff_field_features(const void* xyz, long long N, const long long*
 // caller; null for one whose gradient is not wanted), to which the kernel
 // adds; dsigma [N] float32; dapp [N, width] float32, or null for density
 // only. vec != 0 takes float4 words and float4 atomics (every rank a
-// multiple of 4, every table, gradient and dapp 16-byte aligned). Returns a
-// cudaError_t; N == 0 launches nothing.
+// multiple of 4, every table, gradient and dapp 16-byte aligned). The
+// ring reads xyz, dsigma and dapp only when all three are 16-byte
+// aligned. Returns a cudaError_t; N == 0 launches nothing.
 extern "C" int iff_field_features_bwd(const void* xyz, long long N, const long long* ptrs,
                                       const long long* grads, const int* dims,
                                       const void* dsigma, const void* dapp, int vec,
                                       int max_blocks, void* stream) {
+  namespace b = iff::bwd;
   if (N < 0 || max_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
   iff::FieldArgs a;
@@ -429,14 +796,42 @@ extern "C" int iff_field_features_bwd(const void* xyz, long long N, const long l
     gr.aplane[i] = reinterpret_cast<float*>(grads[6 + i]);
     gr.aline[i] = reinterpret_cast<float*>(grads[9 + i]);
   }
-  const int blocks = grid_blocks(N, log_g, max_blocks);
+  const int words = vec ? 4 : 1;
+  const int g = 1 << log_g;
+  b::Plan p;
+  p.log_g = log_g;
+  p.parts = 0;
+  for (int i = 0; i < 3; ++i) p.parts += ((a.rd[i] + a.ra[i]) / words + g - 1) / g;
+  const int groups = (b::kConsumerWarps * 32) >> log_g;
+  p.cols = dapp ? a.app_cols : 0;
+  p.run_bytes = b::kStageSamples * (16 + 4 * p.cols);
+  int smem_cap = b::kSmallSmem;
+  if (b::kBarrierBytes + b::kStages * p.run_bytes > smem_cap) smem_cap = 227 * 1024;
+  const int fit = (smem_cap - b::kBarrierBytes) / (b::kStages * p.run_bytes);
+  if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+  p.runs = groups / p.parts < 1 ? 1 : groups / p.parts;
+  if (p.runs > fit) p.runs = fit;
+  p.rounds = (p.runs * p.parts + groups - 1) / groups;
+  p.direct = ((reinterpret_cast<uintptr_t>(xyz) | reinterpret_cast<uintptr_t>(dsigma) |
+               reinterpret_cast<uintptr_t>(dapp)) & 15) != 0;
+  const long long span = static_cast<long long>(p.runs) * b::kRunSamples;
+  p.items = (N + span - 1) / span * p.rounds;
+  const int smem = b::kBarrierBytes + b::kStages * p.runs * p.run_bytes;
+  const int blocks = static_cast<int>(p.items < max_blocks ? p.items : max_blocks);
   auto s = static_cast<cudaStream_t>(stream);
   auto* x = static_cast<const float*>(xyz);
   auto* ds = static_cast<const float*>(dsigma);
   auto* da = static_cast<const float*>(dapp);
-  if (vec)
-    iff::field_features_bwd_kernel<4><<<blocks, iff::kFieldThreads, 0, s>>>(x, ds, da, a, gr, N, log_g);
-  else
-    iff::field_features_bwd_kernel<1><<<blocks, iff::kFieldThreads, 0, s>>>(x, ds, da, a, gr, N, log_g);
+  if (vec) {
+    if (smem > b::kSmallSmem)
+      cudaFuncSetAttribute(b::field_features_bwd_kernel<4>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    b::field_features_bwd_kernel<4><<<blocks, b::kThreads, smem, s>>>(x, ds, da, a, gr, p, N);
+  } else {
+    if (smem > b::kSmallSmem)
+      cudaFuncSetAttribute(b::field_features_bwd_kernel<1>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    b::field_features_bwd_kernel<1><<<blocks, b::kThreads, smem, s>>>(x, ds, da, a, gr, p, N);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,11 +24,16 @@ fused field kernel covers lego's widths and non-cubic grids with unequal
 ranks (float4 and 4-byte words), empty to colour-chunk sample counts, in
 its density-only and appearance modes, and so does its backward kernel
 (``field_features_backward``, float4 and scalar atomics) against
-``field_features_backward_plain``.
+``field_features_backward_plain``, on scattered points and on ray-ordered
+samples (rays along the axes and the diagonals at half-texel steps, runs
+that cross ray ends and hold stretches of zero upstream, sample counts at
+the edges of the kernel's run length).
 """
 
 import dataclasses
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -61,6 +66,13 @@ from iffnerf_tpu_torch.ops.grid_sample import (
 from iffnerf_tpu_torch.pose.id_module import IDConfig, init_id_module, score_rays
 from iffnerf_tpu_torch.pose.solve import _scores_maybe_fused
 from iffnerf_tpu_torch.pose.vit import ViTConfig
+from iffnerf_tpu_torch.tools.ff_time import (
+    AXES,
+    DIAGONALS,
+    ray_ordered_samples,
+    ray_upstream,
+    run_samples,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -517,23 +529,62 @@ def test_field_kernel_matches_plain(dev, vm_field, n, with_app, monkeypatch):
 FIELD_GRAD_TOL = 1e-4
 
 
+def _backward_inputs(config, layout, n, dev):
+    """(xyz, dsigma, dapp) on the card for a backward case: ``scattered``
+    points in and beyond [-1, 1] and on the grid's corners, upstream
+    gradients of both signs with a tenth of them zero; or ``n`` samples of
+    rays in the order training samples them, half a texel apart, each
+    about two grid widths long (so crossing the grid and leaving it):
+    along the axes, the diagonals or both (``rays``), the upstream with
+    stretches of zeros inside runs (``ray_upstream``). ``n`` may also be
+    "run-1", "run", "run+1" or "2run+1": the kernel's run length read from
+    its source, and those next to it."""
+    width = sum(config.app_n_comp)
+    if layout == "scattered":
+        g = torch.Generator().manual_seed(100 + n)
+        xyz = torch.rand((n, 3), generator=g) * 2.4 - 1.2
+        xyz[:2] = torch.tensor([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]])[:n]
+        dsigma = torch.randn(n, generator=g)
+        dsigma[::10] = 0.0
+        dapp = torch.randn((n, width), generator=g)
+        dapp[::7] = 0.0
+        return xyz.to(dev), dsigma.to(dev), dapp.to(dev)
+    if isinstance(n, str):
+        run = run_samples(Path(__file__).resolve().parents[1])
+        n = {"run-1": run - 1, "run": run, "run+1": run + 1,
+             "2run+1": 2 * run + 1}[n]
+    dirs = {"axes": AXES, "diagonals": DIAGONALS, "rays": AXES + DIAGONALS}[layout]
+    per_ray = 2 * max(config.grid_size) + 37
+    xyz = np.concatenate([
+        ray_ordered_samples(config.grid_size, dirs, per_ray, 7 + k, spread=0.9)
+        for k in range(-(-n // (per_ray * len(dirs))))])[:n]
+    dsigma, dapp = ray_upstream(n, width, 8)
+    return tuple(torch.as_tensor(a, device=dev) for a in (xyz, dsigma, dapp))
+
+
+# scattered points, then ray-ordered samples: rays along each axis (hot
+# rows) and the diagonals, at half-texel steps, crossing ray ends inside
+# runs, zero-upstream stretches inside runs, samples beyond [-1, 1], and
+# sample counts at the run length's edges
+BACKWARD_CASES = ([("scattered", n) for n in (0, 1, 1021, 204660)]
+                  + [("axes", 120000), ("diagonals", 60000), ("rays", 1),
+                     ("rays", "run-1"), ("rays", "run"), ("rays", "run+1"),
+                     ("rays", "2run+1"), ("rays", 50001)])
+
+
 @pytest.mark.parametrize("with_app", [False, True])
-@pytest.mark.parametrize("n", [0, 1, 1021, 204660])
-def test_field_backward_kernel_matches_plain(dev, vm_field, n, with_app):
+@pytest.mark.parametrize("layout,n", BACKWARD_CASES)
+def test_field_backward_kernel_matches_plain(dev, vm_field, layout, n, with_app):
     """The backward kernel's 6 or 12 table gradients against
     field_features_backward_plain, each within FIELD_GRAD_TOL of its
-    largest, at points in and beyond [-1, 1] (flagged-out corners add
-    nothing) and on the grid's corners, with upstream gradients of both
-    signs and a tenth of them zero (skipped)."""
+    largest, on scattered points and on ray-ordered samples
+    (``_backward_inputs``): flagged-out corners add nothing, zero upstream
+    words are skipped, runs merge sums across ray ends. Lego's 300^3 grid
+    (float4 words), a non-cubic grid and one with ranks 2-5 (4-byte
+    words), density-only and with appearance."""
     config, params = vm_field
-    g = torch.Generator().manual_seed(100 + n)
-    xyz = torch.rand((n, 3), generator=g) * 2.4 - 1.2
-    xyz[:2] = torch.tensor([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]])[:n]
-    dsigma = torch.randn(n, generator=g)
-    dsigma[::10] = 0.0
-    dapp = torch.randn((n, sum(config.app_n_comp)), generator=g)
-    dapp[::7] = 0.0
-    xyz, dsigma, dapp = xyz.to(dev), dsigma.to(dev), dapp.to(dev)
+    xyz, dsigma, dapp = _backward_inputs(config, layout, n, dev)
+    n = xyz.shape[0]
     before = field_features_backward.launches
     got = field_features_backward(config, params, xyz, dsigma,
                                   dapp if with_app else None)
@@ -549,6 +600,37 @@ def test_field_backward_kernel_matches_plain(dev, vm_field, n, with_app):
             torch.testing.assert_close(a, b, rtol=0,
                                        atol=FIELD_GRAD_TOL * scale,
                                        msg=f"{name}[{i}]")
+
+
+@pytest.mark.parametrize("unaligned", ["table", "upstream"])
+def test_field_backward_kernel_matches_plain_unaligned(dev, unaligned):
+    """Lego's ranks on a small grid, ray-ordered samples, with one table 4
+    bytes off 16-byte alignment (the scalar route, whose 64 words a pair
+    take two passes of a block over each span) or with dsigma so (the
+    float4 route reading every stage from global memory, no ring): within
+    FIELD_GRAD_TOL of field_features_backward_plain."""
+    config, params = _field(((40, 44, 48), (16, 16, 16), (48, 48, 48)), dev)
+    xyz, dsigma, dapp = _backward_inputs(config, "rays", 30001, dev)
+
+    def shifted(a):
+        out = torch.empty(a.numel() + 1, device=dev)[1:].view(a.shape)
+        out.copy_(a)
+        return out
+    if unaligned == "table":
+        params = dict(params, app_plane=(shifted(params["app_plane"][0]),)
+                      + params["app_plane"][1:])
+    else:
+        dsigma = shifted(dsigma)
+    before = field_features_backward.launches
+    got = field_features_backward(config, params, xyz, dsigma, dapp)
+    torch.cuda.synchronize()
+    assert field_features_backward.launches == before + 1
+    want = field_features_backward_plain(params, xyz, dsigma, dapp)
+    for name in want:
+        for i, (a, b) in enumerate(zip(got[name], want[name])):
+            torch.testing.assert_close(
+                a, b, rtol=0, atol=FIELD_GRAD_TOL * float(b.abs().max()),
+                msg=f"{name}[{i}]")
 
 
 def test_field_features_autograd_runs_the_backward_kernel(dev):
