@@ -16,10 +16,11 @@ occupied alpha mask; made from the seed, saved and loaded back) through
 CPU, and TensoRF field training at configs/lego.txt's widths
 (``train_field`` from a 128^3 field on 100 synthetic 800x800 frames,
 through a mask update with shrink, an upsample, a mask update with ray
-filtering and the upsample to 300^3, with ``field_features``' backward
-kernel held to its plain version at the 128^3 and the final step's
-samples and on axis-aligned rays, the forward timed at the final step's
-samples, an eval render and a reduced run against the CPU). It checks
+filtering and the upsample to 300^3, with ``field_features``' forward
+and backward kernels held to their plain versions at the 128^3 and the
+final step's samples and on axis-aligned rays and timed there, the
+forward also beside F.grid_sample at the final step's samples, an eval
+render and a reduced run against the CPU). It checks
 what comes out, and times kernels, estimates, the object side and
 training steps with CUDA events and the host clock. Each
 phase prints one JSON line; then come the card's name and power limit (as
@@ -1212,7 +1213,8 @@ def random_coords(n, spread, g, dev):
 def _field_errors(config, params, xyz, with_app):
     """field_features against its plain version on plain gathers (the grid
     samplers in pure torch): max abs errors, max |plain|, bit-equality;
-    raises beyond FIELD_RTOL and FIELD_ATOL x max|plain|."""
+    raises beyond FIELD_RTOL and FIELD_ATOL x max|plain|, or when the app
+    products are not bit-equal."""
     got = field_features(config, params, xyz, with_app)
     torch.cuda.synchronize()
     with plain_gathers():
@@ -1227,6 +1229,8 @@ def _field_errors(config, params, xyz, with_app):
                      "max_abs_plain": scale, "bit_equal": bool(torch.equal(a, b))}
         check(torch.allclose(a, b, rtol=FIELD_RTOL, atol=FIELD_ATOL * scale),
               f"field_features {name} vs plain: {out[name]}")
+    check("app" not in out or out["app"]["bit_equal"],
+          f"field_features app products bit-equal to plain: {out.get('app')}")
     return out
 
 
@@ -1965,6 +1969,33 @@ def plain_features_chunked(params, xyz):
                 for i in range(0, xyz.shape[0], FT_PLAIN_CHUNK)]
 
 
+def forward_errors(params, xyz, want=None):
+    """field_features (with appearance) against its plain version's
+    (sigma, app), ``want`` or else ``plain_features_chunked``, at a
+    training step's samples: app products bit-equal, sigma within
+    FIELD_RTOL and FIELD_ATOL x max|plain| (raises otherwise) -> the
+    errors."""
+    with torch.no_grad():
+        sigma, app = field_features(FieldConfig(), params, xyz, True)
+        torch.cuda.synchronize()
+        if want is None:
+            chunks = plain_features_chunked(params, xyz)
+            want = (torch.cat([c[0] for c in chunks]),
+                    torch.cat([c[1] for c in chunks]))
+            del chunks
+        scale = float(want[0].abs().max())
+        out = {"n": xyz.shape[0], "app_bit_equal": bool(torch.equal(app, want[1])),
+               "app_max_abs_err": float((app - want[1]).abs().max()),
+               "sigma_max_abs_err": float((sigma - want[0]).abs().max()),
+               "sigma_max_abs_plain": scale}
+        check(out["app_bit_equal"] and torch.allclose(
+            sigma, want[0], rtol=FIELD_RTOL, atol=FIELD_ATOL * scale),
+            f"field_features vs plain at a step's samples: {out}")
+    del sigma, app, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def forward_row(params, xyz):
     """field_features (forward) at a training step's samples: graph and
     eager ms, its bound (bytes), the plain version's ms (chunked) and
@@ -1995,15 +2026,15 @@ def forward_row(params, xyz):
 
 
 def phase_field_train(dev):
-    """``train_with_capture``, its checks, and the backward kernel held to
-    its plain version on the kept inputs at 128^3 and at the final grid,
-    and on ``axis_ray_inputs`` at the final grid; the backward's ms at
-    both steps and on the axis-aligned rays, the forward's row at the final
-    step's samples. Then the split and profile of a step, one 800x800 eval
-    render (seconds, PSNR, SSIM), the reduced card-vs-CPU run, and the
-    estimate of a 30 000-iteration run. -> (the run's launch counts, the
-    kernels line's entry for the backward, the forward's row at the final
-    step)."""
+    """``train_with_capture``, its checks, and the forward and backward
+    kernels held to their plain versions on the kept inputs at 128^3 and
+    at the final grid, and on ``axis_ray_inputs`` at the final grid; both
+    kernels' ms at both steps and on the axis-aligned rays, the forward's
+    row at the final step's samples. Then the split and profile of a step,
+    one 800x800 eval render (seconds, PSNR, SSIM), the reduced card-vs-CPU
+    run, and the estimate of a 30 000-iteration run. -> (the run's launch
+    counts, the kernels line's entry for the backward, the forward's row at
+    the final step with its checks)."""
     run = train_with_capture(dev)
     args, config, params, mask = run.args, run.config, run.params, run.mask
     pool, test, steps, events, counts = (run.pool, run.test, run.steps,
@@ -2035,8 +2066,13 @@ def phase_field_train(dev):
     cases = {"grid_128": caught[keys[0]], "grid_final": caught[keys[-1]]}
     del caught, run
     cases["axis_rays"] = axis_ray_inputs(cases["grid_final"][0], dev)
-    bwd_checks = {}
+    bwd_checks, fwd_checks = {}, {}
     for label, (p, xyz, dsigma, dapp) in cases.items():
+        fwd_checks[label] = forward_errors(p, xyz)
+        with torch.no_grad():
+            for key, graph in (("ms", True), ("eager_ms", False)):
+                fwd_checks[label][key] = time_ms(lambda: field_features(
+                    FieldConfig(), p, xyz, True), reps=FT_REPS, graph=graph)
         bwd_checks[label] = backward_errors(p, xyz, dsigma, dapp)
         bwd_checks[label]["grid"] = list(p["density_plane"][0].shape[1::-1]) + [
             p["density_line"][0].shape[0]]
@@ -2092,7 +2128,8 @@ def phase_field_train(dev):
          phase_events=events, split=split,
          peak_mem_gb=max(st["peak_mem_gb"] for st in steps),
          launches=counts, backward_checks=bwd_checks,
-         backward_tolerance=FIELD_GRAD_TOL, forward_at_step=fwd_row,
+         backward_tolerance=FIELD_GRAD_TOL, forward_checks=fwd_checks,
+         forward_at_step=fwd_row,
          eval_render={
              "s": eval_s, "psnr": psnr[0], "ssim": log["ssim"][0],
              "n_samples": n_final, "peak_mem_gb": eval_peak},
@@ -2116,7 +2153,8 @@ def phase_field_train(dev):
         max_abs_err=bwd_checks["grid_final"]["max_abs_err"],
         ms_grid_128=bwd_checks["grid_128"]["ms"],
         ms_axis_rays=bwd_checks["axis_rays"]["ms"], **row)
-    return counts, entry, fwd_row
+    fwd = dict(fwd_row, checks=fwd_checks)
+    return counts, entry, fwd
 
 
 def main() -> int:
@@ -2238,7 +2276,19 @@ def main() -> int:
              design_of="compute_features_fused (iffnerf_tpu/models/field.py:394):"
                        " the work pallas_gather served, its gather fused with"
                        " the lerps",
+             design="a cell pass leaves each sample's slot weights and the"
+                    " rows its cell enters in shared memory; then a group of"
+                    " lanes (a word of one axis pair each) walks a run of up"
+                    " to 32 consecutive samples, keeps its cell's 4 plane and"
+                    " 2 line corner words in registers in slots by parity,"
+                    " reads only the corners a cell enters and stores the"
+                    " products under L2's evict-first policy; density sums"
+                    " meet in shared memory in a fixed order; the host"
+                    " shortens runs for small calls",
              launches=obj_counts["field_features"], max_abs_err=ff_err,
+             ms_grid_128=ft_forward["checks"]["grid_128"]["ms"],
+             ms_grid_final=ft_forward["checks"]["grid_final"]["ms"],
+             ms_axis_rays=ft_forward["checks"]["axis_rays"]["ms"],
              launches_by_path={"object": obj_counts["field_features"],
                                "id_train": id_counts["field_features"],
                                "field_train": ft_counts["field_features"]},

@@ -13,31 +13,54 @@
 //
 // Bound on an H100 SXM: bytes. Device memory sees the coordinates (12 B a
 // sample), the sigma feature (4 B) and the appearance products (4 B a rank)
-// once each, plus each plane and line row that the samples touch. The
-// corner reads themselves (4 plane rows and 2 line rows a sample and axis
-// pair, 4.6 KB a sample at lego's ranks) are served by L1 and L2: lego's
-// six planes and lines total 69 MB at 300^3, and the texels of one ray's
-// samples are close together.
+// once each, plus each plane and line row that the samples touch: 592 B a
+// sample at lego's ranks, nearly all of it the appearance products. The
+// first design of this kernel (a group of lanes a sample, each lane reading
+// its word of all 6 corner rows of all 3 axis pairs afresh) asked L1 for
+// 4.6 KB a sample and took 3.5 times the bound at a training step, whose
+// samples are ray-major at half a texel a step: consecutive samples mostly
+// sit in the same cell, and read the same rows again.
 //
-// Mapping: a group of g threads owns a sample (g the power of two that
-// covers the widest pair's density + appearance words, capped at 32:
-// g = 16 at lego's ranks 16 + 48 in float4 words, 4 density-only). Lanes
-// take neighbouring 16-byte (float4, when every rank is a multiple of 4 and
-// every table 16-byte aligned) or 4-byte words of the corner rows, a lane's
-// words running over the density ranks, then the appearance ranks: 64- to
-// 256-byte reads of each corner row per group. Each lane lerps its words,
-// adds its density products to a partial sigma, and stores its appearance
-// products (coalesced, 192 B a pair at lego's ranks). The partial sigmas
-// meet with warp shuffles. A grid-stride loop walks the samples; each warp
-// loops as long as its first group has a sample, so that every lane
-// reaches the shuffles.
+// Mapping: a block takes a span of runs of consecutive samples (a run 32
+// samples at most; runs cross ray ends freely: a row is a row) in two
+// passes. The cell pass, a thread a sample and axis pair, finds each
+// sample's cell and slot weights and, for each of the 6 corner slots,
+// whether the previous sample of its run held that corner already or the
+// row to read; it leaves these 64-byte steps in shared memory. Slots go
+// by the corner's parity (slot 0 of an axis holds the even corner), so a
+// corner the next cell shares stays in its slot while the cell moves and
+// the lerps swap the weights instead. In the word pass a group of g lanes
+// walks a run for one axis pair (g the power of two that covers the widest
+// pair's density + appearance words, capped at 32: g = 16 at lego's ranks
+// 16 + 48 in float4 words, 4 density-only; a pair wider than g takes more
+// groups, a run's `parts`). Lanes take neighbouring 16-byte (float4, when
+// every rank is a multiple of 4 and every table 16-byte aligned) or 4-byte
+// words, the density ranks first, and keep their word of the 6 slots in
+// registers: a sample reads only the corners its cell enters (a straight
+// ray enters each row once), then lerps and stores its appearance products
+// (coalesced, 192 B a pair at lego's ranks, under L2's evict-first policy:
+// basis_mat reads them once, and the table rows other rays come back to
+// stay longer). The density products' lane sums meet in shared memory and
+// a last pass adds them in a fixed order. Resident blocks stride over the
+// spans; the host halves the run until each has 4 spans, so that a small
+// call still fills the card.
+//
+// What holds it at a 299^3 training step, from cut-out variants
+// (tools/ff_time.py): about 1 ms of instructions (the lerps' 13 rounded
+// operations a float, the slot reads and the stores around them, the cell
+// pass), and on top of it, not hidden under it, memory traffic: the
+// products, and the rows the cells enter, which many rays share but which
+// return from far down the memory hierarchy (lego's tables are 69 MB, more
+// than L2, a row's next ray comes long after it was read, and the time
+// falls as the tables' footprint shrinks).
 //
 // Numerics are the grid samplers' (ops/grid_sample.py): align_corners=True,
 // zeros padding, the lower corner floor(p) as an int with both corners
-// clamped and flagged, a flagged-out texel multiplied by 0. Every product
-// and sum of the lerps is rounded on its own (__fmul_rn, __fadd_rn: no FMA
-// contraction) in the samplers' order, so the appearance products equal
-// the plain route's; only sigma's sum over ranks runs in another order.
+// clamped and flagged, a flagged-out texel multiplied by 0 (a flag belongs
+// to the corner, so a slot keeps its word multiplied). Every product and
+// sum of the lerps is rounded on its own (__fmul_rn, __fadd_rn: no FMA
+// contraction) in the samplers' order, so the appearance products equal the
+// plain route's; only sigma's sum over ranks runs in another order.
 //
 // The backward (field_features_bwd_kernel, iff_field_features_bwd) is the
 // gradient of the same function with respect to the 12 tables: w_corner *
@@ -52,7 +75,7 @@
 // 300^3 step), most of it zeros (samples outside the AABB or the alpha
 // mask, or below the appearance threshold), and each word has to be read
 // to know. The touched rows of the tables and of their gradients are a
-// few MB. The first design of this backward kept the forward's mapping
+// few MB. The first design of this backward kept the forward's first mapping
 // (a group of lanes a sample, one float4 atomicAdd into each of the 6
 // corners a word) and took 4.2 times the bound: training samples are
 // ray-major at half a texel a step, so consecutive samples add into the
@@ -82,14 +105,13 @@
 // all: a few hundred a pair, which every ray adds into), and the reads of
 // the rows a cell enters, which queue behind them in L2.
 #include <cstdint>
+#include <numeric>
 
 #include <cuda_runtime.h>
 
 #include "tma_wgmma.cuh"
 
 namespace iff {
-
-constexpr int kFieldThreads = 256;
 
 struct FieldArgs {
   const float* dplane[3];  // [H, W, Rd]
@@ -121,19 +143,6 @@ __device__ __forceinline__ Vec<4> load_vec<4>(const float* p) {
 }
 
 template <int VEC>
-__device__ __forceinline__ void store_vec(float* p, const Vec<VEC>& x);
-
-template <>
-__device__ __forceinline__ void store_vec<1>(float* p, const Vec<1>& x) {
-  *p = x.v[0];
-}
-
-template <>
-__device__ __forceinline__ void store_vec<4>(float* p, const Vec<4>& x) {
-  *reinterpret_cast<float4*>(p) = make_float4(x.v[0], x.v[1], x.v[2], x.v[3]);
-}
-
-template <int VEC>
 __device__ __forceinline__ void atomic_add_vec(float* p, const Vec<VEC>& x);
 
 template <>
@@ -153,13 +162,6 @@ __device__ __forceinline__ bool any_nonzero(const Vec<VEC>& x) {
   for (int q = 0; q < VEC; ++q) nz |= x.v[q] != 0.0f;
   return nz;
 }
-
-// The two corners of one axis (ops/grid_sample.py::_axis).
-struct Axis {
-  int i0, i1;     // clamped texel indices
-  float v0, v1;   // 1 in range, 0 out of range
-  float w, u;     // weight of the upper corner, 1 - w
-};
 
 // The lower corner floor(p) of coordinate g on an axis of `size` texels,
 // clamped to [-2, size] (a floor more than a texel outside the grid flags
@@ -182,89 +184,297 @@ __device__ __forceinline__ Floor axis_floor(float g, int size) {
   return a;
 }
 
-__device__ __forceinline__ Axis make_axis(float g, int size) {
-  const Floor fl = axis_floor(g, size);
-  const int i0 = fl.f;
-  Axis a;
-  a.v0 = (i0 >= 0 && i0 <= size - 1) ? 1.0f : 0.0f;
-  a.v1 = (i0 + 1 >= 0 && i0 + 1 <= size - 1) ? 1.0f : 0.0f;
-  a.i0 = min(max(i0, 0), size - 1);
-  a.i1 = min(max(i0 + 1, 0), size - 1);
-  a.w = fl.w;
-  a.u = fl.u;
-  return a;
-}
-
 // lo * (1 - w) + hi * w, as the samplers round it
 __device__ __forceinline__ float lerp(float lo, float hi, float u, float w) {
   return __fadd_rn(__fmul_rn(lo, u), __fmul_rn(hi, w));
 }
 
 template <int VEC>
-__global__ void __launch_bounds__(kFieldThreads)
+__device__ __forceinline__ Vec<VEC> zero_vec() {
+  Vec<VEC> x;
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) x.v[q] = 0.0f;
+  return x;
+}
+
+template <class T>
+__device__ __forceinline__ T of_pair(const T (&x)[3], int i) {
+  return i == 0 ? x[0] : (i == 1 ? x[1] : x[2]);
+}
+
+__device__ __forceinline__ float coord(float x0, float x1, float x2, int k) {
+  return k == 0 ? x0 : (k == 1 ? x1 : x2);
+}
+
+// An L2 policy for data that streams through once (the forward's products,
+// the backward's upstream gradients): evicted first, so that the rows of
+// the tables (and of their gradients), which other rays come back to, stay
+// longer
+__device__ __forceinline__ uint64_t stream_policy() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_stream(float* p, const Vec<VEC>& x, uint64_t policy);
+
+template <>
+__device__ __forceinline__ void store_stream<1>(float* p, const Vec<1>& x, uint64_t policy) {
+  asm volatile("st.global.L2::cache_hint.f32 [%0], %1, %2;\n" ::"l"(p), "f"(x.v[0]),
+               "l"(policy)
+               : "memory");
+}
+
+template <>
+__device__ __forceinline__ void store_stream<4>(float* p, const Vec<4>& x, uint64_t policy) {
+  asm volatile("st.global.L2::cache_hint.v4.f32 [%0], {%1, %2, %3, %4}, %5;\n" ::"l"(p),
+               "f"(x.v[0]), "f"(x.v[1]), "f"(x.v[2]), "f"(x.v[3]), "l"(policy)
+               : "memory");
+}
+
+namespace fwd {
+
+constexpr int kMaxRun = 32;         // samples a run at most, a power of two
+constexpr int kSpansPerBlock = 4;   // the host halves the run until every resident
+                                    // block has this many spans to walk
+constexpr int kWarps = 8;           // the warps a block aims at
+constexpr int kMaxWarps = 16;
+constexpr int kSmem = 64 * 1024;    // a block's steps and density sums at most
+constexpr int kSmallSmem = 48 * 1024;
+constexpr int kNoCell = -(1 << 20);  // a corner no sample has
+
+// The host's split of the work. A run is `run` consecutive samples and
+// needs `parts` groups (each axis pair's words, g at a time); a span is
+// `runs` runs, a block's work between two barriers.
+struct Plan {
+  int log_g;  // lanes a group: 1 << log_g
+  int red;    // the first lanes of a group, those that can hold density words
+  int parts;  // groups a run
+  int runs;   // runs a span
+  int run;    // samples a run
+  long long spans;
+};
+
+// One sample's step for one axis pair, made by the cell pass for the word
+// pass: the weights of the slots (slot 0 of an axis holds the corner with
+// the even index and slot 1 the odd one, so that a row keeps its slot while
+// the cell moves; the weights of the lower and the upper corner swap with
+// the cell's parity), and for each slot the clamped row it reads, or -1
+// when it keeps its word.
+struct __align__(16) Step {
+  float4 wxy;  // plane slots' weights: x0, x1, y0, y1
+  float2 wl;   // line slots' weights: l0, l1
+  int2 line;   // rows the line slots read
+  int4 plane;  // rows (y * w + x) the plane slots read
+  int out;     // bit s: plane slot s's corner lies outside the plane; 4 + s: line slot s's
+  int pad[3];
+};
+
+// One lane's word of one axis pair: where it reads and writes.
+struct Word {
+  const float* plane;  // the word's first rank in the table of its kind
+  const float* line;
+  int c;               // the kind's ranks (the host keeps every table under 2^31 floats)
+  int pair;
+  int out;             // the word's first column of app; -1 for a density word
+};
+
+// Part `part` of a run -> this lane's word (lane `lane` of a group of g);
+// false when the lane has none.
+template <int VEC>
+__device__ __forceinline__ bool resolve(const FieldArgs& a, int part, int lane, int g, Word& o) {
+  int i = 0, first = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int pk = ((a.rd[k] + a.ra[k]) / VEC + g - 1) / g;
+    if (part >= 0 && part < pk) {
+      i = k;
+      first = part * g;
+    }
+    part -= pk;
+  }
+  const int nd = of_pair(a.rd, i) / VEC;
+  const int j = first + lane;
+  if (j >= nd + of_pair(a.ra, i) / VEC) return false;
+  const bool dens = j < nd;
+  const int col = (dens ? j : j - nd) * VEC;
+  o.c = dens ? of_pair(a.rd, i) : of_pair(a.ra, i);
+  o.plane = (dens ? of_pair(a.dplane, i) : of_pair(a.aplane, i)) + col;
+  o.line = (dens ? of_pair(a.dline, i) : of_pair(a.aline, i)) + col;
+  o.pair = i;
+  o.out = dens ? -1 : of_pair(a.app_off, i) + col;
+  return true;
+}
+
+__device__ __forceinline__ void slot_weights(const Floor& f, float& w0, float& w1) {
+  const bool odd = f.f & 1;
+  w0 = odd ? f.w : f.u;
+  w1 = odd ? f.u : f.w;
+}
+
+__device__ __forceinline__ int clamp_index(int v, int size) { return min(max(v, 0), size - 1); }
+
+// The cell pass: sample k of the span (at x, the run's previous sample at
+// prev, or null when k starts a run) for axis pair i -> its step.
+__device__ __forceinline__ Step make_step(const FieldArgs& a, int i, const float* x,
+                                          const float* prev) {
+  // MAT_MODE ((0, 1), (0, 2), (1, 2)), VEC_MODE (2, 1, 0)
+  const int mx = i == 2 ? 1 : 0, my = i == 0 ? 1 : 2, ml = 2 - i;
+  const int h = of_pair(a.h, i), w = of_pair(a.w, i), len = of_pair(a.len, i);
+  const Floor fx = axis_floor(__ldg(x + mx), w);
+  const Floor fy = axis_floor(__ldg(x + my), h);
+  const Floor fl = axis_floor(__ldg(x + ml), len);
+  int cy = kNoCell, cx = kNoCell, cl = kNoCell;  // the cell the slots hold
+  if (prev) {
+    cx = axis_floor(__ldg(prev + mx), w).f;
+    cy = axis_floor(__ldg(prev + my), h).f;
+    cl = axis_floor(__ldg(prev + ml), len).f;
+  }
+  Step st;
+  slot_weights(fx, st.wxy.x, st.wxy.y);
+  slot_weights(fy, st.wxy.z, st.wxy.w);
+  slot_weights(fl, st.wl.x, st.wl.y);
+  int rows[4], out = 0;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int y = fy.f + (((s >> 1) ^ fy.f) & 1);
+    const int x = fx.f + (((s & 1) ^ fx.f) & 1);
+    const bool keep = static_cast<unsigned>(y - cy) <= 1u && static_cast<unsigned>(x - cx) <= 1u;
+    rows[s] = keep ? -1 : clamp_index(y, h) * w + clamp_index(x, w);
+    if (!keep && (y < 0 || y >= h || x < 0 || x >= w)) out |= 1 << s;
+  }
+  int lrows[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int z = fl.f + ((s ^ fl.f) & 1);
+    const bool keep = static_cast<unsigned>(z - cl) <= 1u;
+    lrows[s] = keep ? -1 : clamp_index(z, len);
+    if (!keep && (z < 0 || z >= len)) out |= 16 << s;
+  }
+  st.plane = make_int4(rows[0], rows[1], rows[2], rows[3]);
+  st.line = make_int2(lrows[0], lrows[1]);
+  st.out = out;
+  return st;
+}
+
+// A corner a slot enters: its row's word.
+template <int VEC>
+__device__ __forceinline__ void enter(Vec<VEC>& t, const float* base, int row, int c) {
+  if (row >= 0) t = load_vec<VEC>(base + row * c);
+}
+
+// A corner that lies outside: its word times 0 (the samplers' flag; a slot
+// keeps its word multiplied).
+template <int VEC>
+__device__ __forceinline__ void flag_out(Vec<VEC>& t, bool outside) {
+  if (outside) {
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) t.v[q] = __fmul_rn(t.v[q], 0.0f);
+  }
+}
+
+// The plane-times-line word of a sample in the samplers' order: each lerp
+// lo * (1 - w) + hi * w, with the slots' products added in the other order
+// when the cell is odd (the same two rounded products, and a sum of two
+// rounds the same either way).
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> product(const Step& st, const Vec<VEC> (&t)[4],
+                                            const Vec<VEC> (&l)[2]) {
+  Vec<VEC> p;
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) {
+    const float r0 = lerp(t[0].v[q], t[1].v[q], st.wxy.x, st.wxy.y);
+    const float r1 = lerp(t[2].v[q], t[3].v[q], st.wxy.x, st.wxy.y);
+    const float pf = lerp(r0, r1, st.wxy.z, st.wxy.w);
+    const float lf = lerp(l[0].v[q], l[1].v[q], st.wl.x, st.wl.y);
+    p.v[q] = __fmul_rn(pf, lf);
+  }
+  return p;
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kMaxWarps * 32)
     field_features_kernel(const float* __restrict__ xyz, float* __restrict__ sigma,
-                          float* __restrict__ app, const FieldArgs a, int64_t N,
-                          int log_g) {
-  const int g = 1 << log_g;
+                          float* __restrict__ app, const __grid_constant__ FieldArgs a,
+                          const __grid_constant__ Plan p, int64_t N) {
+  extern __shared__ __align__(16) unsigned char fsm[];
+  const int span = p.runs * p.run;
+  Step* steps = reinterpret_cast<Step*>(fsm);                       // [3, span]
+  float* part_sigma = reinterpret_cast<float*>(steps + 3 * span);  // [parts, red, span]
+  const int g = 1 << p.log_g;
   const int lane = threadIdx.x & (g - 1);
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> log_g;
-  const int64_t warp_first = (tid & ~static_cast<int64_t>(31)) >> log_g;
-  int64_t n = tid >> log_g;
-  for (int64_t first = warp_first; first < N; first += stride, n += stride) {
-    float s = 0.0f;
-    if (n < N) {
-      const float x[3] = {__ldg(xyz + 3 * n), __ldg(xyz + 3 * n + 1), __ldg(xyz + 3 * n + 2)};
+  const int gid = threadIdx.x >> p.log_g;
+  const int groups = blockDim.x >> p.log_g;
+  const int slots = p.runs * p.parts;
+  const uint64_t once = stream_policy();  // the products: basis_mat reads them once
+  for (int64_t sp = blockIdx.x; sp < p.spans; sp += gridDim.x) {
+    const int64_t n0 = sp * span;
+    const int count = N - n0 < span ? static_cast<int>(N - n0) : span;
+    // the cell pass: a thread a sample and axis pair
+    for (int it = threadIdx.x; it < 3 * count; it += blockDim.x) {
+      const int i = it / count;
+      const int k = it - i * count;
+      const float* x = xyz + 3 * (n0 + k);
+      steps[i * span + k] = make_step(a, i, x, k % p.run ? x - 3 : nullptr);
+    }
+    __syncthreads();
+    // the word pass: a group a run and part
+    for (int slot = gid; slot < slots; slot += groups) {
+      const int r0 = slot / p.parts * p.run;
+      const int part = slot % p.parts;
+      const int cnt = min(max(count - r0, 0), p.run);
+      Word o;
+      const bool live = resolve<VEC>(a, part, lane, g, o);
+      const Step* st = steps + (live ? o.pair : 0) * span + r0;
+      float* sums = part_sigma + (part * p.red + lane) * span + r0;
+      float* out = app + (n0 + r0) * a.app_cols + (live ? o.out : 0);
+      Vec<VEC> t[4], l[2];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        // MAT_MODE ((0, 1), (0, 2), (1, 2)), VEC_MODE (2, 1, 0)
-        const int m0 = i == 2 ? 1 : 0;
-        const int m1 = i == 0 ? 1 : 2;
-        const Axis ax = make_axis(x[m0], a.w[i]);
-        const Axis ay = make_axis(x[m1], a.h[i]);
-        const Axis al = make_axis(x[2 - i], a.len[i]);
-        const int64_t r00 = static_cast<int64_t>(ay.i0) * a.w[i] + ax.i0;
-        const int64_t r01 = static_cast<int64_t>(ay.i0) * a.w[i] + ax.i1;
-        const int64_t r10 = static_cast<int64_t>(ay.i1) * a.w[i] + ax.i0;
-        const int64_t r11 = static_cast<int64_t>(ay.i1) * a.w[i] + ax.i1;
-        const float v00 = ay.v0 * ax.v0, v01 = ay.v0 * ax.v1;
-        const float v10 = ay.v1 * ax.v0, v11 = ay.v1 * ax.v1;
-        const int nd = a.rd[i] / VEC;
-        const int nv = nd + a.ra[i] / VEC;
-        for (int j = lane; j < nv; j += g) {
-          const bool dens = j < nd;
-          const float* plane = dens ? a.dplane[i] : a.aplane[i];
-          const float* line = dens ? a.dline[i] : a.aline[i];
-          const int64_t c = dens ? a.rd[i] : a.ra[i];
-          const int col = (dens ? j : j - nd) * VEC;
-          const Vec<VEC> t00 = load_vec<VEC>(plane + r00 * c + col);
-          const Vec<VEC> t01 = load_vec<VEC>(plane + r01 * c + col);
-          const Vec<VEC> t10 = load_vec<VEC>(plane + r10 * c + col);
-          const Vec<VEC> t11 = load_vec<VEC>(plane + r11 * c + col);
-          const Vec<VEC> l0 = load_vec<VEC>(line + al.i0 * c + col);
-          const Vec<VEC> l1 = load_vec<VEC>(line + al.i1 * c + col);
-          Vec<VEC> prod;
-#pragma unroll
-          for (int q = 0; q < VEC; ++q) {
-            const float top = lerp(__fmul_rn(t00.v[q], v00), __fmul_rn(t01.v[q], v01), ax.u, ax.w);
-            const float bot = lerp(__fmul_rn(t10.v[q], v10), __fmul_rn(t11.v[q], v11), ax.u, ax.w);
-            const float pf = lerp(top, bot, ay.u, ay.w);
-            const float lf = lerp(__fmul_rn(l0.v[q], al.v0), __fmul_rn(l1.v[q], al.v1), al.u, al.w);
-            prod.v[q] = __fmul_rn(pf, lf);
+      for (int s = 0; s < 4; ++s) t[s] = zero_vec<VEC>();
+      l[0] = l[1] = zero_vec<VEC>();
+#pragma unroll 2
+      for (int u = 0; u < cnt; ++u) {
+        float s = 0.0f;
+        if (live) {
+          const Step e = st[u];
+          enter<VEC>(t[0], o.plane, e.plane.x, o.c);
+          enter<VEC>(t[1], o.plane, e.plane.y, o.c);
+          enter<VEC>(t[2], o.plane, e.plane.z, o.c);
+          enter<VEC>(t[3], o.plane, e.plane.w, o.c);
+          enter<VEC>(l[0], o.line, e.line.x, o.c);
+          enter<VEC>(l[1], o.line, e.line.y, o.c);
+          if (e.out) {  // rare: a corner outside the grid
+            flag_out<VEC>(t[0], e.out & 1);
+            flag_out<VEC>(t[1], e.out & 2);
+            flag_out<VEC>(t[2], e.out & 4);
+            flag_out<VEC>(t[3], e.out & 8);
+            flag_out<VEC>(l[0], e.out & 16);
+            flag_out<VEC>(l[1], e.out & 32);
           }
-          if (dens) {
+          const Vec<VEC> prod = product<VEC>(e, t, l);
+          if (o.out < 0) {
 #pragma unroll
             for (int q = 0; q < VEC; ++q) s += prod.v[q];
           } else {
-            store_vec<VEC>(app + n * a.app_cols + a.app_off[i] + col, prod);
+            store_stream<VEC>(out, prod, once);
           }
         }
+        if (lane < p.red) sums[u] = s;
+        out += a.app_cols;
       }
     }
-    for (int off = g >> 1; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off, g);
-    if (n < N && lane == 0) sigma[n] = s;
+    __syncthreads();
+    // sigma: the groups' density sums in a fixed order
+    for (int k = threadIdx.x; k < count; k += blockDim.x) {
+      float s = 0.0f;
+      for (int q = 0; q < p.parts * p.red; ++q) s += part_sigma[q * span + k];
+      sigma[n0 + k] = s;
+    }
   }
 }
+
+}  // namespace fwd
 
 struct FieldGrads {
   float* dplane[3];  // null: that table's gradient is not wanted
@@ -306,14 +516,6 @@ struct Plan {
   long long items;  // spans x rounds
 };
 
-template <int VEC>
-__device__ __forceinline__ Vec<VEC> zero_vec() {
-  Vec<VEC> x;
-#pragma unroll
-  for (int q = 0; q < VEC; ++q) x.v[q] = 0.0f;
-  return x;
-}
-
 // a word from shared or global memory (a generic address)
 template <int VEC>
 __device__ __forceinline__ Vec<VEC> load_any(const float* p);
@@ -327,24 +529,6 @@ template <>
 __device__ __forceinline__ Vec<4> load_any<4>(const float* p) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   return {{q.x, q.y, q.z, q.w}};
-}
-
-// An L2 policy for the upstream gradients, which stream through once:
-// evicted first, so that the rows of the tables and of their gradients,
-// which other rays come back to, stay longer
-__device__ __forceinline__ uint64_t stream_policy() {
-  uint64_t p;
-  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
-  return p;
-}
-
-template <class T>
-__device__ __forceinline__ T of_pair(const T (&x)[3], int i) {
-  return i == 0 ? x[0] : (i == 1 ? x[1] : x[2]);
-}
-
-__device__ __forceinline__ float coord(float x0, float x1, float x2, int k) {
-  return k == 0 ? x0 : (k == 1 ? x1 : x2);
 }
 
 // One lane's word of one axis pair: where it reads and adds.
@@ -733,10 +917,27 @@ bool fill_args(const long long* ptrs, const int* dims, bool app, int vec,
   return true;
 }
 
-int grid_blocks(long long N, int log_g, int max_blocks) {
-  const int64_t per_block = iff::kFieldThreads >> log_g;
-  const int64_t want = (N + per_block - 1) / per_block;
-  return static_cast<int>(want < max_blocks ? want : max_blocks);
+// The blocks of `threads` threads and `smem` bytes of the forward kernel
+// that fit on the current device at once (the kernel's shared-memory limit
+// raised to smem first: a launch takes at most the largest smem asked).
+int resident_blocks(bool vec, int threads, int smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (vec) {
+    if (smem > iff::fwd::kSmallSmem)
+      cudaFuncSetAttribute(iff::fwd::field_features_kernel<4>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, iff::fwd::field_features_kernel<4>,
+                                                  threads, smem);
+  } else {
+    if (smem > iff::fwd::kSmallSmem)
+      cudaFuncSetAttribute(iff::fwd::field_features_kernel<1>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, iff::fwd::field_features_kernel<1>,
+                                                  threads, smem);
+  }
+  return (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
 }
 
 }  // namespace
@@ -747,26 +948,70 @@ int grid_blocks(long long N, int log_g, int max_blocks) {
 // output column of each pair's products and their total width. sigma [N]
 // float32; app [N, width] float32, or null for density only (then Ra and the
 // app tables are not read). vec != 0 takes float4 words (every rank a
-// multiple of 4, every table and app 16-byte aligned). Returns a
-// cudaError_t; N == 0 launches nothing.
+// multiple of 4, every table and app 16-byte aligned). max_blocks caps
+// the grid. Returns a cudaError_t; N == 0 launches nothing.
 extern "C" int iff_field_features(const void* xyz, long long N, const long long* ptrs,
                                   const int* dims, void* sigma, void* app, int vec,
                                   int max_blocks, void* stream) {
+  namespace f = iff::fwd;
   if (N < 0 || max_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
   iff::FieldArgs a;
   int log_g;
   if (!fill_args(ptrs, dims, app != nullptr, vec, a, log_g))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = grid_blocks(N, log_g, max_blocks);
+  for (int i = 0; i < 3; ++i) {
+    const long long rows = static_cast<long long>(a.h[i]) * a.w[i] + a.len[i];
+    const int ranks = a.rd[i] > a.ra[i] ? a.rd[i] : a.ra[i];
+    if (rows * ranks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int words = vec ? 4 : 1;
+  const int g = 1 << log_g;
+  f::Plan p;
+  p.log_g = log_g;
+  p.parts = 0;
+  p.red = 1;
+  for (int i = 0; i < 3; ++i) {
+    p.parts += ((a.rd[i] + a.ra[i]) / words + g - 1) / g;
+    const int nd = a.rd[i] / words < g ? a.rd[i] / words : g;
+    p.red = nd > p.red ? nd : p.red;
+  }
+  // a run's share of shared memory: its steps for the 3 pairs and its
+  // groups' density sums
+  const int run_bytes =
+      (3 * static_cast<int>(sizeof(f::Step)) + p.parts * p.red * 4) * f::kMaxRun;
+  if (run_bytes > f::kSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int max_runs = f::kSmem / run_bytes;
+  // the fewest warps whose groups hold whole runs, doubled up to kWarps
+  // while the runs fit; a block whose groups are fewer than a run's parts
+  // passes over its runs until every part is done
+  const int per_warp = 32 >> log_g;
+  int warps = p.parts / std::gcd(p.parts, per_warp);
+  if (warps > f::kMaxWarps) warps = f::kMaxWarps;
+  while (2 * warps <= f::kWarps && 2 * warps * per_warp / p.parts <= max_runs) warps *= 2;
+  p.runs = warps * per_warp / p.parts;
+  p.runs = p.runs < 1 ? 1 : (p.runs > max_runs ? max_runs : p.runs);
+  const int threads = 32 * warps;
+  long long resident = resident_blocks(vec != 0, threads, p.runs * run_bytes);
+  if (resident > max_blocks) resident = max_blocks;
+  // the longest run that leaves every resident block kSpansPerBlock spans
+  p.run = f::kMaxRun;
+  while (p.run > 1 && (N + static_cast<long long>(p.runs) * p.run - 1) /
+                              (static_cast<long long>(p.runs) * p.run) <
+                          f::kSpansPerBlock * resident)
+    p.run >>= 1;
+  const long long span = static_cast<long long>(p.runs) * p.run;
+  p.spans = (N + span - 1) / span;
+  const int smem = static_cast<int>(span) * run_bytes / f::kMaxRun;
+  const int blocks = static_cast<int>(p.spans < resident ? p.spans : resident);
   auto s = static_cast<cudaStream_t>(stream);
   auto* x = static_cast<const float*>(xyz);
   auto* sg = static_cast<float*>(sigma);
   auto* ap = static_cast<float*>(app);
   if (vec)
-    iff::field_features_kernel<4><<<blocks, iff::kFieldThreads, 0, s>>>(x, sg, ap, a, N, log_g);
+    f::field_features_kernel<4><<<blocks, threads, smem, s>>>(x, sg, ap, a, p, N);
   else
-    iff::field_features_kernel<1><<<blocks, iff::kFieldThreads, 0, s>>>(x, sg, ap, a, N, log_g);
+    f::field_features_kernel<1><<<blocks, threads, smem, s>>>(x, sg, ap, a, p, N);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,9 @@ the field's row widths, ragged and empty index counts, the edge indices, a table
 rows are not 16-byte aligned and the mask lookup's stacked corners; the
 fused field kernel covers lego's widths and non-cubic grids with unequal
 ranks (float4 and 4-byte words), empty to colour-chunk sample counts, in
-its density-only and appearance modes, and so does its backward kernel
+its density-only and appearance modes, on scattered points and on
+ray-ordered samples (app products bit-equal, unaligned tables and
+coordinates too), and so does its backward kernel
 (``field_features_backward``, float4 and scalar atomics) against
 ``field_features_backward_plain``, on scattered points and on ray-ordered
 samples (rays along the axes and the diagonals at half-texel steps, runs
@@ -549,17 +551,24 @@ def _backward_inputs(config, layout, n, dev):
         dapp = torch.randn((n, width), generator=g)
         dapp[::7] = 0.0
         return xyz.to(dev), dsigma.to(dev), dapp.to(dev)
+    xyz = _ray_xyz(config, layout, n, "kRunSamples")
+    dsigma, dapp = ray_upstream(xyz.shape[0], width, 8)
+    return tuple(torch.as_tensor(a, device=dev) for a in (xyz, dsigma, dapp))
+
+
+def _ray_xyz(config, layout, n, run_name):
+    """``n`` ray-ordered samples (numpy) as ``_backward_inputs`` lays them
+    out; ``n`` may be "run-1", "run", "run+1" or "2run+1" of the run
+    length ``run_name`` read from the kernel's source."""
     if isinstance(n, str):
-        run = run_samples(Path(__file__).resolve().parents[1])
+        run = run_samples(Path(__file__).resolve().parents[1], run_name)
         n = {"run-1": run - 1, "run": run, "run+1": run + 1,
              "2run+1": 2 * run + 1}[n]
     dirs = {"axes": AXES, "diagonals": DIAGONALS, "rays": AXES + DIAGONALS}[layout]
     per_ray = 2 * max(config.grid_size) + 37
-    xyz = np.concatenate([
+    return np.concatenate([
         ray_ordered_samples(config.grid_size, dirs, per_ray, 7 + k, spread=0.9)
         for k in range(-(-n // (per_ray * len(dirs))))])[:n]
-    dsigma, dapp = ray_upstream(n, width, 8)
-    return tuple(torch.as_tensor(a, device=dev) for a in (xyz, dsigma, dapp))
 
 
 # scattered points, then ray-ordered samples: rays along each axis (hot
@@ -631,6 +640,71 @@ def test_field_backward_kernel_matches_plain_unaligned(dev, unaligned):
             torch.testing.assert_close(
                 a, b, rtol=0, atol=FIELD_GRAD_TOL * float(b.abs().max()),
                 msg=f"{name}[{i}]")
+
+
+# the forward on ray-ordered samples: the ray layouts of BACKWARD_CASES
+# (their run-length edges read as the forward's longest run, kMaxRun, which
+# small calls shorten) and a count at which the host's rule gives every
+# mode and word size the longest run, its last span part-filled
+FORWARD_CASES = ([case for case in BACKWARD_CASES if case[0] != "scattered"]
+                 + [("rays", 2_200_001)])
+
+
+def _forward_xyz(config, layout, n, dev):
+    return torch.as_tensor(_ray_xyz(config, layout, n, "kMaxRun"), device=dev)
+
+
+def _assert_forward_matches_plain(config, params, xyz, with_app):
+    """One launch; app products bit-equal to the plain version's on plain
+    gathers, sigma within rtol 1e-5 and an atol of 1e-6 x max|plain|."""
+    before = field_features.launches
+    got = field_features(config, params, xyz, with_app)
+    torch.cuda.synchronize()
+    assert field_features.launches == before + (xyz.shape[0] > 0)
+    want = field_features_plain(params, xyz, with_app, gather_rows_plain)
+    assert (got[1] is None) == (not with_app)
+    scale = float(want[0].abs().max()) if xyz.shape[0] else 0.0
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6 * scale)
+    if with_app:
+        assert got[1].shape == want[1].shape
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("with_app", [False, True])
+@pytest.mark.parametrize("layout,n", FORWARD_CASES)
+def test_field_forward_kernel_matches_plain_on_rays(dev, vm_field, layout, n,
+                                                    with_app):
+    """The forward kernel's walk on ray-ordered samples (rays along the
+    axes and the diagonals at half-texel steps, leaving [-1, 1], ray ends
+    inside runs; sample counts at the edges of the longest run and one
+    that takes it): app products bit-equal to the plain version's, sigma
+    within its tolerance. Lego's 300^3 grid (float4 words), a non-cubic
+    grid and one with ranks 2-5 (4-byte words), density-only and with
+    appearance."""
+    config, params = vm_field
+    _assert_forward_matches_plain(config, params,
+                                  _forward_xyz(config, layout, n, dev), with_app)
+
+
+@pytest.mark.parametrize("unaligned", ["table", "xyz"])
+def test_field_forward_kernel_matches_plain_unaligned(dev, unaligned):
+    """Lego's ranks on a small grid, ray-ordered samples long enough for
+    the longest run, with one table 4 bytes off 16-byte alignment (the
+    4-byte route: 2 groups a pair) or with xyz so (the float4 route, its
+    coordinates staged by 4-byte loads): bit-equal app products."""
+    config, params = _field(((40, 44, 48), (16, 16, 16), (48, 48, 48)), dev)
+    xyz = _forward_xyz(config, "rays", 2_200_001, dev)
+
+    def shifted(a):
+        out = torch.empty(a.numel() + 1, device=dev)[1:].view(a.shape)
+        out.copy_(a)
+        return out
+    if unaligned == "table":
+        params = dict(params, app_line=params["app_line"][:2]
+                      + (shifted(params["app_line"][2]),))
+    else:
+        xyz = shifted(xyz)
+    _assert_forward_matches_plain(config, params, xyz, True)
 
 
 def test_field_features_autograd_runs_the_backward_kernel(dev):
