@@ -20,9 +20,15 @@ filtering and the upsample to 300^3, with ``field_features``' forward
 and backward kernels held to their plain versions at the 128^3 and the
 final step's samples and on axis-aligned rays and timed there, the
 forward also beside F.grid_sample at the final step's samples, an eval
-render and a reduced run against the CPU). It checks
-what comes out, and times kernels, estimates, the object side and
-training steps with CUDA events and the host clock. Each
+render and a reduced run against the CPU), and the iNeRF refinement on a
+lego-width field with low-frequency appearance (``estimate_pose_inerf``:
+800 iterations of 1024 rays from the JAX test's perturbation of a frame
+rendered from the field, then ``test_pose_estimation`` with
+``inerf_refinement``), with ``field_features``' coordinate-gradient
+kernel held to its plain version and timed beside it. It checks
+what comes out, and times kernels, estimates, the object side,
+training steps and refinement iterations with CUDA events and the host
+clock. Each
 phase prints one JSON line; then come the card's name and power limit (as
 nvidia-smi gives them), the kernels line, and last
 ``{"ok": true, "device": {...}}``.
@@ -54,11 +60,18 @@ from iffnerf_tpu_torch.checkpoint import (
     _flatten,
     _numpy_leaves,
     load_field,
+    params_from_numpy,
     save_field,
 )
 from iffnerf_tpu_torch.config import config_parser
-from iffnerf_tpu_torch.data.rays_np import ray_directions_Ks_np
 from iffnerf_tpu_torch.device import leaves, resolve_device, trainable
+from iffnerf_tpu_torch.inerf import estimate as inerf_estimate
+from iffnerf_tpu_torch.inerf.estimate import (
+    GeneratorDraws,
+    estimate_pose_inerf,
+    loop_inputs,
+    ray_grids,
+)
 from iffnerf_tpu_torch.models.field import (
     FieldConfig,
     init_field,
@@ -67,7 +80,11 @@ from iffnerf_tpu_torch.models.field import (
     sample_alpha,
     upsample_volume_grid,
 )
-from iffnerf_tpu_torch.models.render import compute_alpha, sample_point_color_fn
+from iffnerf_tpu_torch.models.render import (
+    compute_alpha,
+    render_rays,
+    sample_point_color_fn,
+)
 from iffnerf_tpu_torch.ops import _build
 from iffnerf_tpu_torch.ops import banked_attention as banked_attention_module
 from iffnerf_tpu_torch.ops import field_features as field_features_module
@@ -84,6 +101,8 @@ from iffnerf_tpu_torch.ops.field_features import (
     field_features,
     field_features_backward,
     field_features_backward_plain,
+    field_features_coords_grad,
+    field_features_coords_grad_plain,
     field_features_plain,
     kernel_layout,
 )
@@ -119,6 +138,10 @@ from iffnerf_tpu_torch.pose.solve import (
     solve_pose_from_topk,
 )
 from iffnerf_tpu_torch.pose import trainer as trainer_module
+from iffnerf_tpu_torch.pose.geometry import (
+    compute_angular_error,
+    compute_translation_error,
+)
 from iffnerf_tpu_torch.pose.test import test_pose_estimation
 from iffnerf_tpu_torch.pose.trainer import (
     LEARNING_RATES,
@@ -217,6 +240,30 @@ FIELD_GRAD_TOL, FT_PLAIN_CHUNK, FT_REPS = 1e-4, 1 << 20, 5
 FT_AXIS_RAYS, FT_AXIS_PER_RAY = 4098, 600
 # the reduced card-vs-CPU run: grid, upsampled grid, batch, steps
 FT_SMALL_GRID, FT_SMALL_UP, FT_SMALL_BATCH, FT_SMALL_STEPS = 32, 40, 256, 3
+# iNeRF refinement at test_pose_estimation's settings (pose/test.py): 800
+# iterations of 1024 random pixels, lrate 0.02, dice loss, random
+# background, on the lego-width field at training's step_ratio 0.5 (about
+# 1 040 samples a ray), its appearance factors drawn on an
+# INERF_COARSE^3 grid and upsampled; started 12 degrees about z and +0.15
+# off the true pose (tests/test_pose_pipeline.py:163-170), both errors to
+# end below INERF_GAIN of the start (that test's rule)
+INERF_ITERS, INERF_BATCH, INERF_LRATE, INERF_STEP_RATIO = 800, 1024, 0.02, 0.5
+INERF_COARSE, INERF_APP_STD = 12, 3.0
+INERF_ROT_DEG, INERF_SHIFT, INERF_GAIN = 12.0, 0.15, 0.7
+INERF_ROUTE_ITERS, INERF_PROFILE_ITERS = 10, 10
+# the coordinate kernel against its plain version, of the largest |dxyz|:
+# each coordinate sums up to 3 x 64 rank terms at lego's ranks in another
+# order (shuffles against autograd's), n x 6e-8 of their magnitudes at worst
+COORDS_GRAD_TOL = 1e-4
+# an iteration's (w, v, theta) gradient through both kernels against the
+# all-plain route (fused_eval "off", plain gathers), of its largest
+# component: sigma's sum over ranks runs in another order, which can move
+# a sample across the 1e-4 appearance threshold (as COLOUR_ATOL says)
+POSE_GRAD_TOL = 1e-3
+# the two routes' poses after INERF_ROUTE_ITERS iterations on the same
+# draws: Adam's early steps are about lr x sign(grad), so gradients that
+# agree give poses that agree far inside a step (lr 0.02)
+POSE_ROUTE_ATOL = 1e-3
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
@@ -426,8 +473,10 @@ def phase_device():
 def _field_features_under_grad(call, config, field, xyz):
     """field_features under grad: one forward launch, one backward launch
     when the loss is differentiated, app_plane[0]'s gradient against the
-    plain version's, and an xyz that requires grad refused before any
-    launch -> the share of FIELD_GRAD_TOL the gradient's error takes."""
+    plain version's; then with xyz requiring grad too, one coordinate
+    launch a backward, xyz's gradient against the plain version's -> the
+    shares of FIELD_GRAD_TOL and COORDS_GRAD_TOL the gradients' errors
+    take."""
     before = (field_features.launches, field_features_backward.launches)
     sigma, app = call()
     (sigma.sum() + app.square().sum()).backward()
@@ -443,15 +492,24 @@ def _field_features_under_grad(call, config, field, xyz):
     share = float((got - want).abs().max()) / (
         FIELD_GRAD_TOL * float(want.abs().max()))
     check(share <= 1.0, f"field_features' gradient under autograd: {share}")
-    try:
-        field_features(config, field, xyz.clone().requires_grad_(), True)
-        refused = False
-    except NotImplementedError:
-        refused = True
-    check(refused and field_features.launches == before[0] + 1,
-          "field_features refuses a coordinate gradient before any launch")
+    leaf = xyz.clone().requires_grad_()
+    before = (field_features_backward.launches,
+              field_features_coords_grad.launches)
+    sigma, app = field_features(config, field, leaf, True)
+    (sigma.sum() + app.square().sum()).backward()
+    torch.cuda.synchronize()
+    check((field_features_backward.launches,
+           field_features_coords_grad.launches)
+          == (before[0] + 1, before[1] + 1),
+          "xyz under grad: one table and one coordinate backward launch")
+    want_xyz = field_features_coords_grad_plain(
+        field, xyz, torch.ones_like(sigma), 2 * app_plain)
+    xyz_share = float((leaf.grad - want_xyz).abs().max()) / (
+        COORDS_GRAD_TOL * float(want_xyz.abs().max()))
+    check(xyz_share <= 1.0, f"the coordinate gradient under autograd: "
+          f"{xyz_share}")
     return {"differentiable": True, "grad_share_of_tolerance": share,
-            "refused_xyz_grad": refused}
+            "xyz_grad_share_of_tolerance": xyz_share}
 
 
 def phase_banked_kernel(params, cfgs, img, mask, rays):
@@ -492,8 +550,9 @@ def phase_guards(params, cfg, img, mask, rays):
     input that requires it (they have no backward), before any launch, and
     run under torch.no_grad(); field_features, which has a backward, runs
     under grad (one forward launch, one backward launch on backward, the
-    table's gradient within FIELD_GRAD_TOL of the plain version's) and
-    refuses a coordinate gradient before any launch; shapes the banked
+    table's gradient within FIELD_GRAD_TOL of the plain version's; with xyz
+    under grad too, one coordinate launch, its gradient within
+    COORDS_GRAD_TOL of the plain version's); shapes the banked
     kernel refuses (64 patches, a bf16 depth of 96, a float32 depth of 48)
     go through score_rays to the exact path, with no launch."""
     dev = img.device
@@ -615,6 +674,7 @@ def _reset_counts():
     gather_rows.launches = 0
     field_features.launches = 0
     field_features_backward.launches = 0
+    field_features_coords_grad.launches = 0
 
 
 def _counts():
@@ -622,7 +682,8 @@ def _counts():
             "fused_ray_scores": fused_ray_scores.launches,
             "gather_rows": gather_rows.launches,
             "field_features": field_features.launches,
-            "field_features_backward": field_features_backward.launches}
+            "field_features_backward": field_features_backward.launches,
+            "field_features_coords_grad": field_features_coords_grad.launches}
 
 
 def _compare_routes(outs, refs, tag, min_overlap=K_TOP, c2w_tol=1e-4):
@@ -743,8 +804,8 @@ def phase_fused_estimate(params, cfg, imgs, mask, rays):
 def _profiled(name, run):
     """torch.profiler over ``run()``, which returns how many units of work
     (images, iterations, chunks) it did -> host ms and kernel ms a unit,
-    the device's busy share (kernel time over host time, profiler on) and
-    the kernels that take the most device time."""
+    the device's busy share (kernel time over host time, profiler on), the
+    kernels launched a unit and those that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -764,6 +825,7 @@ def _profiled(name, run):
     check(dev_ms > 0, f"profile {name}: the profiler saw device time")
     return {"units": units, "host_ms_per_unit": host_ms,
             "device_ms_per_unit": dev_ms, "device_busy_share": dev_ms / host_ms,
+            "kernels_per_unit": sum(e.count for e in kernels) / units,
             "top_kernels_ms_per_unit": {
                 e.key[:80]: e.self_device_time_total / 1e3 / units
                 for e in kernels[:8]}}
@@ -1568,21 +1630,20 @@ def phase_id_train_small(init, frames, rays, dev):
 # ---------------------------------------------------------------------------
 
 
+def lego_camera():
+    """lego's intrinsics at 800x800 (blender's camera_angle_x) -> K."""
+    focal = 0.5 * FT_WH / math.tan(0.5 * FT_CAMERA_ANGLE_X)
+    return np.array([[focal, 0, FT_WH / 2], [0, focal, FT_WH / 2], [0, 0, 1]],
+                    np.float32)
+
+
 def _ray_grid(dev):
     """lego's camera (800x800, camera_angle_x 0.6911) -> (unit camera-frame
     directions [H*W, 3], mip radii [H*W, 1]) on ``dev``, as the Blender
     loader computes them (data/rays_np.py)."""
-    focal = 0.5 * FT_WH / math.tan(0.5 * FT_CAMERA_ANGLE_X)
-    K = np.array([[[focal, 0, FT_WH / 2], [0, focal, FT_WH / 2], [0, 0, 1]]],
-                 np.float32)
-    dirs, dx, dy = (a[0].reshape(-1, 3)
-                    for a in ray_directions_Ks_np(FT_WH, FT_WH, K))
-    radii = (0.5 * (np.linalg.norm(dx - dirs, axis=-1)
-                    + np.linalg.norm(dy - dirs, axis=-1))
-             * (2.0 / math.sqrt(12.0)))[:, None]
-    unit = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
-    return (torch.as_tensor(unit, dtype=torch.float32, device=dev),
-            torch.as_tensor(radii, dtype=torch.float32, device=dev))
+    unit, radii = ray_grids(FT_WH, FT_WH, lego_camera())
+    return (torch.as_tensor(unit.reshape(-1, 3), device=dev),
+            torch.as_tensor(radii.reshape(-1, 1), device=dev))
 
 
 def synthetic_ray_pool(dev, n, seed, stacked=False):
@@ -1721,15 +1782,14 @@ def backward_errors(params, xyz, dsigma, dapp):
             "samples_with_grad": int((dsigma != 0).sum())}
 
 
-def backward_bound(params, xyz, dsigma, dapp):
-    """Bytes: the coordinates and upstream gradients read once, and each
-    table row that a sample with a nonzero upstream word touches read once
-    and its gradient row written once -> (ms, bound_by)."""
-    n = xyz.shape[0]
+def live_rows(params, xyz, dsigma, dapp):
+    """For each axis pair and kind (density; appearance when ``dapp`` is
+    given): (the plane and line rows that the samples with a nonzero
+    upstream word touch, the kind's ranks, those samples) -> a list."""
     _, dims = kernel_layout(params, dapp is not None)
-    moved = n * 12 + n * 4 + (0 if dapp is None else dapp.numel() * 4)
     live = {"density": dsigma != 0,
             "app": None if dapp is None else (dapp != 0).any(-1)}
+    out = []
     for i in range(3):
         h, w, length, rd, ra = dims[5 * i:5 * i + 5]
         m0, m1 = MAT_MODE[i]
@@ -1740,9 +1800,20 @@ def backward_bound(params, xyz, dsigma, dapp):
             plane, valid2, _ = corners_2d(h, w, torch.stack(
                 [pts[:, m0], pts[:, m1]], -1))
             line, valid1, _ = corners_1d(length, pts[:, VEC_MODE[i]])
-            rows = (torch.unique(plane[valid2]).numel()
-                    + torch.unique(line[valid1]).numel())
-            moved += 2 * rows * ranks * 4
+            out.append((torch.unique(plane[valid2]).numel()
+                        + torch.unique(line[valid1]).numel(), ranks,
+                        pts.shape[0]))
+    return out
+
+
+def backward_bound(params, xyz, dsigma, dapp):
+    """Bytes: the coordinates and upstream gradients read once, and each
+    table row that a sample with a nonzero upstream word touches read once
+    and its gradient row written once -> (ms, bound_by)."""
+    n = xyz.shape[0]
+    moved = n * 12 + n * 4 + (0 if dapp is None else dapp.numel() * 4)
+    moved += sum(2 * rows * ranks * 4
+                 for rows, ranks, _ in live_rows(params, xyz, dsigma, dapp))
     return bound(moved, 0.0, torch.float32)
 
 
@@ -2157,6 +2228,412 @@ def phase_field_train(dev):
     return counts, entry, fwd
 
 
+# ---------------------------------------------------------------------------
+# iNeRF refinement
+# ---------------------------------------------------------------------------
+
+
+def make_inerf_field(dev):
+    """The lego-width field of ``make_lego_field`` (300^3, ranks 16/48,
+    Ref shading, the cluster mask) at step_ratio 0.5, with low-frequency
+    appearance: its appearance factors drawn (mean 0, std INERF_APP_STD)
+    on an INERF_COARSE^3 grid and upsampled to 300^3 by
+    ``upsample_volume_grid``, so that the colour changes over tens of
+    texels, as a trained field's does, and a photometric loss has a basin
+    wider than the texel of per-texel noise. -> (config, params, mask)."""
+    cfg, np_params, mask = make_lego_field(dev, GRID)
+    params = params_from_numpy(np_params, device=dev)
+    rng = np.random.default_rng(SEED + 40)
+
+    def coarse_normal(shape):
+        return torch.as_tensor(INERF_APP_STD * rng.standard_normal(
+            shape, dtype=np.float32), device=dev)
+
+    c = INERF_COARSE
+    coarse = {}
+    for kind, comps in (("density", cfg.density_n_comp),
+                        ("app", cfg.app_n_comp)):
+        coarse[f"{kind}_plane"] = tuple(coarse_normal((c, c, comps[i]))
+                                        for i in range(3))
+        coarse[f"{kind}_line"] = tuple(coarse_normal((c, comps[i]))
+                                       for i in range(3))
+    _, smooth = upsample_volume_grid(cfg.replace(grid_size=(c,) * 3), coarse,
+                                     (GRID,) * 3)
+    for name in ("app_plane", "app_line"):
+        params[name] = tuple(a.contiguous() for a in smooth[name])
+    return cfg.replace(step_ratio=INERF_STEP_RATIO), params, mask
+
+
+def render_rgba(config, params, mask, c2w, cam_k, dev):
+    """An 800x800 RGBA frame of the field at ``c2w`` (no grad, chunks of
+    2^22 samples): the colour rendered over black divided by its opacity
+    (straight colour, as an RGBA image stores it) and the opacity as alpha
+    -> [800, 800, 4]."""
+    dirs, radii = (torch.as_tensor(a.reshape(-1, a.shape[-1]), device=dev)
+                   for a in ray_grids(FT_WH, FT_WH, cam_k))
+    pose = torch.as_tensor(c2w, device=dev)
+    rays_d = dirs @ pose[:3, :3].T
+    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    rays = torch.cat([pose[:3, 3].expand(rays_d.shape), rays_d, radii], -1)
+    chunk = (1 << 22) // config.n_samples
+    black = torch.zeros(3, device=dev)
+    out = []
+    with torch.no_grad():
+        for i in range(0, rays.shape[0], chunk):
+            rgb, _, acc, _, _, _ = render_rays(config, params, mask,
+                                               rays[i:i + chunk],
+                                               is_train=False, bg_color=black)
+            straight = torch.where(acc[:, None] > 1e-6,
+                                   rgb / acc.clamp_min(1e-6)[:, None], 0.0)
+            out.append(torch.cat([straight.clamp(0.0, 1.0), acc[:, None]], -1))
+    return torch.cat(out).reshape(FT_WH, FT_WH, 4)
+
+
+def perturbed(c2w):
+    """The JAX test's start: 12 degrees about z, then +0.15 on each
+    coordinate of the position (tests/test_pose_pipeline.py:163-170)."""
+    ang = math.radians(INERF_ROT_DEG)
+    rot = np.eye(4, dtype=np.float32)
+    cos, sin = math.cos(ang), math.sin(ang)
+    rot[:2, :2] = [[cos, -sin], [sin, cos]]
+    start = rot @ c2w
+    start[:3, 3] += INERF_SHIFT
+    return start.astype(np.float32)
+
+
+def pose_errors(gt, pose):
+    """(translation error, angular error in degrees) of ``pose`` [..., 4,
+    4] against ``gt``, with the port's pose.geometry."""
+    gt, pose = (torch.as_tensor(np.asarray(a), dtype=torch.float64)
+                for a in (gt, pose))
+    return (float(compute_translation_error(gt[:3, 3], pose[:3, 3])),
+            float(compute_angular_error(gt[:3, :3], pose[:3, :3])))
+
+
+@contextlib.contextmanager
+def kept_refine():
+    """Keeps the output of the iNeRF loop while open (estimate_pose_inerf
+    looks ``refine`` up in its module) -> {"out": (losses, pose, poses)}."""
+    kept = {}
+    refine = inerf_estimate.refine
+
+    def keep(*args, **kw):
+        kept["out"] = refine(*args, **kw)
+        return kept["out"]
+
+    inerf_estimate.refine = keep
+    try:
+        yield kept
+    finally:
+        inerf_estimate.refine = refine
+
+
+@contextlib.contextmanager
+def captured_coords_grad():
+    """Keeps a copy of the inputs of the first coordinate-kernel launch
+    while open -> {"inputs": (params, xyz, dsigma, dapp)}."""
+    out = {}
+    launch = field_features_module._launch_coords_grad
+
+    def capture(tables, dims, flat, dsigma, dapp):
+        if not out:
+            params = {name: tuple(tables[3 * j:3 * j + 3])
+                      for j, name in enumerate(TABLES)}
+            out["inputs"] = (params, flat.clone(), dsigma.clone(),
+                             None if dapp is None else dapp.clone())
+        return launch(tables, dims, flat, dsigma, dapp)
+
+    field_features_module._launch_coords_grad = capture
+    try:
+        yield out
+    finally:
+        field_features_module._launch_coords_grad = launch
+
+
+def plain_coords_grad_chunked(params, xyz, dsigma, dapp):
+    """field_features_coords_grad_plain over chunks of FT_PLAIN_CHUNK
+    samples (each sample's gradient is its own)."""
+    return torch.cat([field_features_coords_grad_plain(
+        params, xyz[i:i + FT_PLAIN_CHUNK], dsigma[i:i + FT_PLAIN_CHUNK],
+        None if dapp is None else dapp[i:i + FT_PLAIN_CHUNK])
+        for i in range(0, xyz.shape[0], FT_PLAIN_CHUNK)])
+
+
+def coords_grad_errors(params, xyz, dsigma, dapp):
+    """The coordinate kernel against its plain version: within
+    COORDS_GRAD_TOL of the largest |dxyz| (raises otherwise), a sample
+    without upstream exactly 0 -> the errors."""
+    got = field_features_coords_grad(FieldConfig(), params, xyz, dsigma, dapp)
+    torch.cuda.synchronize()
+    want = plain_coords_grad_chunked(params, xyz, dsigma, dapp)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    live = dsigma != 0
+    if dapp is not None:
+        live = live | (dapp != 0).any(-1)
+    out = {"n": xyz.shape[0], "max_abs_err": err, "max_abs_plain": scale,
+           "share_of_tolerance": err / (COORDS_GRAD_TOL * max(scale, 1e-30)),
+           "samples_with_upstream": int(live.sum())}
+    check(out["share_of_tolerance"] <= 1.0,
+          f"coordinate kernel vs plain: {out}")
+    check(not bool(got[~live].any()), "no upstream, no coordinate gradient")
+    return out
+
+
+def coords_grad_bound(params, xyz, dsigma, dapp):
+    """Bytes: xyz, dsigma and dapp read once, dxyz written once, and each
+    table row that a sample with a nonzero upstream touches read once;
+    operations: about 40 float32 operations a rank of each such sample
+    (six flag products, four lerps, the three derivative sums) -> (ms,
+    bound_by)."""
+    n = xyz.shape[0]
+    moved = n * 12 + n * 4 + (0 if dapp is None else dapp.numel() * 4) + n * 12
+    rows = live_rows(params, xyz, dsigma, dapp)
+    moved += sum(r * ranks * 4 for r, ranks, _ in rows)
+    ops = sum(40 * n_live * ranks for _, ranks, n_live in rows)
+    return bound(moved, ops, torch.float32)
+
+
+def library_coords_backward(params, xyz, dsigma, dapp):
+    """The same gradient through F.grid_sample's backward with respect to
+    the grid (the six lookups, tables frozen), a timing yardstick -> a
+    function that runs the backward once (the forward graph built once and
+    kept), after checking that it computes the same within
+    COORDS_GRAD_TOL."""
+    tables = library_tables(params)
+    coords = xyz.detach().requires_grad_()
+    sigma, app = library_features(tables, coords, True)
+
+    def run():
+        return torch.autograd.grad((sigma, app), coords, (dsigma, dapp),
+                                   retain_graph=True)[0]
+
+    want = plain_coords_grad_chunked(params, xyz, dsigma, dapp)
+    diff = float((run() - want).abs().max() / want.abs().max())
+    check(diff <= COORDS_GRAD_TOL, f"F.grid_sample backward yardstick "
+          f"computes the same ({diff})")
+    return run, diff
+
+
+def phase_inerf(id_params, id_cfg, rays, dev):
+    """iNeRF refinement at lego's width (``make_inerf_field``): the
+    coordinate kernel held to its plain version at one iteration's
+    samples and upstream, on random, texel-boundary and axis-aligned
+    points and on non-cubic fields (4-byte words too), and timed beside
+    its bound, its plain version and F.grid_sample's backward; one
+    iteration's pose gradient through the kernels against the all-plain
+    route, and 10 iterations of both on the same draws; then the main
+    path: ``estimate_pose_inerf`` at test_pose_estimation's settings from
+    the JAX test's perturbation of an 800x800 frame rendered from the
+    field (launch counts set to 0 just before and read just after; the
+    errors before and after, the loss, host and CUDA-event ms, a profiled
+    stretch of iterations, peak memory); and ``test_pose_estimation`` with
+    ``inerf_refinement`` on that frame. -> (the main path's launch counts,
+    the kernels line's entry for the coordinate kernel)."""
+    t0 = time.perf_counter()
+    config, params, mask = make_inerf_field(dev)
+    cam_k = lego_camera()
+    gt = _look_at_c2w(4.0 * np.array([math.cos(0.6) * math.cos(0.5),
+                                      math.sin(0.6) * math.cos(0.5),
+                                      math.sin(0.5)]))
+    obs = render_rgba(config, params, mask, gt, cam_k, dev)
+    target_s = _sync_s(t0)
+    check(bool(torch.isfinite(obs).all()), "finite target frame")
+    coverage = float((obs[..., 3] > 0.5).float().mean())
+    check(0.05 < coverage < 0.95, f"the object covers part of the frame "
+          f"({coverage})")
+    start = perturbed(gt)
+    obs_t, cand, dirs, radii = loop_inputs(obs, cam_k, dev)
+    start_t = torch.as_tensor(start, device=dev)
+    n_cand = cand.shape[0]
+
+    # one iteration's pose gradient: both kernels against the all-plain
+    # route, at a pose 0.05 from the start; the kernel's inputs kept
+    p = torch.as_tensor((0.05 * np.random.default_rng(SEED + 41)
+                         .standard_normal(7)).astype(np.float32), device=dev)
+    draws = GeneratorDraws(SEED, n_cand, INERF_BATCH, dev)
+    idx, colour = draws.step(0)
+
+    def pose_grad(cfg):
+        leaf = p.clone().requires_grad_()
+        total, _ = inerf_estimate._loss(cfg, params, mask, leaf, start_t,
+                                        obs_t, dirs, radii, cand[idx], colour,
+                                        True)
+        return torch.autograd.grad(total, leaf)[0]
+
+    plain_cfg = config.replace(fused_eval="off")
+    with captured_coords_grad() as caught:
+        g_kernel = pose_grad(config)
+    with plain_gathers():
+        g_plain = pose_grad(plain_cfg)
+    grad_share = float((g_kernel - g_plain).abs().max()) / (
+        POSE_GRAD_TOL * float(g_plain.abs().max()))
+    check(grad_share <= 1.0, f"pose gradient, kernels vs all-plain route: "
+          f"{g_kernel.tolist()} vs {g_plain.tolist()}")
+
+    def run_refine(cfg, n_iters, seed=SEED):
+        return inerf_estimate.refine(
+            cfg, params, mask, start_t, obs_t, cand, dirs, radii,
+            GeneratorDraws(seed, n_cand, INERF_BATCH, dev), lrate=INERF_LRATE,
+            n_iters=n_iters, color_bkgd_aug="random", dice_loss=True)
+
+    k_losses, _, k_poses = run_refine(config, INERF_ROUTE_ITERS)
+    with plain_gathers():
+        p_losses, _, p_poses = run_refine(plain_cfg, INERF_ROUTE_ITERS)
+    route_pose_diff = float((k_poses - p_poses).abs().max())
+    check(route_pose_diff <= POSE_ROUTE_ATOL, f"{INERF_ROUTE_ITERS} "
+          f"iterations, kernels vs all-plain route: poses {route_pose_diff}")
+    routes = {"grad_kernels": g_kernel.tolist(),
+              "grad_plain": g_plain.tolist(),
+              "grad_share_of_tolerance": grad_share,
+              "pose_max_abs_diff_after_10": route_pose_diff,
+              "loss_max_rel_diff_10": float(((k_losses - p_losses).abs()
+                                             / p_losses.abs()).max())}
+
+    # the coordinate kernel against its plain version, and its times
+    g = torch.Generator(device=dev).manual_seed(SEED + 42)
+    it_params, it_xyz, it_dsigma, it_dapp = caught["inputs"]
+    width = it_dapp.shape[1]
+
+    def upstream(n, seed):
+        return tuple(torch.as_tensor(a, device=dev)
+                     for a in ray_upstream(n, width, seed))
+
+    texels = (torch.randint(0, GRID, (10 ** 5, 3), generator=g, device=dev)
+              .float() * (2.0 / (GRID - 1)) - 1.0)
+    cases = {"iteration": (it_params, it_xyz, it_dsigma, it_dapp),
+             "uniform_1e6": (params, random_coords(10 ** 6, 1.2, g, dev),
+                             *upstream(10 ** 6, SEED + 43)),
+             "texel_boundaries": (params, texels,
+                                  *upstream(10 ** 5, SEED + 44)),
+             "axis_rays": axis_ray_inputs(params, dev)}
+    for name, (grid, rd, ra) in NON_CUBIC.items():
+        _, nc = random_vm_field(grid, rd, ra, g, dev)
+        n = 10 ** 5
+        ds, da = (torch.as_tensor(a, device=dev)
+                  for a in ray_upstream(n, sum(ra), SEED + 45))
+        cases[name] = (nc, random_coords(n, 1.1, g, dev), ds, da)
+    kernel_checks = {name: coords_grad_errors(*case)
+                     for name, case in cases.items()}
+    del cases
+    b_ms, b_by = coords_grad_bound(it_params, it_xyz, it_dsigma, it_dapp)
+    lib, lib_diff = library_coords_backward(it_params, it_xyz, it_dsigma,
+                                            it_dapp)
+
+    def ours():
+        return field_features_coords_grad(FieldConfig(), it_params, it_xyz,
+                                          it_dsigma, it_dapp)
+
+    row = {"n": it_xyz.shape[0], "ms": time_ms(ours, graph=True),
+           "eager_ms": time_ms(ours),
+           "plain_ms": time_ms(lambda: plain_coords_grad_chunked(
+               it_params, it_xyz, it_dsigma, it_dapp), reps=3),
+           "library_ms": time_ms(lib, reps=FT_REPS),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_max_rel_diff": lib_diff}
+    del lib, caught, it_params, it_xyz, it_dsigma, it_dapp
+    torch.cuda.empty_cache()
+
+    # the main path: estimate_pose_inerf at test_pose_estimation's settings
+    t_err0, a_err0 = pose_errors(gt, start)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with kept_refine() as kept:
+        _reset_counts()
+        begin.record()
+        t0 = time.perf_counter()
+        loss, refined, history = estimate_pose_inerf(
+            start, obs, cam_k, config, params, mask,
+            sampling_strategy="random", lrate=INERF_LRATE,
+            batch_size=INERF_BATCH, color_bkgd_aug="random",
+            n_iters=INERF_ITERS, dice_loss=True, seed=SEED,
+            return_history=True, device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+    events_ms = begin.elapsed_time(end)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = kept["out"][0].cpu().numpy()
+    check(counts == {"banked_scores": 0, "fused_ray_scores": 0,
+                     "gather_rows": INERF_ITERS,
+                     "field_features": INERF_ITERS,
+                     "field_features_backward": 0,
+                     "field_features_coords_grad": INERF_ITERS},
+          f"a refinement iteration launches field_features, its coordinate "
+          f"kernel and the mask lookup once each: {counts}")
+    # finite only: the exponential map of a w that is not a unit vector is
+    # not a rotation (the reference's CameraTransfer, and the JAX package's)
+    check(np.isfinite(losses).all() and np.isfinite(refined).all(),
+          "finite losses and pose")
+    rot = refined[:3, :3].astype(np.float64)
+    orthonormal_dev = float(np.abs(rot.T @ rot - np.eye(3)).max())
+    t_err1, a_err1 = pose_errors(gt, refined)
+    head, tail = float(losses[:50].mean()), float(losses[-50:].mean())
+    check(tail < head, f"the rgb loss falls ({head} -> {tail})")
+    check(t_err1 < INERF_GAIN * t_err0 and a_err1 < INERF_GAIN * a_err0,
+          f"refinement: translation {t_err0} -> {t_err1}, angle {a_err0} -> "
+          f"{a_err1}")
+    trace = {str(k): pose_errors(gt, history[k])
+             for k in (0, 50, 100, 200, 400, INERF_ITERS - 1)
+             if k < INERF_ITERS}
+
+    def some_iterations():
+        run_refine(config, INERF_PROFILE_ITERS, SEED + 1)
+        return INERF_PROFILE_ITERS
+
+    profile = _profiled("inerf_iteration", some_iterations)
+
+    # test_pose_estimation with the refinement, on the rendered frame
+    frame = types.SimpleNamespace(all_rgbs=obs[None], poses=gt[None],
+                                  img_wh=(FT_WH, FT_WH), K=cam_k[None])
+    t0 = time.perf_counter()
+    rows, tpe_t, tpe_a, _, _ = test_pose_estimation(
+        frame, id_params, id_cfg, *rays, torch.tensor(UP), sequence_id="lego",
+        inerf_refinement=True, nerf=(config, params, mask),
+        log_fn=lambda *a: None, device=dev)
+    tpe_s = _sync_s(t0)
+    check(len(rows) == 1 and math.isfinite(tpe_t) and math.isfinite(tpe_a),
+          f"test_pose_estimation with the refinement: {tpe_t}, {tpe_a}")
+    emit(phase="inerf", grid=GRID, step_ratio=INERF_STEP_RATIO,
+         n_samples=config.n_samples, batch=INERF_BATCH, iters=INERF_ITERS,
+         target_render_s=target_s, coverage=coverage, routes=routes,
+         coords_kernel_checks=kernel_checks, tolerance=COORDS_GRAD_TOL,
+         coords_kernel_at_iteration=row,
+         errors_before={"translation": t_err0, "angle_deg": a_err0},
+         errors_after={"translation": t_err1, "angle_deg": a_err1},
+         errors_by_iteration=trace, final_rgb_loss=loss,
+         refined_rotation_orthonormal_dev=orthonormal_dev,
+         loss_first_50=head, loss_last_50=tail, launches=counts,
+         launches_per_iteration={k: v / INERF_ITERS
+                                 for k, v in counts.items()},
+         frame_host_ms=host_ms, frame_events_ms=events_ms,
+         iteration_host_ms=host_ms / INERF_ITERS,
+         iteration_events_ms=events_ms / INERF_ITERS,
+         profile=profile, peak_mem_gb=peak_gb,
+         test_pose_estimation={"s": tpe_s, "translation_error": tpe_t,
+                               "angular_error": tpe_a})
+    entry = dict(
+        name="field_features_coords_grad", route="cuda",
+        source="iffnerf_tpu_torch/csrc/field_features.cu",
+        replaces="iffnerf_tpu/ops/packed_sample.py:256",
+        replaces_kind="g_weights of the XLA custom VJPs of the packed"
+                      " gathers (_gather_contract_bwd :256,"
+                      " _lerp_contract_mm_bwd :293); no pallas_call"
+                      " differentiates this work",
+        design="a group of 16 lanes a sample (a float4 word of an axis"
+               " pair's ranks each), the three pairs in turn: the corner"
+               " words times their flags, the lerp derivatives times the"
+               " upstream, sums by shuffles, one store of three floats;"
+               " no corner read for a zero upstream word",
+        launches=counts["field_features_coords_grad"],
+        launches_by_path={"inerf": counts["field_features_coords_grad"]},
+        max_abs_err=kernel_checks["iteration"]["max_abs_err"], **row)
+    return counts, entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2212,6 +2689,10 @@ def main() -> int:
     # TensoRF training: field_features and its backward every step, K3's
     # mask lookup every step
     ft_counts, ft_backward, ft_forward = phase_field_train(dev)
+    torch.cuda.empty_cache()
+    # iNeRF refinement: field_features, its coordinate kernel and K3's mask
+    # lookup every iteration
+    inerf_counts, coords_entry = phase_inerf(params, cfg16, rays, dev)
 
     n_est = N_WARM + N_TIMED
     kernels = [
@@ -2268,7 +2749,8 @@ def main() -> int:
              launches=obj_counts["gather_rows"], max_abs_err=k3_err,
              launches_by_path={"object": obj_counts["gather_rows"],
                                "id_train": id_counts["gather_rows"],
-                               "field_train": ft_counts["gather_rows"]},
+                               "field_train": ft_counts["gather_rows"],
+                               "inerf": inerf_counts["gather_rows"]},
              **rows["gather_rows/mask_stacked"]),
         dict(name="field_features", route="cuda",
              source="iffnerf_tpu_torch/csrc/field_features.cu",
@@ -2291,10 +2773,12 @@ def main() -> int:
              ms_axis_rays=ft_forward["checks"]["axis_rays"]["ms"],
              launches_by_path={"object": obj_counts["field_features"],
                                "id_train": id_counts["field_features"],
-                               "field_train": ft_counts["field_features"]},
+                               "field_train": ft_counts["field_features"],
+                               "inerf": inerf_counts["field_features"]},
              at_training_step=ft_forward,
              **rows["field_features/colour_chunk/both"]),
         ft_backward,
+        coords_entry,
     ]
     emit(phase="latency", banked_ms_per_image=banked_ms,
          banked_float32_ms_per_image=banked32_ms, fused_ms_per_image=fused_ms,

@@ -104,6 +104,24 @@
 // REDs that remain (rays cross each other's rows, the line rows most of
 // all: a few hundred a pair, which every ray adds into), and the reads of
 // the rows a cell enters, which queue behind them in L2.
+//
+// The coordinate gradient (field_features_coords_grad_kernel,
+// iff_field_features_coords_grad) is the gradient of the same function
+// with respect to the sample points, which iNeRF needs: the camera pose
+// reaches the field through them. For each sample and axis pair, with u
+// the upstream word, lerp(L) times the bilerp's derivative in each plane
+// weight, and bilerp(P) times (L1 - L0), summed over the ranks and scaled
+// by (size - 1) / 2. The JAX package derives it in XLA from the
+// interpolation weights' cotangent (g_weights in _gather_contract_bwd and
+// _lerp_contract_mm_bwd, iffnerf_tpu/ops/packed_sample.py:256,293), not in
+// a Pallas kernel. It takes the forward's floors (axis_floor), so a sample
+// at a texel boundary falls in the forward's cell. Bound on an H100 SXM:
+// bytes, nearly all of them the upstream read (576 B a sample at lego's
+// ranks, about 0.6 GB at an iNeRF iteration's 1.06 M samples), most of it
+// zeros; the corner rows of the samples with upstream come from L1 and
+// L2. The design is the simple one: a group of lanes a sample, the pairs
+// in turn, sums by shuffles, one plain store of three floats (no atomics:
+// the result is deterministic), and no corner read for a zero word.
 #include <cstdint>
 #include <numeric>
 
@@ -881,6 +899,111 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 }
 
 }  // namespace bwd
+
+namespace cgrad {
+
+constexpr int kThreads = 256;
+
+// The coordinate gradient: a group of g lanes a sample (g as the forward's,
+// 16 at lego's ranks in float4 words), each lane a word of the axis pair's
+// ranks, the three pairs in turn. A lane reads the pair's 4 plane and 2
+// line corner words of its ranks (each times its flag, as the samplers
+// multiply a fetched row by it) and adds, over its word, u lerp(L) d(bilerp
+// P)/dwx, u lerp(L) d(bilerp P)/dwy and u bilerp(P) (L1 - L0), u the
+// upstream word; the weights' derivatives are scaled by (size - 1) / 2 into
+// the coordinates'. The group's sums meet by shuffles and lane 0 stores the
+// sample's three floats. A word whose upstream is zero (most of them: a
+// sample outside the AABB or the alpha mask has none) reads no corner.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+    field_features_coords_grad_kernel(const float* __restrict__ xyz,
+                                      const float* __restrict__ dsigma,
+                                      const float* __restrict__ dapp,
+                                      const __grid_constant__ FieldArgs a, int log_g, int64_t N,
+                                      float* __restrict__ dxyz) {
+  const int g = 1 << log_g;
+  const int lane = threadIdx.x & (g - 1);
+  const int groups = blockDim.x >> log_g;
+  const unsigned gmask =
+      g == 32 ? 0xffffffffu : ((1u << g) - 1) << ((threadIdx.x & 31) & ~(g - 1));
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * groups;
+  for (int64_t n = static_cast<int64_t>(blockIdx.x) * groups + (threadIdx.x >> log_g); n < N;
+       n += stride) {
+    const float x[3] = {__ldg(xyz + 3 * n), __ldg(xyz + 3 * n + 1), __ldg(xyz + 3 * n + 2)};
+    const float ds = __ldg(dsigma + n);
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      // MAT_MODE ((0, 1), (0, 2), (1, 2)), VEC_MODE (2, 1, 0)
+      const int mx = i == 2 ? 1 : 0, my = i == 0 ? 1 : 2, ml = 2 - i;
+      const int h = a.h[i], w = a.w[i], len = a.len[i];
+      // the forward's floors: a sample's cell is chosen as the forward chooses it
+      const Floor fx = axis_floor(x[mx], w);
+      const Floor fy = axis_floor(x[my], h);
+      const Floor fl = axis_floor(x[ml], len);
+      const bool ix0 = fx.f >= 0 && fx.f < w, ix1 = fx.f + 1 >= 0 && fx.f + 1 < w;
+      const bool iy0 = fy.f >= 0 && fy.f < h, iy1 = fy.f + 1 >= 0 && fy.f + 1 < h;
+      const float flag[4] = {iy0 && ix0 ? 1.0f : 0.0f, iy0 && ix1 ? 1.0f : 0.0f,
+                             iy1 && ix0 ? 1.0f : 0.0f, iy1 && ix1 ? 1.0f : 0.0f};
+      const float lflag[2] = {fl.f >= 0 && fl.f < len ? 1.0f : 0.0f,
+                              fl.f + 1 >= 0 && fl.f + 1 < len ? 1.0f : 0.0f};
+      const int y0 = fwd::clamp_index(fy.f, h) * w, y1 = fwd::clamp_index(fy.f + 1, h) * w;
+      const int x0 = fwd::clamp_index(fx.f, w), x1 = fwd::clamp_index(fx.f + 1, w);
+      const int rows[4] = {y0 + x0, y0 + x1, y1 + x0, y1 + x1};
+      const int lrows[2] = {fwd::clamp_index(fl.f, len), fwd::clamp_index(fl.f + 1, len)};
+      const int nd = a.rd[i] / VEC;
+      const int nw = nd + a.ra[i] / VEC;
+      float gx = 0.0f, gy = 0.0f, gl = 0.0f;
+      for (int j = lane; j < nw; j += g) {
+        const bool dens = j < nd;
+        const int col = (dens ? j : j - nd) * VEC;
+        Vec<VEC> u;
+        if (dens) {
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) u.v[q] = ds;
+        } else {
+          u = load_vec<VEC>(dapp + n * a.app_cols + a.app_off[i] + col);
+        }
+        if (!any_nonzero<VEC>(u)) continue;
+        const int c = dens ? a.rd[i] : a.ra[i];
+        const float* plane = (dens ? a.dplane[i] : a.aplane[i]) + col;
+        const float* line = (dens ? a.dline[i] : a.aline[i]) + col;
+        Vec<VEC> t[4], l[2];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) t[s] = load_vec<VEC>(plane + rows[s] * c);
+#pragma unroll
+        for (int s = 0; s < 2; ++s) l[s] = load_vec<VEC>(line + lrows[s] * c);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) {
+          const float p00 = t[0].v[q] * flag[0], p01 = t[1].v[q] * flag[1];
+          const float p10 = t[2].v[q] * flag[2], p11 = t[3].v[q] * flag[3];
+          const float l0 = l[0].v[q] * lflag[0], l1 = l[1].v[q] * lflag[1];
+          const float lf = lerp(l0, l1, fl.u, fl.w);
+          const float pf = lerp(lerp(p00, p01, fx.u, fx.w), lerp(p10, p11, fx.u, fx.w), fy.u, fy.w);
+          const float ul = u.v[q] * lf;
+          gx += ul * (fy.u * (p01 - p00) + fy.w * (p11 - p10));
+          gy += ul * (fx.u * (p10 - p00) + fx.w * (p11 - p01));
+          gl += u.v[q] * pf * (l1 - l0);
+        }
+      }
+      acc[mx] += gx * (0.5f * static_cast<float>(w - 1));
+      acc[my] += gy * (0.5f * static_cast<float>(h - 1));
+      acc[ml] += gl * (0.5f * static_cast<float>(len - 1));
+    }
+#pragma unroll
+    for (int off = g >> 1; off > 0; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) acc[k] += __shfl_xor_sync(gmask, acc[k], off);
+    }
+    if (lane == 0) {
+      dxyz[3 * n] = acc[0];
+      dxyz[3 * n + 1] = acc[1];
+      dxyz[3 * n + 2] = acc[2];
+    }
+  }
+}
+
+}  // namespace cgrad
 }  // namespace iff
 
 namespace {
@@ -1078,5 +1201,44 @@ extern "C" int iff_field_features_bwd(const void* xyz, long long N, const long l
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     b::field_features_bwd_kernel<1><<<blocks, b::kThreads, smem, s>>>(x, ds, da, a, gr, p, N);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The coordinate gradient of iff_field_features: xyz, ptrs and dims as it
+// takes them; dsigma [N] float32; dapp [N, width] float32, or null for
+// density only; dxyz [N, 3] float32, written whole (zeros for a sample
+// without upstream). vec != 0 takes float4 words (every rank a multiple of
+// 4, every table and dapp 16-byte aligned). max_blocks caps the grid.
+// Returns a cudaError_t; N == 0 launches nothing.
+extern "C" int iff_field_features_coords_grad(const void* xyz, long long N,
+                                              const long long* ptrs, const int* dims,
+                                              const void* dsigma, const void* dapp, void* dxyz,
+                                              int vec, int max_blocks, void* stream) {
+  namespace c = iff::cgrad;
+  if (N < 0 || max_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return 0;
+  iff::FieldArgs a;
+  int log_g;
+  if (!fill_args(ptrs, dims, dapp != nullptr, vec, a, log_g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < 3; ++i) {
+    const long long rows = static_cast<long long>(a.h[i]) * a.w[i] + a.len[i];
+    const int ranks = a.rd[i] > a.ra[i] ? a.rd[i] : a.ra[i];
+    if (rows * ranks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long groups = c::kThreads >> log_g;
+  long long blocks = (N + groups - 1) / groups;
+  if (blocks > max_blocks) blocks = max_blocks;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* x = static_cast<const float*>(xyz);
+  auto* ds = static_cast<const float*>(dsigma);
+  auto* da = static_cast<const float*>(dapp);
+  auto* out = static_cast<float*>(dxyz);
+  if (vec)
+    c::field_features_coords_grad_kernel<4>
+        <<<static_cast<int>(blocks), c::kThreads, 0, s>>>(x, ds, da, a, log_g, N, out);
+  else
+    c::field_features_coords_grad_kernel<1>
+        <<<static_cast<int>(blocks), c::kThreads, 0, s>>>(x, ds, da, a, log_g, N, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -105,7 +105,9 @@ def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
                 ndc_ray: bool = False, sample_mode: str = "aabb",
                 n_samples: int = -1):
     """Volumetric forward (reference TensorBase.forward,
-    tensorBase.py:775-917), differentiable in ``params``:
+    tensorBase.py:775-917), differentiable in ``params`` and in
+    ``rays_chunk`` (the sample points, the z values through the AABB entry
+    and the view directions carry the gradient; iNeRF's pose gradient):
 
       * appearance features are accumulated along the ray first and the
         shading head runs once per ray on the accumulated feature;
@@ -115,8 +117,9 @@ def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
 
     ``sample_mode`` is "aabb" or "point_color"; rays_chunk is [N, 6|7]
     (ori, dir, optional mip radius). ``is_train`` jitters the AABB samples
-    (``sample_ray``'s ``gen`` or ``jitter``). The depth carries no
-    gradient, as in the JAX package. Returns (rgb [N,3], depth [N], acc [N],
+    (``sample_ray``'s ``gen`` or ``jitter``). The alpha-mask lookup is a
+    boolean test on detached points, and the depth carries no gradient, as
+    in the JAX package. Returns (rgb [N,3], depth [N], acc [N],
     alpha [N,S], z_vals [N,S], dists [N,S])."""
     if ndc_ray:
         raise NotImplementedError("ndc sampling is not ported")
@@ -136,7 +139,7 @@ def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
     dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                        torch.zeros_like(z_vals[:, :1])], dim=-1)
     if mask is not None:
-        ray_valid = ray_valid & (sample_alpha(mask, xyz) > 0)
+        ray_valid = ray_valid & (sample_alpha(mask, xyz.detach()) > 0)
 
     sigma_feature, app_features = compute_features(
         config, params, normalize_coord(config, xyz))

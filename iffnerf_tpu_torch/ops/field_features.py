@@ -20,17 +20,21 @@ zeros padding, int32 corners clamped with validity flags. Plane i is
 ``(m0, m1) = MAT_MODE[i]``; line i is ``[L, R]``, indexed by
 xyz[VEC_MODE[i]] (reference tensorBase.py:311-312).
 
-On CUDA the function is differentiable in the tables: an
-``autograd.Function`` saves the coordinates and the tables it was given
-(nothing it computed), and its backward launches the hand-written kernel
-``iff_field_features_bwd`` through ``field_features_backward``, which
-scatter-adds each corner's weight times the other factor times the
-upstream gradient into zeroed gradient tables with atomics. The JAX
-package differentiates the same work in XLA
-(``iffnerf_tpu/ops/packed_sample.py:234-305``). Its plain version,
-``field_features_backward_plain``, is torch's autograd through the grid
-samplers on ``gather_rows_plain``. No coordinate gradient: sample points
-never require grad in training, and an ``xyz`` that does raises.
+On CUDA the function is differentiable in the tables and in the
+coordinates: an ``autograd.Function`` saves the coordinates and the
+tables it was given (nothing it computed). For the tables its backward
+launches the hand-written kernel ``iff_field_features_bwd`` (the wrapper
+``field_features_backward``), which scatter-adds each corner's weight
+times the other factor times the upstream gradient into zeroed gradient
+tables with atomics; for the coordinates (iNeRF's pose gradient reaches
+the sample points) the kernel ``iff_field_features_coords_grad`` (the
+wrapper ``field_features_coords_grad``), which sums each sample's
+derivatives in its interpolation weights times the upstream gradient.
+Each launches only when its inputs require grad. The JAX package
+differentiates the same work in XLA
+(``iffnerf_tpu/ops/packed_sample.py:234-305``). The plain versions,
+``field_features_backward_plain`` and ``field_features_coords_grad_plain``,
+are torch's autograd through the grid samplers on ``gather_rows_plain``.
 """
 
 from __future__ import annotations
@@ -58,6 +62,10 @@ _SIGNATURES = {
                                ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
                                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                ctypes.c_void_p],
+    "iff_field_features_coords_grad": [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 TABLES = tuple(f"{kind}_{part}" for kind in ("density", "app")
                for part in ("plane", "line"))
@@ -127,6 +135,26 @@ def field_features_backward_plain(params, xyz: torch.Tensor, dsigma,
     grads = [torch.zeros_like(a) if g is None else g
              for a, g in zip(flat, grads)]
     return {k: tuple(grads[3 * j:3 * j + 3]) for j, k in enumerate(names)}
+
+
+def field_features_coords_grad_plain(params, xyz: torch.Tensor, dsigma,
+                                     dapp=None) -> torch.Tensor:
+    """The coordinate backward's function in plain torch: the gradient of
+    sum(sigma * dsigma) (+ sum(app * dapp) when ``dapp`` is given) with
+    respect to xyz [..., 3], the tables frozen, by autograd through the
+    grid samplers on ``gather_rows_plain`` -> [..., 3]."""
+    names = TABLES if dapp is not None else TABLES[:2]
+    frozen = {k: tuple(a.detach() for a in params[k]) for k in names}
+    with torch.enable_grad():
+        leaf = xyz.detach().requires_grad_()
+        sigma, app = field_features_plain(frozen, leaf, dapp is not None,
+                                          gather_rows_plain)
+        outs, ups = [sigma], [dsigma]
+        if dapp is not None:
+            outs.append(app)
+            ups.append(dapp)
+        (grad,) = torch.autograd.grad(outs, [leaf], ups)
+    return grad
 
 
 def kernel_layout(params, with_app: bool):
@@ -230,10 +258,32 @@ def _launch_backward(tables, dims, flat, dsigma, dapp, wanted):
     return grads
 
 
+def _launch_coords_grad(tables, dims, flat, dsigma, dapp):
+    """The gradient of sum(sigma * dsigma) (+ sum(app * dapp)) with respect
+    to the coordinates flat [n, 3] -> [n, 3]."""
+    n = flat.shape[0]
+    dxyz = torch.empty((n, 3), dtype=torch.float32, device=flat.device)
+    if n > 0:
+        lib = _build.load("field_features", _SIGNATURES)
+        ptrs = [0 if a is None else a.data_ptr() for a in tables]
+        vec = _vec(dims, ptrs + ([] if dapp is None else [dapp.data_ptr()]))
+        stream = torch.cuda.current_stream(flat.device).cuda_stream
+        rc = lib.iff_field_features_coords_grad(
+            flat.data_ptr(), n, (ctypes.c_longlong * 12)(*ptrs),
+            (ctypes.c_int * len(dims))(*dims), dsigma.data_ptr(),
+            0 if dapp is None else dapp.data_ptr(), dxyz.data_ptr(), int(vec),
+            BLOCKS_PER_SM * _build.sm_count(flat.device), stream)
+        _build.check(rc, "field_features coordinate-gradient kernel launch")
+        field_features_coords_grad.launches += 1
+    return dxyz
+
+
 class _FieldFeatures(torch.autograd.Function):
-    """The kernel's forward and its hand-written backward. Saves the
+    """The kernel's forward and its hand-written backwards. Saves the
     coordinates and the 12 tables as given (None for the appearance tables
-    of a density-only call); the backward's gradients go to the tables."""
+    of a density-only call); the backward launches the table kernel for
+    the tables that require grad and the coordinate kernel when the
+    coordinates do."""
 
     @staticmethod
     def forward(ctx, dims, with_app, flat, *tables):
@@ -245,11 +295,13 @@ class _FieldFeatures(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dsigma, dapp=None):
         flat, *tables = ctx.saved_tensors
-        grads = _launch_backward(
-            tables, ctx.dims, flat, dsigma.contiguous(),
-            dapp.contiguous() if ctx.with_app else None,
-            ctx.needs_input_grad[3:])
-        return (None, None, None, *grads)
+        dsigma = dsigma.contiguous()
+        dapp = dapp.contiguous() if ctx.with_app else None
+        grads = _launch_backward(tables, ctx.dims, flat, dsigma, dapp,
+                                 ctx.needs_input_grad[3:])
+        dxyz = (_launch_coords_grad(tables, ctx.dims, flat, dsigma, dapp)
+                if ctx.needs_input_grad[2] else None)
+        return (None, None, dxyz, *grads)
 
 
 def field_features(config, params, xyz: torch.Tensor, with_app: bool = True):
@@ -257,15 +309,11 @@ def field_features(config, params, xyz: torch.Tensor, with_app: bool = True):
     without ``with_app``) of a TensorVMSplit field at normalized coords xyz
     [..., 3]. CPU tensors take the plain version; CUDA tensors launch the
     kernel (none for no samples) or raise. On CUDA, tables that require
-    grad get their gradients from the backward kernel; an ``xyz`` that
-    requires grad raises."""
+    grad get their gradients from the backward kernel, and an ``xyz`` that
+    requires grad from the coordinate-gradient kernel."""
     _check(config, params, xyz)
     if xyz.device.type == "cpu":
         return field_features_plain(params, xyz, with_app)
-    if torch.is_grad_enabled() and xyz.requires_grad:
-        raise NotImplementedError(
-            "field_features has no coordinate gradient on CUDA: detach xyz "
-            "(sample points never require grad in training)")
     if xyz.device.type != "cuda":
         raise ValueError(f"no field-feature kernel for {xyz.device}")
     tables, dims = kernel_layout(params, with_app)
@@ -301,5 +349,35 @@ def field_features_backward(config, params, xyz: torch.Tensor,
     return {k: tuple(grads[3 * j:3 * j + 3]) for j, k in enumerate(names)}
 
 
+def field_features_coords_grad(config, params, xyz: torch.Tensor,
+                               dsigma: torch.Tensor, dapp=None):
+    """The coordinate-gradient kernel's wrapper: the gradient of sum(sigma
+    * dsigma) (+ sum(app * dapp) when ``dapp`` [..., sum(R_app)] is given)
+    with respect to xyz [..., 3], for CUDA tensors -> [..., 3]. CPU
+    tensors take ``field_features_coords_grad_plain``."""
+    _check(config, params, xyz)
+    if xyz.device.type == "cpu":
+        return field_features_coords_grad_plain(params, xyz, dsigma, dapp)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"no field-feature kernel for {xyz.device}")
+    tables, dims = kernel_layout(params, dapp is not None)
+    lead = xyz.shape[:-1]
+    if dsigma.shape != lead or (dapp is not None
+                                and dapp.shape != lead + (dims[-1],)):
+        raise ValueError(
+            f"upstream must be dsigma {tuple(lead)} and dapp "
+            f"{tuple(lead) + (dims[-1],)}, got {tuple(dsigma.shape)} and "
+            f"{None if dapp is None else tuple(dapp.shape)}")
+    if any(u is not None and u.device != xyz.device for u in (dsigma, dapp)):
+        raise ValueError(f"the upstream must lie on {xyz.device}")
+    flat = xyz.reshape(-1, 3).contiguous()
+    dsigma = dsigma.reshape(-1).contiguous().float()
+    if dapp is not None:
+        dapp = dapp.reshape(-1, dims[-1]).contiguous().float()
+    return _launch_coords_grad(tables, dims, flat, dsigma, dapp).reshape(
+        xyz.shape)
+
+
 field_features.launches = 0
 field_features_backward.launches = 0
+field_features_coords_grad.launches = 0

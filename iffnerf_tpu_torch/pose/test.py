@@ -1,7 +1,8 @@
 """Pose-estimation evaluation harness (reference pose_estimation/test.py:10-268):
-per test image run the banked single-image estimate, accumulate the
-translation and angular errors, the top-100 recall and the score loss,
-and emit the reference's JSON rows (test.py:235-247)."""
+per test image run the banked single-image estimate (refined by iNeRF on
+request), accumulate the translation and angular errors, the top-100
+recall and the score loss, and emit the reference's JSON rows
+(test.py:235-247)."""
 
 from __future__ import annotations
 
@@ -105,14 +106,16 @@ def test_pose_estimation(dataset, id_params, id_config: IDConfig, rays_ori,
 
     ``save`` dumps the tensors of image 0 (every image with ``save_all``)
     to ``save_dir/sample_results_<i>.npz`` with the reference's field names
-    (test.py:93-105,140-145,178-190). The sharded route (``mesh``) and the
-    iNeRF refinement (``inerf_refinement``, with its field ``nerf``) are
-    not ported and raise. The parameters are the JAX package's, in its
-    order, with ``device`` last."""
+    (test.py:93-105,140-145,178-190). With ``inerf_refinement`` and a
+    field ``nerf`` = (config, params, mask), each frame's estimate is
+    refined by ``estimate_pose_inerf`` (800 iterations, learning rate 0.02,
+    dice loss, random pixels; the JAX package's arguments) before its
+    errors are taken; the refinement runs under grad and is not in the
+    frame's time. The sharded route (``mesh``) is not ported and raises.
+    The parameters are the JAX package's, in its order, with ``device``
+    last."""
     if mesh is not None:
         raise NotImplementedError("the sharded pose route is not ported")
-    if inerf_refinement or nerf is not None:
-        raise NotImplementedError("the iNeRF refinement is not ported")
     dev = resolve_device(device)
     id_params = tree_to(id_params, dev)
     rays_ori, rays_dirs, rays_rgb, model_up = (
@@ -189,6 +192,17 @@ def test_pose_estimation(dataset, id_params, id_config: IDConfig, rays_ori,
             np.savez(os.path.join(save_dir, f"sample_results_{img_idx}.npz"),
                      **dump)
             log_fn("Sample result saved")
+
+        if inerf_refinement and nerf is not None:
+            from iffnerf_tpu_torch.inerf import estimate_pose_inerf
+
+            nerf_config, nerf_params, nerf_mask = nerf
+            obs4 = torch.cat([obs_img, mask_img[..., None]], dim=-1)
+            _, refined, _ = estimate_pose_inerf(
+                c2w, obs4, np.asarray(dataset.K[0]), nerf_config, nerf_params,
+                nerf_mask, n_iters=800, lrate=0.02, dice_loss=True,
+                sampling_strategy="random", device=dev)
+            c2w = as_tensor(refined, dev, torch.float32)
 
         translation_errors.append(
             float(compute_translation_error(pose[:3, 3], c2w[:3, 3])))

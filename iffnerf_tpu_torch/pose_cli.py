@@ -6,10 +6,11 @@ For each ``tensorf_<obj>_VM`` run dir (``_VMtt`` for Tanks&Temples) in
 Module against the frozen field (or resumes it from the ``id_module.npz``
 beside the checkpoint, at its ``epoch``), saves it there, then evaluates
 single-image pose on the test split twice (as the reference does after
-training, both passes reseeded with starting_seed=55176280), writing the
-JSON rows of every frame to ``--out_path``. An object whose run raises a
-``RuntimeError`` is skipped with its traceback printed. Flags come from
-the command line over a ``--config`` file (``config.py``).
+training, both passes reseeded with starting_seed=55176280), each frame
+refined by iNeRF against the field with ``--algorithm_type inerf_dice``,
+writing the JSON rows of every frame to ``--out_path``. An object whose
+run raises a ``RuntimeError`` is skipped with its traceback printed. Flags
+come from the command line over a ``--config`` file (``config.py``).
 
     python -m iffnerf_tpu_torch.pose_cli --config configs/lego.txt \\
         --datadir DATA --exp_patch LOG --out_path pose_eval.json [--device cpu]
@@ -56,7 +57,8 @@ def add_pose_args(parser):
                         help="seeds the ID module's initialisation, the "
                              "training image stream and the ray generator")
     parser.add_argument("--algorithm_type", type=str, default="inerf",
-                        help="inerf_dice (iNeRF refinement) is not ported")
+                        help="inerf_dice refines each test frame's estimate "
+                             "with iNeRF against the field")
     parser.add_argument("--starting_pose_strategy", type=str,
                         default="histogram_comparison",
                         help="accepted for reference-CLI parity (unused, "
@@ -101,6 +103,8 @@ def pretrain_single_object(args, data_path: str, loader, ckpt_path: str,
     test_dataset = loader(data_path, split="test",
                           downsample=args.downsample_train, is_stack=True)
     config, params, mask = load_model(ckpt_path, device=dev)
+    nerf = (config, params, mask)
+    inerf_refinement = args.algorithm_type == "inerf_dice"
 
     id_config = IDConfig(backbone=ViTConfig(depth=args.id_backbone_depth))
     id_params = init_id_module(torch.Generator().manual_seed(args.seed),
@@ -139,7 +143,8 @@ def pretrain_single_object(args, data_path: str, loader, ckpt_path: str,
     np.random.seed(STARTING_SEED)
     _, val_t, val_a, _, _ = test_pose_estimation(
         test_dataset, id_params, test_config, *gen_rays(), model_up,
-        sequence_id=sequence_id, device=dev)
+        sequence_id=sequence_id, inerf_refinement=inerf_refinement,
+        nerf=nerf, device=dev)
     print("Val AVG translation error:", val_t)
     print("Val AVG angular error:", val_a)
 
@@ -147,7 +152,8 @@ def pretrain_single_object(args, data_path: str, loader, ckpt_path: str,
     np.random.seed(STARTING_SEED)
     results, test_t, test_a, _, _ = test_pose_estimation(
         test_dataset, id_params, test_config, *gen_rays(), model_up,
-        sequence_id=sequence_id, save=args.save_debug > 0,
+        sequence_id=sequence_id, inerf_refinement=inerf_refinement,
+        nerf=nerf, save=args.save_debug > 0,
         save_all=args.save_debug > 1,
         save_dir=os.path.dirname(os.path.abspath(args.out_path)) or ".",
         device=dev)
@@ -158,10 +164,6 @@ def pretrain_single_object(args, data_path: str, loader, ckpt_path: str,
 
 def main(argv=None) -> list:
     args = parse_args(argv)
-    if args.algorithm_type == "inerf_dice":
-        raise NotImplementedError(
-            "the iNeRF refinement (--algorithm_type inerf_dice) is not "
-            "ported yet (ROADMAP item 17)")
     dev = resolve_device(args.device)
     out_path = os.path.abspath(args.out_path)
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)

@@ -185,6 +185,8 @@ def test_port_imports_no_jax():
         import iffnerf_tpu_torch.data.rays_np
         import iffnerf_tpu_torch.data.tankstemple
         import iffnerf_tpu_torch.device
+        import iffnerf_tpu_torch.inerf
+        import iffnerf_tpu_torch.inerf.estimate
         import iffnerf_tpu_torch.models
         import iffnerf_tpu_torch.models.field
         import iffnerf_tpu_torch.models.render
@@ -242,6 +244,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         train_id_module,
     )
     from iffnerf_tpu_torch import pose_cli
+    from iffnerf_tpu_torch.inerf import estimate_pose_inerf
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, tcfg = configs()
@@ -261,12 +264,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         train_id_module({}, tcfg, lambda: (z, z, z), None, None)
     with pytest.raises(RuntimeError, match="CUDA"):
         pose_cli.main(["--exp_patch", ".", "--out_path", "out.json"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        estimate_pose_inerf(np.eye(4), np.zeros((8, 8, 4)), np.eye(3), None,
+                            {}, None, sampling_strategy="random")
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu():
     """A tensor that is neither on the CPU nor on a CUDA card is refused,
     not computed with the plain version."""
     from iffnerf_tpu_torch.ops.banked_attention import banked_scores_fused
+    from iffnerf_tpu_torch.models.field import FieldConfig
+    from iffnerf_tpu_torch.ops.field_features import (
+        TABLES,
+        field_features,
+        field_features_coords_grad,
+    )
     from iffnerf_tpu_torch.ops.fused_ray_attention import fused_ray_scores
 
     bank = torch.empty((64, 384), device="meta")
@@ -276,3 +288,14 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
         banked_scores_fused(bank, q, pv)
     with pytest.raises(ValueError, match="no fused ray-scoring kernel"):
         fused_ray_scores({}, q, pv, torch.empty((64, 141), device="meta"))
+    cfg = FieldConfig(grid_size=(4, 4, 4), density_n_comp=(4, 4, 4),
+                      app_n_comp=(4, 4, 4))
+    field = {k: tuple(torch.empty((4, 4, 4) if "plane" in k else (4, 4),
+                                  device="meta") for _ in range(3))
+             for k in TABLES}
+    xyz = torch.empty((5, 3), device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="no field-feature kernel"):
+        field_features(cfg, field, xyz)
+    with pytest.raises(ValueError, match="no field-feature kernel"):
+        field_features_coords_grad(cfg, field, xyz,
+                                   torch.empty(5, device="meta"))

@@ -29,7 +29,11 @@ coordinates too), and so does its backward kernel
 ``field_features_backward_plain``, on scattered points and on ray-ordered
 samples (rays along the axes and the diagonals at half-texel steps, runs
 that cross ray ends and hold stretches of zero upstream, sample counts at
-the edges of the kernel's run length).
+the edges of the kernel's run length). Its coordinate-gradient kernel
+(``field_features_coords_grad``, iNeRF's) is held to
+``field_features_coords_grad_plain`` on the same fields at scattered
+points, texel boundaries and ray-ordered samples, aligned and not, zero
+upstream giving zeros, and under autograd beside the table backward.
 """
 
 import dataclasses
@@ -56,6 +60,8 @@ from iffnerf_tpu_torch.ops.field_features import (
     field_features,
     field_features_backward,
     field_features_backward_plain,
+    field_features_coords_grad,
+    field_features_coords_grad_plain,
     field_features_plain,
 )
 from iffnerf_tpu_torch.ops.gather import gather_rows, gather_rows_plain
@@ -710,27 +716,136 @@ def test_field_forward_kernel_matches_plain_unaligned(dev, unaligned):
 def test_field_features_autograd_runs_the_backward_kernel(dev):
     """A loss through field_features and basis_mat under autograd: the
     tables' gradients come from the backward kernel (one launch) and equal
-    the plain route's within FIELD_GRAD_TOL; xyz that requires grad
-    raises."""
+    the plain route's within FIELD_GRAD_TOL; the coordinate kernel does
+    not launch while xyz does not require grad, and when xyz requires grad
+    too, both backward kernels launch once and xyz's gradient equals the
+    plain route's within COORDS_GRAD_TOL."""
     config, field = _field(FIELDS["non_cubic"], dev)
-    leaves = {k: tuple(a.clone().requires_grad_() for a in field[k])
-              for k in TABLES}
     g = torch.Generator().manual_seed(3)
     xyz = (torch.rand((50000, 3), generator=g) * 2 - 1).to(dev)
     w = torch.randn((sum(config.app_n_comp), 27), generator=g).to(dev)
-    before = field_features_backward.launches
-    sigma, app = field_features(config, leaves, xyz, True)
-    (sigma.square().sum() + (app @ w).sin().sum()).backward()
-    torch.cuda.synchronize()
-    assert field_features_backward.launches == before + 1
-    plain = {k: tuple(a.detach().clone().requires_grad_() for a in field[k])
-             for k in TABLES}
-    s2, a2 = field_features_plain(plain, xyz, True, gather_rows_plain)
-    (s2.square().sum() + (a2 @ w).sin().sum()).backward()
-    for name in TABLES:
-        for a, b in zip(leaves[name], plain[name]):
+    for xyz_grad in (False, True):
+        leaves = {k: tuple(a.clone().requires_grad_() for a in field[k])
+                  for k in TABLES}
+        leaf = xyz.clone().requires_grad_(xyz_grad)
+        before = (field_features_backward.launches,
+                  field_features_coords_grad.launches)
+        sigma, app = field_features(config, leaves, leaf, True)
+        (sigma.square().sum() + (app @ w).sin().sum()).backward()
+        torch.cuda.synchronize()
+        assert (field_features_backward.launches,
+                field_features_coords_grad.launches) == (
+                    before[0] + 1, before[1] + xyz_grad)
+        plain = {k: tuple(a.detach().clone().requires_grad_()
+                          for a in field[k]) for k in TABLES}
+        plain_xyz = xyz.clone().requires_grad_(xyz_grad)
+        s2, a2 = field_features_plain(plain, plain_xyz, True,
+                                      gather_rows_plain)
+        (s2.square().sum() + (a2 @ w).sin().sum()).backward()
+        for name in TABLES:
+            for a, b in zip(leaves[name], plain[name]):
+                torch.testing.assert_close(
+                    a.grad, b.grad, rtol=0,
+                    atol=FIELD_GRAD_TOL * float(b.grad.abs().max()))
+        if xyz_grad:
             torch.testing.assert_close(
-                a.grad, b.grad, rtol=0,
-                atol=FIELD_GRAD_TOL * float(b.grad.abs().max()))
-    with pytest.raises(NotImplementedError, match="coordinate gradient"):
-        field_features(config, leaves, xyz.clone().requires_grad_(), True)
+                leaf.grad, plain_xyz.grad, rtol=0,
+                atol=COORDS_GRAD_TOL * float(plain_xyz.grad.abs().max()))
+
+
+# the coordinate kernel against autograd's coordinate gradient through the
+# samplers: each coordinate sums up to 3 x (Rd + Ra) rank terms (192 at
+# lego's ranks) of lerped corner differences in another order (shuffles
+# against autograd's), n x 6e-8 of the terms' magnitudes at worst
+COORDS_GRAD_TOL = 1e-4
+
+
+def _coords_inputs(config, n, dev):
+    """``_backward_inputs``' scattered points and upstream, a quarter of
+    the points moved onto texels (every coordinate on a texel of its
+    axis)."""
+    xyz, dsigma, dapp = _backward_inputs(config, "scattered", n, dev)
+    sizes = torch.tensor(config.grid_size, dtype=torch.float32)
+    g = torch.Generator().manual_seed(300 + n)
+    texel = torch.floor(torch.rand((n // 4, 3), generator=g) * sizes)
+    xyz[2:2 + n // 4] = (texel * 2 / (sizes - 1) - 1).to(dev)[:max(n - 2, 0)]
+    return xyz, dsigma, dapp
+
+
+def _assert_coords_grad_matches_plain(config, params, xyz, dsigma, dapp):
+    before = field_features_coords_grad.launches
+    got = field_features_coords_grad(config, params, xyz, dsigma, dapp)
+    torch.cuda.synchronize()
+    assert field_features_coords_grad.launches == before + (xyz.shape[0] > 0)
+    want = field_features_coords_grad_plain(params, xyz, dsigma, dapp)
+    assert got.shape == want.shape == xyz.shape
+    scale = float(want.abs().max()) if xyz.shape[0] else 0.0
+    torch.testing.assert_close(got, want, rtol=0, atol=COORDS_GRAD_TOL * scale)
+    zero = (dsigma == 0) if dapp is None else (dsigma == 0) & ~dapp.any(-1)
+    assert not got[zero].any()  # no upstream, no gradient
+
+
+@pytest.mark.parametrize("with_app", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 1021, 204660])
+def test_field_coords_grad_kernel_matches_plain(dev, vm_field, n, with_app):
+    """The coordinate kernel against field_features_coords_grad_plain
+    within COORDS_GRAD_TOL of the largest |dxyz|, at points in and beyond
+    [-1, 1] and on texel boundaries (the forward's cells), samples without
+    upstream giving zeros. Lego's 300^3 grid (float4 words), a non-cubic
+    grid and one with ranks 2-5 (4-byte words), density-only and with
+    appearance."""
+    config, params = vm_field
+    xyz, dsigma, dapp = _coords_inputs(config, n, dev)
+    _assert_coords_grad_matches_plain(config, params, xyz, dsigma,
+                                      dapp if with_app else None)
+
+
+@pytest.mark.parametrize("layout", ["axes", "rays"])
+def test_field_coords_grad_kernel_matches_plain_on_rays(dev, vm_field, layout):
+    """Ray-ordered samples (rays along the axes, and along the axes and
+    the diagonals, at half-texel steps, leaving [-1, 1]) with stretches of
+    zero upstream: within COORDS_GRAD_TOL of the plain version."""
+    config, params = vm_field
+    xyz, dsigma, dapp = _backward_inputs(config, layout, 60000, dev)
+    _assert_coords_grad_matches_plain(config, params, xyz, dsigma, dapp)
+
+
+@pytest.mark.parametrize("unaligned", ["table", "upstream"])
+def test_field_coords_grad_kernel_matches_plain_unaligned(dev, unaligned):
+    """Lego's ranks on a small grid with one table, or dapp, 4 bytes off
+    16-byte alignment: the 4-byte route, within COORDS_GRAD_TOL."""
+    config, params = _field(((40, 44, 48), (16, 16, 16), (48, 48, 48)), dev)
+    xyz, dsigma, dapp = _coords_inputs(config, 30001, dev)
+
+    def shifted(a):
+        out = torch.empty(a.numel() + 1, device=dev)[1:].view(a.shape)
+        out.copy_(a)
+        return out
+    if unaligned == "table":
+        lines = params["density_line"]
+        params = dict(params, density_line=(shifted(lines[0]),) + lines[1:])
+    else:
+        dapp = shifted(dapp)
+    _assert_coords_grad_matches_plain(config, params, xyz, dsigma, dapp)
+
+
+def test_field_coords_grad_kernel_zero_upstream_gives_zero(dev):
+    """All upstream zero: a zero gradient for every sample, one launch."""
+    config, params = _field(FIELDS["lego"], dev)
+    xyz, dsigma, dapp = _coords_inputs(config, 1021, dev)
+    got = field_features_coords_grad(config, params, xyz,
+                                     torch.zeros_like(dsigma),
+                                     torch.zeros_like(dapp))
+    assert not got.any()
+
+
+def test_field_coords_grad_kernel_refuses_mismatched_upstream(dev):
+    """An upstream of another shape or device is refused before a launch."""
+    config, params = _field(FIELDS["non_cubic"], dev)
+    xyz, dsigma, dapp = _coords_inputs(config, 1021, dev)
+    before = field_features_coords_grad.launches
+    for bad in ((dsigma[:-1], dapp), (dsigma, dapp[:, :-1]),
+                (dsigma.cpu(), dapp)):
+        with pytest.raises(ValueError, match="upstream"):
+            field_features_coords_grad(config, params, xyz, *bad)
+    assert field_features_coords_grad.launches == before

@@ -34,7 +34,15 @@ from iffnerf_tpu_torch.pose import trainer as ttrainer
 from iffnerf_tpu_torch.pose.test import test_pose_estimation as ttest_pose_estimation
 
 from fixtures import make_blender_fixture
-from torch_parity import configs, field, near_mask_points, params, t, unit
+from torch_parity import (
+    configs,
+    field,
+    near_mask_points,
+    params,
+    recorded_inerf,
+    t,
+    unit,
+)
 
 ROW_KEYS = {"sequence_id", "category_name", "frame_id", "loss", "scores_loss",
             "recall", "total_optimization_time_in_ms", "pred_c2w", "gt_c2w"}
@@ -297,9 +305,49 @@ def test_pose_estimation_refuses_what_is_not_ported(scene):
     with pytest.raises(NotImplementedError, match="sharded"):
         ttest_pose_estimation(ds, {}, tcfg, *rays, np.ones(3), mesh=object(),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="iNeRF"):
-        ttest_pose_estimation(ds, {}, tcfg, *rays, np.ones(3),
-                              inerf_refinement=True, device="cpu")
+
+
+def test_pose_estimation_runs_the_inerf_refinement(scene, vm, jax_rays,
+                                                   monkeypatch):
+    """With inerf_refinement and nerf, each frame's banked estimate goes to
+    estimate_pose_inerf with the JAX package's arguments (pose/test.py:
+    228-240: RGB with the mask as alpha, K[0], 800 iterations, lrate 0.02,
+    dice loss, random pixels, the default seed), here cut to 2 iterations,
+    and the refined pose replaces the estimate before the errors are
+    taken."""
+    calls = recorded_inerf(monkeypatch)
+    jcfg, tcfg = configs(depth=1)
+    _, tp = params(12, jcfg)
+    ds = tload_blender(scene, split="test", is_stack=True)
+    up = np.asarray(ds.poses)[:, :3, 1].mean(axis=0)
+    nerf = vm[1]
+    plain, *_ = ttest_pose_estimation(ds, tp, tcfg, *jax_rays, up,
+                                      log_fn=lambda *a: None, device="cpu")
+    rows, t_err, a_err, _, _ = ttest_pose_estimation(
+        ds, tp, tcfg, *jax_rays, up, inerf_refinement=True, nerf=nerf,
+        log_fn=lambda *a: None, device="cpu")
+    assert len(calls) == len(rows) == 2
+    w, h = ds.img_wh
+    for i, ((args, kw, out), row, base) in enumerate(zip(calls, rows, plain)):
+        start, obs4, cam_k, config, fparams, fmask = args
+        assert kw == dict(n_iters=800, lrate=0.02, dice_loss=True,
+                          sampling_strategy="random",
+                          device=torch.device("cpu"))
+        np.testing.assert_allclose(np.asarray(start), base["pred_c2w"],
+                                   atol=1e-6)
+        rgba = np.asarray(ds.all_rgbs[i], np.float32).reshape(h, w, 4)
+        alpha = rgba[..., 3:]
+        np.testing.assert_allclose(
+            obs4.numpy(), np.concatenate(
+                [rgba[..., :3] * alpha + (1 - alpha), alpha], -1), atol=1e-6)
+        np.testing.assert_array_equal(cam_k, np.asarray(ds.K[0]))
+        assert (config, fparams, fmask) == (nerf[0], nerf[1], nerf[2])
+        np.testing.assert_array_equal(row["pred_c2w"], out[1])
+    gt = [np.asarray(r["gt_c2w"]) for r in rows]
+    want_t = np.mean([np.linalg.norm(g[:3, 3] - c[1][:3, 3])
+                      for g, c in zip(gt, [c[2] for c in calls])])
+    np.testing.assert_allclose(t_err, want_t, rtol=1e-5)
+    assert np.isfinite(a_err)
 
 
 def _count_steps(monkeypatch):

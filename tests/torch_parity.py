@@ -75,14 +75,14 @@ replace = dataclasses.replace
 
 def field(tmp_path, model_name="TensorVMSplit", seed=0,
           grid_size=(20, 20, 20), density_n_comp=None, app_n_comp=(8, 8, 8),
-          **kw):
+          mask_margin=0, **kw):
     """A small field made by the JAX package (``init_field`` at 20^3 unless
     ``grid_size`` says otherwise, Ref shading, PE 2, a 30 % occupied alpha
-    mask over a numpy-seeded [16, 18, 20] volume), written with its
-    ``save_field`` and read back by the port's ``load_field``: -> ((config,
-    params, mask) of JAX, (config, params, mask) of the port).
-    ``density_shift`` -1 keeps the alphas of random weights well away from
-    0 and 1."""
+    mask over a numpy-seeded [16, 18, 20] volume, its outer ``mask_margin``
+    voxels empty), written with its ``save_field`` and read back by the
+    port's ``load_field``: -> ((config, params, mask) of JAX, (config,
+    params, mask) of the port). ``density_shift`` -1 keeps the alphas of
+    random weights well away from 0 and 1."""
     from iffnerf_tpu.checkpoint import save_field
     from iffnerf_tpu.models.field import FieldConfig, init_field, make_alpha_mask
     from iffnerf_tpu_torch.checkpoint import load_field
@@ -97,6 +97,10 @@ def field(tmp_path, model_name="TensorVMSplit", seed=0,
         density_shift=-1.0, **kw)
     params = init_field(jax.random.PRNGKey(seed), cfg)
     vol = (np.random.default_rng(seed).random((16, 18, 20)) < 0.3)
+    if mask_margin:
+        inner = np.zeros_like(vol)
+        inner[(slice(mask_margin, -mask_margin),) * 3] = True
+        vol &= inner
     mask = make_alpha_mask(jax.numpy.asarray(vol, np.float32), cfg.aabb_np)
     path = str(tmp_path / f"field_{model_name}_{seed}.npz")
     save_field(path, cfg, params, mask)
@@ -117,3 +121,22 @@ def near_mask_points(mask_volume, aabb, n, seed, spread=0.05):
 
 def unit(x):
     return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def recorded_inerf(monkeypatch, n_iters=2):
+    """Wraps the port's ``iffnerf_tpu_torch.inerf.estimate_pose_inerf``
+    (which ``test_pose_estimation`` looks up at each call): each call's
+    arguments are recorded and it runs with ``n_iters`` iterations -> the
+    list of calls, each (positional args, keyword args, result)."""
+    import iffnerf_tpu_torch.inerf as tinerf
+
+    calls = []
+    real = tinerf.estimate_pose_inerf
+
+    def recorded(*args, **kw):
+        out = real(*args, **dict(kw, n_iters=n_iters))
+        calls.append((args, kw, out))
+        return out
+
+    monkeypatch.setattr(tinerf, "estimate_pose_inerf", recorded)
+    return calls
