@@ -20,7 +20,14 @@ filtering and the upsample to 300^3, with ``field_features``' forward
 and backward kernels held to their plain versions at the 128^3 and the
 final step's samples and on axis-aligned rays and timed there, the
 forward also beside F.grid_sample at the final step's samples, an eval
-render and a reduced run against the CPU), and the iNeRF refinement on a
+render and a reduced run against the CPU), real scenes (configs/flower.txt
+on NDC rays from flower's 34 forward-facing cameras through the LLFF
+loader's geometry, 12 steps through its upsamples and mask update to its
+706x786x471 grid, then a test view and two path frames; and
+configs/bicycle.txt at its 639^3 grid on Mip-NeRF 360 cameras through that
+loader's geometry; each with ``field_features``' forward and backward held
+to their plain versions at its final step's samples and timed beside their
+bounds), and the iNeRF refinement on a
 lego-width field with low-frequency appearance (``estimate_pose_inerf``:
 800 iterations of 1024 rays from the JAX test's perturbation of a frame
 rendered from the field, then ``test_pose_estimation`` with
@@ -64,6 +71,8 @@ from iffnerf_tpu_torch.checkpoint import (
     save_field,
 )
 from iffnerf_tpu_torch.config import config_parser
+from iffnerf_tpu_torch.data import llff, mip360
+from iffnerf_tpu_torch.data.rays_np import ray_directions_np
 from iffnerf_tpu_torch.device import leaves, resolve_device, trainable
 from iffnerf_tpu_torch.inerf import estimate as inerf_estimate
 from iffnerf_tpu_torch.inerf.estimate import (
@@ -153,7 +162,7 @@ from iffnerf_tpu_torch.pose.trainer import (
     trainable,
 )
 from iffnerf_tpu_torch.pose.vit import ViTConfig
-from iffnerf_tpu_torch.render.renderer import evaluation
+from iffnerf_tpu_torch.render.renderer import evaluation, evaluation_path
 from iffnerf_tpu_torch.tools.ff_time import AXES, ray_ordered_samples, ray_upstream
 from iffnerf_tpu_torch.train import trainer as field_trainer
 from iffnerf_tpu_torch.train.trainer import field_config_from_args, train_field
@@ -264,6 +273,24 @@ POSE_GRAD_TOL = 1e-3
 # draws: Adam's early steps are about lr x sign(grad), so gradients that
 # agree give poses that agree far inside a step (lr 0.02)
 POSE_ROUTE_ATOL = 1e-3
+# Real scenes. configs/flower.txt (LLFF, NDC rays) on flower's 34
+# forward-facing cameras at 4032x3024 (downsample 4: 1008x756, 29 train
+# views after the hold-every-8 split), COLMAP's down-right-back poses,
+# focal and bounds drawn from the seed; from its 128^3 start (141x157x94
+# over the LLFF AABB), cut to RS_FLOWER_ITERS of 25 000 iterations with
+# its four upsamples and its mask update (at 2000, 3000, 4000, 5500 and
+# 2500) moved to RS_FLOWER_UPSAMPLES and RS_FLOWER_MASK, so that the last
+# steps run at its final grid (640^3 voxels: 706x786x471, 2 313 samples a
+# ray). configs/bicycle.txt (Mip-NeRF 360) at its final grid (639^3 over
+# the unit cube, 2 213 samples a ray) for RS_BICYCLE_STEPS steps, on
+# RS_BICYCLE_IMAGES of its 194 cameras at 4946x3286 (downsample 4:
+# 1236x821), a ring round a synthetic point cloud, recentred and rescaled
+# by the loader's rule. Colours are synthetic, made on the card. One test
+# view of each and RS_PATH_FRAMES of flower's 120 path frames rendered.
+RS_FLOWER_IMAGES, RS_FLOWER_WH, RS_FLOWER_FOCAL = 34, (4032, 3024), 3260.0
+RS_FLOWER_ITERS, RS_FLOWER_UPSAMPLES, RS_FLOWER_MASK = 12, (2, 4, 6, 8), 3
+RS_BICYCLE_IMAGES, RS_BICYCLE_WH, RS_BICYCLE_FOCAL = 8, (4946, 3286), 4100.0
+RS_BICYCLE_STEPS, RS_PATH_FRAMES, RS_DOWNSAMPLE = 3, 2, 4.0
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
@@ -1681,18 +1708,26 @@ def synthetic_ray_pool(dev, n, seed, stacked=False):
         scene_bbox=np.array([[-1.5] * 3, [1.5] * 3], np.float32))
 
 
-def field_train_args(ckpt=None):
-    """configs/lego.txt through the port's parser, cut to FT_ITERS
-    iterations with the upsamples and mask updates at FT_EVENTS."""
+def config_args(name, iters, upsamples, mask_updates, ckpt=None):
+    """configs/<name>.txt through the port's parser, cut to ``iters``
+    iterations with the upsamples and mask updates at the given ones."""
     cmd = ["--config", str(Path(__file__).resolve().parent / "configs"
-                           / "lego.txt"),
-           "--n_iters", str(FT_ITERS), "--N_vis", "0", "--ckpt_every", "0",
-           "--progress_refresh_rate", str(FT_ITERS)]
-    for it in FT_EVENTS:
-        cmd += ["--upsamp_list", str(it), "--update_AlphaMask_list", str(it)]
+                           / f"{name}.txt"),
+           "--n_iters", str(iters), "--N_vis", "0", "--ckpt_every", "0",
+           "--progress_refresh_rate", str(iters)]
+    for it in upsamples:
+        cmd += ["--upsamp_list", str(it)]
+    for it in mask_updates:
+        cmd += ["--update_AlphaMask_list", str(it)]
     if ckpt is not None:
         cmd += ["--ckpt", str(ckpt)]
     return config_parser(cmd)
+
+
+def field_train_args(ckpt=None):
+    """configs/lego.txt cut to FT_ITERS iterations with the upsamples and
+    mask updates at FT_EVENTS."""
+    return config_args("lego", FT_ITERS, FT_EVENTS, FT_EVENTS, ckpt)
 
 
 @contextlib.contextmanager
@@ -1723,15 +1758,18 @@ def timed_field_steps():
 
 
 @contextlib.contextmanager
-def captured_backwards():
+def captured_backwards(last_only=False):
     """Keeps a copy of the inputs of the first backward launch at each grid
-    while open -> {grid (h, w, l of pair 0): (params, xyz, dsigma, dapp)}."""
+    while open (of the last grid only with ``last_only``) -> {grid (h, w, l
+    of pair 0): (params, xyz, dsigma, dapp)}."""
     out = {}
     launch = field_features_module._launch_backward
 
     def capture(tables, dims, flat, dsigma, dapp, wanted):
         key = tuple(dims[:3])
         if key not in out:
+            if last_only:
+                out.clear()
             params = {name: tuple(a.detach().clone()
                                   for a in tables[3 * j:3 * j + 3])
                       for j, name in enumerate(TABLES)}
@@ -1832,19 +1870,22 @@ def library_backward(params, xyz, dsigma, dapp):
     return run
 
 
-def step_split_field(config, params, mask, pool, n_samples, dev, profile=True):
+def step_split_field(config, params, mask, pool, n_samples, dev, profile=True,
+                     weights=None, **loss_kw):
     """Two more steps on the trained field: the second one with CUDA events
     after its forward, backward and Adam (the first builds Adam's state),
     then, with ``profile``, one under the profiler -> ms of each part and
-    the profile."""
+    the profile. The loss is lego's (L1 4e-5 on, TV off) unless
+    ``weights`` and ``loss_kw`` say otherwise; the background is the
+    pool's."""
     p = trainable(params, dev)
     opt = field_trainer.make_optimizer(p, 0.02, 1e-3, 1.0)
     idx = torch.as_tensor(np.random.default_rng(SEED + 7).integers(
         0, pool.all_rays.shape[0], FT_BATCH), device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    bg = torch.ones(3, device=dev)
-    weights = {"l1": 4e-5, "tv_d": 0.0, "tv_a": 0.0}
-    kw = dict(n_samples=n_samples, gen=gen, use_l1=True)
+    bg = torch.full((3,), 1.0 if pool.white_bg else 0.0, device=dev)
+    weights = weights or {"l1": 4e-5, "tv_d": 0.0, "tv_a": 0.0}
+    kw = dict(dict(use_l1=True), **loss_kw, n_samples=n_samples, gen=gen)
 
     def step(mark=None):
         field_trainer.train_step(config, p, opt, mask, pool.all_rays[idx],
@@ -2096,6 +2137,45 @@ def forward_row(params, xyz):
     return row
 
 
+def steps_by_grid(steps):
+    """The timed steps by grid -> {"HxWxL": the median, range and first
+    seconds of its steps (the first left out of the median and range when
+    there are more), samples a ray and a batch, the peak memory}."""
+    by_grid = {}
+    for st in steps:
+        by_grid.setdefault(tuple(st["grid"]), []).append(st)
+    out = {}
+    for grid, grid_steps in by_grid.items():
+        xs = [st["s"] for st in grid_steps[1:]] or [grid_steps[0]["s"]]
+        out["x".join(map(str, grid))] = {
+            "median_s": statistics.median(xs), "range_s": [min(xs), max(xs)],
+            "first_s": grid_steps[0]["s"], "steps": len(grid_steps),
+            "n_samples": grid_steps[0]["n_samples"],
+            "rays_samples": FT_BATCH * grid_steps[0]["n_samples"],
+            "peak_mem_gb": max(st["peak_mem_gb"] for st in grid_steps)}
+    return out
+
+
+def backward_row(p, xyz, dsigma, dapp):
+    """field_features' backward at a training step's inputs: eager and
+    graph ms, its bound (bytes), the plain version's ms (chunked) and
+    F.grid_sample's backward's."""
+    b_ms, b_by = backward_bound(p, xyz, dsigma, dapp)
+    lib = library_backward(p, xyz, dsigma, dapp)
+    row = {"n": xyz.shape[0],
+           "ms": time_ms(lambda: field_features_backward(
+               FieldConfig(), p, xyz, dsigma, dapp), reps=FT_REPS),
+           "graph_ms": time_ms(lambda: field_features_backward(
+               FieldConfig(), p, xyz, dsigma, dapp), reps=FT_REPS, graph=True),
+           "plain_ms": time_ms(lambda: plain_backward_chunked(
+               p, xyz, dsigma, dapp), reps=3),
+           "library_ms": time_ms(lib, reps=FT_REPS),
+           "bound_ms": b_ms, "bound_by": b_by}
+    del lib
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_field_train(dev):
     """``train_with_capture``, its checks, and the forward and backward
     kernels held to their plain versions on the kept inputs at 128^3 and
@@ -2151,18 +2231,8 @@ def phase_field_train(dev):
             FieldConfig(), p, xyz, dsigma, dapp), reps=FT_REPS)
     p, xyz, dsigma, dapp = cases.pop("grid_final")
     del cases
-    b_ms, b_by = backward_bound(p, xyz, dsigma, dapp)
-    lib = library_backward(p, xyz, dsigma, dapp)
-    row = {"n": xyz.shape[0],
-           "ms": time_ms(lambda: field_features_backward(
-               FieldConfig(), p, xyz, dsigma, dapp), reps=FT_REPS),
-           "graph_ms": time_ms(lambda: field_features_backward(
-               FieldConfig(), p, xyz, dsigma, dapp), reps=FT_REPS, graph=True),
-           "plain_ms": time_ms(lambda: plain_backward_chunked(
-               p, xyz, dsigma, dapp), reps=3),
-           "library_ms": time_ms(lib, reps=FT_REPS),
-           "bound_ms": b_ms, "bound_by": b_by}
-    del lib, dsigma, dapp
+    row = backward_row(p, xyz, dsigma, dapp)
+    del dsigma, dapp
     torch.cuda.empty_cache()
     fwd_row = forward_row(p, xyz)
     del p, xyz
@@ -2181,21 +2251,11 @@ def phase_field_train(dev):
     small = phase_field_train_small(pool, dev)
     full = estimate_full_run(steps, events, np.asarray(config.aabb))
 
-    def timed(grid_steps):
-        xs = [st["s"] for st in grid_steps[1:]]
-        return {"median_s": statistics.median(xs), "range_s": [min(xs), max(xs)],
-                "first_s": grid_steps[0]["s"], "n_samples": grid_steps[0]["n_samples"],
-                "rays_samples": FT_BATCH * grid_steps[0]["n_samples"],
-                "peak_mem_gb": max(st["peak_mem_gb"] for st in grid_steps)}
-    by_grid = {}
-    for st in steps:
-        by_grid.setdefault(tuple(st["grid"]), []).append(st)
     emit(phase="field_train", iters=FT_ITERS, events_at=FT_EVENTS,
          batch=FT_BATCH, pool_rays=FT_POOL * FT_WH * FT_WH, pool_s=pool_s,
          final_grid=list(grid), final_aabb=[list(a) for a in config.aabb],
          run_s=run_s, step_s=[st["s"] for st in steps], mse=mses,
-         steps_by_grid={"x".join(map(str, k)): timed(v)
-                        for k, v in by_grid.items()},
+         steps_by_grid=steps_by_grid(steps),
          phase_events=events, split=split,
          peak_mem_gb=max(st["peak_mem_gb"] for st in steps),
          launches=counts, backward_checks=bwd_checks,
@@ -2634,6 +2694,315 @@ def phase_inerf(id_params, id_cfg, rays, dev):
     return counts, entry
 
 
+# ---------------------------------------------------------------------------
+# real scenes: LLFF flower (NDC rays) and Mip-NeRF 360 bicycle
+# ---------------------------------------------------------------------------
+
+
+def _small_rotation(rng, max_deg):
+    """A rotation by up to ``max_deg`` degrees about a random axis."""
+    axis = rng.standard_normal(3)
+    axis /= np.linalg.norm(axis)
+    angle = math.radians(rng.uniform(-max_deg, max_deg))
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + math.sin(angle) * k + (1 - math.cos(angle)) * k @ k
+
+
+def synthetic_colours(n, img_wh, seed, dev):
+    """[n * H * W, 3] smooth colours made on the card, a pattern over the
+    pixel grid that shifts from view to view."""
+    w, h = img_wh
+    rng = np.random.default_rng(seed)
+    v, u = torch.meshgrid(torch.arange(h, device=dev) / h,
+                          torch.arange(w, device=dev) / w, indexing="ij")
+    u, v = u.reshape(-1, 1), v.reshape(-1, 1)
+    freq = torch.tensor([1.0, 2.0, 3.0], device=dev)
+    return torch.cat([0.5 + 0.4 * torch.sin(6.0 * u * freq + 4.0 * v
+                                            + 2 * math.pi * rng.random())
+                      for _ in range(n)])
+
+
+def _scene(rays, rgbs, img_wh, bbox, near_far, **extra):
+    return types.SimpleNamespace(
+        all_rays=rays, all_rgbs=rgbs, img_wh=img_wh, scene_bbox=bbox,
+        near_far=near_far, white_bg=False, **extra)
+
+
+def flower_scene(dev):
+    """flower's cameras through the LLFF loader's own geometry
+    (``llff_cameras``: the axis fix, ``center_poses``, the near-plane scale,
+    ``get_spiral``; ``llff_split``; ``llff_rays``: ``rays_simple_np`` and
+    ``ndc_rays_blender_np``), the colours synthetic -> (the train pool,
+    flat, and a stacked test set of one view with K and the 120-pose path,
+    on the card)."""
+    rng = np.random.default_rng(SEED + 50)
+    w, h = RS_FLOWER_WH
+    bounds = np.zeros((RS_FLOWER_IMAGES, 17))
+    for k in range(RS_FLOWER_IMAGES):
+        t = [rng.uniform(-0.25, 0.25), rng.uniform(-0.25, 0.25),
+             rng.normal(0.0, 0.02)]
+        pose = np.concatenate([_small_rotation(rng, 2.0), np.array(t)[:, None],
+                               np.array([[h], [w], [RS_FLOWER_FOCAL]])], 1)
+        bounds[k] = np.concatenate([pose.reshape(-1),
+                                    [rng.uniform(1.2, 1.6),
+                                     rng.uniform(18.0, 25.0)]])
+    poses, _, focal, img_wh, path = llff.llff_cameras(bounds, RS_DOWNSAMPLE)
+    dirs = ray_directions_np(img_wh[1], img_wh[0], focal, blender=True)
+
+    def rays_of(ids):
+        return torch.cat([torch.from_numpy(llff.llff_rays(
+            dirs, poses[i].astype(np.float32), focal, img_wh)).reshape(
+                -1, 6).to(dev) for i in ids])
+
+    train = llff.llff_split(RS_FLOWER_IMAGES, "train")
+    test = llff.llff_split(RS_FLOWER_IMAGES, "test")[:1]
+    bbox = llff.SCENE_BBOX.copy()
+    pool = _scene(rays_of(train), synthetic_colours(len(train), img_wh,
+                                                     SEED + 51, dev),
+                  img_wh, bbox, (0.0, 1.0))
+    shape = (1, img_wh[1], img_wh[0])
+    k = np.array([[[focal[0], 0, img_wh[0] / 2], [0, focal[1], img_wh[1] / 2],
+                   [0, 0, 1]]], np.float32)
+    test_set = _scene(rays_of(test).reshape(shape + (6,)),
+                      synthetic_colours(1, img_wh, SEED + 52, dev).reshape(
+                          shape + (3,)),
+                      img_wh, bbox, (0.0, 1.0), K=k, render_path=path)
+    return pool, test_set, {"train_views": len(train), "test_views": 1,
+                            "img_wh": list(img_wh), "focal": list(focal)}
+
+
+def bicycle_scene(dev):
+    """A Mip-NeRF 360 capture: RS_BICYCLE_IMAGES cameras on a ring 4 units
+    round a point cloud (a dense core and a sparse far background), through
+    the loader's ``normalize_scene`` (the camera-plane fit, the optical-axis
+    intersection, the scale of the largest point extent), ``mip360_split``
+    and ``mip360_rays`` (7 channels with mip radii), the colours synthetic
+    -> (the train pool, flat, and a stacked test set of one view)."""
+    rng = np.random.default_rng(SEED + 60)
+    c2ws = []
+    for k in range(RS_BICYCLE_IMAGES):
+        theta = 2 * math.pi * (k + 0.2 * rng.random()) / RS_BICYCLE_IMAGES
+        pos = np.array([4.0 * math.cos(theta), 4.0 * math.sin(theta),
+                        rng.uniform(1.0, 2.0)])
+        c2ws.append(_look_at_c2w(pos).astype(np.float64))
+    xyz = np.concatenate([rng.normal(0.0, 1.0, (20000, 3)),
+                          rng.uniform(-12.0, 12.0, (1000, 3))])
+    c2ws, _, _ = mip360.normalize_scene(np.stack(c2ws), xyz)
+    img_wh = tuple(int(x / RS_DOWNSAMPLE) for x in RS_BICYCLE_WH)
+    f = RS_BICYCLE_FOCAL / RS_DOWNSAMPLE
+    k = np.array([[[f, 0, img_wh[0] / 2], [0, f, img_wh[1] / 2], [0, 0, 1]]],
+                 np.float32)
+    camera = mip360.mip360_camera(k, img_wh)
+
+    def rays_of(ids):
+        return torch.cat([torch.from_numpy(mip360.mip360_rays(
+            camera, c2ws[i].astype(np.float32))).reshape(-1, 7).to(dev)
+            for i in ids])
+
+    train = mip360.mip360_split(RS_BICYCLE_IMAGES, "train")
+    test = mip360.mip360_split(RS_BICYCLE_IMAGES, "test")[:1]
+    bbox = mip360.SCENE_BBOX.copy()
+    pool = _scene(rays_of(train), synthetic_colours(len(train), img_wh,
+                                                     SEED + 61, dev),
+                  img_wh, bbox, mip360.NEAR_FAR)
+    shape = (1, img_wh[1], img_wh[0])
+    test_set = _scene(rays_of(test).reshape(shape + (7,)),
+                      synthetic_colours(1, img_wh, SEED + 62, dev).reshape(
+                          shape + (3,)),
+                      img_wh, bbox, mip360.NEAR_FAR, K=k)
+    return pool, test_set, {"train_views": len(train), "test_views": 1,
+                            "img_wh": list(img_wh), "focal": [f, f],
+                            "camera_radius": float(np.linalg.norm(
+                                c2ws[:, :3, 3], axis=-1).mean())}
+
+
+def train_real_scene(args, pool, test, reso, dev):
+    """``train_field`` from a field made as ``reconstruction`` makes it
+    (``init_field`` at ``reso`` over the pool's AABB), launch counts set to
+    0 just before and read just after, each step timed, the inputs of the
+    first backward at the last grid kept -> a namespace of the run."""
+    config = field_config_from_args(args, pool.scene_bbox, reso,
+                                    pool.near_far)
+    params = init_field(torch.Generator(device=dev).manual_seed(SEED), config)
+    events = []
+    torch.cuda.synchronize()
+    with timed_field_steps() as steps, \
+            captured_backwards(last_only=True) as caught:
+        _reset_counts()
+        t0 = time.perf_counter()
+        config, params, mask = train_field(
+            args, config, params, None, pool, test,
+            str(WORK_DIR / f"real_{args.dataset_name}"),
+            log_fn=lambda *a: None, device=dev, events=events, reso_cur=reso)
+        run_s = _sync_s(t0)
+        counts = _counts()
+    check(len(steps) == args.n_iters, f"{len(steps)} steps")
+    check(counts["field_features"] >= args.n_iters
+          and counts["field_features_backward"] == args.n_iters,
+          f"every step launched field_features and its backward: {counts}")
+    check(counts["banked_scores"] == 0 and counts["fused_ray_scores"] == 0
+          and counts["field_features_coords_grad"] == 0,
+          f"field training runs no scoring or coordinate kernel: {counts}")
+    mses = [st["mse"] for st in steps]
+    check(all(math.isfinite(x) for x in mses), f"finite losses {mses}")
+    check(all(a != b for a, b in zip(mses, mses[1:])),
+          f"the loss changes from step to step {mses}")
+    check(all(bool(torch.isfinite(a).all()) for a in leaves(params)),
+          "finite trained parameters")
+    (inputs,) = caught.values()
+    return types.SimpleNamespace(config=config, params=params, mask=mask,
+                                 steps=steps, events=events, counts=counts,
+                                 run_s=run_s, caught=inputs)
+
+
+def kernel_holds(caught):
+    """field_features' forward and backward at a step's inputs: each held
+    to its chunked plain version, and each timed beside its bound, its plain
+    version and the library call -> (forward row, backward row)."""
+    p, xyz, dsigma, dapp = caught
+    fwd = forward_errors(p, xyz)
+    bwd = backward_errors(p, xyz, dsigma, dapp)
+    b_row = dict(backward_row(p, xyz, dsigma, dapp), checks=bwd)
+    del dsigma, dapp
+    torch.cuda.empty_cache()
+    f_row = dict(forward_row(p, xyz), checks=fwd)
+    _, dims = kernel_layout(p, True)
+    f_row["words_a_pair"] = [(dims[5 * i + 3] + dims[5 * i + 4]) // 4
+                             for i in range(3)]
+    return f_row, b_row
+
+
+def render_real_scene(run, test, n_samples, ndc_ray, path_frames=0):
+    """One test view (seconds, PSNR, peak memory) and ``path_frames`` of
+    the test set's render path (seconds each), through ``evaluation`` and
+    ``evaluation_path``."""
+    log, plog = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    psnr = evaluation(test, run.config, run.params, run.mask, None, N_vis=-1,
+                      n_samples=n_samples, white_bg=False, ndc_ray=ndc_ray,
+                      compute_extra_metrics=False, device=test.all_rays.device,
+                      log=log)
+    out = {"test_view_s": log["seconds"][0], "psnr": psnr[0],
+           "n_samples": n_samples,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    check(len(psnr) == 1 and math.isfinite(psnr[0]), f"test PSNR {psnr}")
+    if path_frames:
+        frames = evaluation_path(
+            run.config, run.params, run.mask, test.render_path[:path_frames],
+            test, None, n_samples=n_samples, white_bg=False, ndc_ray=ndc_ray,
+            device=test.all_rays.device, log=plog)
+        w, h = test.img_wh
+        check(len(frames) == path_frames and all(
+            f.shape == (h, w, 3) and f.dtype == np.uint8 for f in frames),
+            "the path frames' shapes")
+        out["path_frame_s"] = plog["seconds"]
+        out["path_frames_of"] = len(test.render_path)
+    return out
+
+
+def real_scene_summary(run, args, holds, renders, scene, split, t_scene):
+    grid = tuple(run.config.grid_size)
+    uncaptured = [st["peak_mem_gb"] for k, st in enumerate(run.steps)
+                  if k and st["grid"] == run.steps[k - 1]["grid"]]
+    return {"config": f"configs/{Path(args.config).name}",
+            "scene": scene, "scene_s": t_scene, "run_s": run.run_s,
+            "final_grid": list(grid),
+            "final_aabb": [list(a) for a in run.config.aabb],
+            "n_samples_final": cal_n_samples(grid, args.step_ratio),
+            "step_s": [st["s"] for st in run.steps],
+            "mse": [st["mse"] for st in run.steps],
+            "steps_by_grid": steps_by_grid(run.steps),
+            "phase_events": run.events, "split": split,
+            "peak_mem_gb": max(st["peak_mem_gb"] for st in run.steps),
+            "peak_mem_gb_without_capture": max(uncaptured or [0.0]),
+            "launches": run.counts, "forward": holds[0], "backward": holds[1],
+            "renders": renders}
+
+
+def phase_real_scenes(dev):
+    """flower: ``train_field`` at configs/flower.txt's widths on NDC rays
+    through its schedule (the upsamples and the mask update with its
+    shrink) to the final grid; bicycle: ``train_field`` at
+    configs/bicycle.txt's widths at its final grid. For each, the steps'
+    seconds by grid, a step's split and profile, peak memory, the
+    launches, ``field_features``' forward and backward at the last grid's
+    first step held to their plain versions and timed beside their bounds,
+    and renders. -> {scene: (launch counts, forward row, backward row)}."""
+    out, result = {}, {}
+
+    t0 = time.perf_counter()
+    pool, test, scene = flower_scene(dev)
+    t_scene = _sync_s(t0)
+    args = config_args("flower", RS_FLOWER_ITERS, RS_FLOWER_UPSAMPLES,
+                           (RS_FLOWER_MASK,))
+    check(bool(args.ndc_ray) and args.dataset_name == "llff",
+          "configs/flower.txt trains on NDC rays")
+    reso = N_to_reso(args.N_voxel_init, pool.scene_bbox)
+    run = train_real_scene(args, pool, test, reso, dev)
+    kinds = [e["event"] for e in run.events]
+    check(kinds == ["upsample", "alpha-mask update + shrink", "upsample",
+                    "upsample", "upsample"], f"flower's phase events {kinds}")
+    check(run.mask is not None and run.counts["gather_rows"] > 0,
+          f"the mask lookup ran after the mask update: {run.counts}")
+    check(math.prod(run.config.grid_size) > 0.9 * args.N_voxel_final,
+          f"flower's final grid {run.config.grid_size}")
+    n_final = cal_n_samples(run.config.grid_size, args.step_ratio)
+    holds = kernel_holds(run.caught)
+    run.caught = None
+    torch.cuda.empty_cache()
+    split = step_split_field(
+        run.config, run.params, run.mask, pool, n_final, dev,
+        weights={"l1": 0.0, "tv_d": args.TV_weight_density,
+                 "tv_a": args.TV_weight_app},
+        use_l1=False, use_tv_density=True, use_tv_app=True, ndc_ray=True)
+    renders = render_real_scene(run, test, n_final, True, RS_PATH_FRAMES)
+    out["flower"] = real_scene_summary(run, args, holds, renders, scene, split,
+                                       t_scene)
+    out["flower"]["start_grid"] = reso
+    result["flower"] = (run.counts, *holds)
+    del pool, test, run
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pool, test, scene = bicycle_scene(dev)
+    t_scene = _sync_s(t0)
+    args = config_args("bicycle", RS_BICYCLE_STEPS, (10 ** 6,), (10 ** 6,))
+    check(not args.ndc_ray and args.dataset_name == "mip360"
+          and args.shadingMode == "Ref", "configs/bicycle.txt's field")
+    reso = N_to_reso(args.N_voxel_final, pool.scene_bbox)
+    run = train_real_scene(args, pool, test, reso, dev)
+    check(run.events == [] and list(run.config.grid_size) == reso,
+          f"bicycle's steps at {reso}: {run.config.grid_size}, {run.events}")
+    n_final = cal_n_samples(reso, args.step_ratio)
+    holds = kernel_holds(run.caught)
+    run.caught = None
+    torch.cuda.empty_cache()
+    split = step_split_field(run.config, run.params, run.mask, pool, n_final,
+                             dev)
+    renders = render_real_scene(run, test, n_final, False)
+    out["bicycle"] = real_scene_summary(run, args, holds, renders, scene,
+                                        split, t_scene)
+    result["bicycle"] = (run.counts, *holds)
+    del pool, test, run
+    torch.cuda.empty_cache()
+
+    emit(phase="real_scenes", card=card_line(), **out, cuts={
+        "flower": [f"{RS_FLOWER_ITERS} of 25000 iterations, the upsamples at "
+                   f"{list(RS_FLOWER_UPSAMPLES)} and the mask update at "
+                   f"{RS_FLOWER_MASK} (2000-5500 and 2500)",
+                   "1 of 5 test views rendered",
+                   f"{RS_PATH_FRAMES} of 120 path frames rendered"],
+        "bicycle": [f"{RS_BICYCLE_IMAGES} of 194 images "
+                    f"({len(mip360.mip360_split(RS_BICYCLE_IMAGES, 'train'))}"
+                    " train views)",
+                    f"{RS_BICYCLE_STEPS} of 30000 iterations, all at the final"
+                    " grid (the schedule's earlier grids and its mask"
+                    " updates not run)",
+                    "1 test view rendered"]})
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2690,6 +3059,11 @@ def main() -> int:
     # mask lookup every step
     ft_counts, ft_backward, ft_forward = phase_field_train(dev)
     torch.cuda.empty_cache()
+    # real scenes: flower on NDC rays through its schedule, bicycle at its
+    # final grid; field_features and its backward every step, K3 every
+    # step after flower's mask update
+    real = phase_real_scenes(dev)
+    rs_counts = {name: r[0] for name, r in real.items()}
     # iNeRF refinement: field_features, its coordinate kernel and K3's mask
     # lookup every iteration
     inerf_counts, coords_entry = phase_inerf(params, cfg16, rays, dev)
@@ -2750,6 +3124,8 @@ def main() -> int:
              launches_by_path={"object": obj_counts["gather_rows"],
                                "id_train": id_counts["gather_rows"],
                                "field_train": ft_counts["gather_rows"],
+                               **{f"real_scenes_{k}": c["gather_rows"]
+                                  for k, c in rs_counts.items()},
                                "inerf": inerf_counts["gather_rows"]},
              **rows["gather_rows/mask_stacked"]),
         dict(name="field_features", route="cuda",
@@ -2774,10 +3150,18 @@ def main() -> int:
              launches_by_path={"object": obj_counts["field_features"],
                                "id_train": id_counts["field_features"],
                                "field_train": ft_counts["field_features"],
+                               **{f"real_scenes_{k}": c["field_features"]
+                                  for k, c in rs_counts.items()},
                                "inerf": inerf_counts["field_features"]},
              at_training_step=ft_forward,
+             at_real_scenes={k: r[1] for k, r in real.items()},
              **rows["field_features/colour_chunk/both"]),
-        ft_backward,
+        dict(ft_backward,
+             launches_by_path=dict(
+                 ft_backward["launches_by_path"],
+                 **{f"real_scenes_{k}": c["field_features_backward"]
+                    for k, c in rs_counts.items()}),
+             at_real_scenes={k: r[2] for k, r in real.items()}),
         coords_entry,
     ]
     emit(phase="latency", banked_ms_per_image=banked_ms,

@@ -1,5 +1,7 @@
-"""Host-side (numpy) ray generation for the data layer
-(reference ray_utils.py:28-100)."""
+"""Host-side (numpy) ray generation for the data layer (reference
+ray_utils.py:28-100, dataLoader/ray_utils.py:29-123): the Blender and
+Tanks-and-Temples rays with mip radii, and the focal-based rays and the NDC
+warp of the LLFF, NSVF and your-own loaders."""
 
 from __future__ import annotations
 
@@ -53,3 +55,43 @@ def rays_with_radii_np(viewdirs, c2w, directions=None, dx=None, dy=None,
     dy_norm = np.linalg.norm(dy_w - dirs_w, axis=-1)
     radii = (0.5 * (dx_norm + dy_norm))[..., None] * (2.0 / math.sqrt(12.0))
     return rays_o, rays_d, radii
+
+
+def ray_directions_np(H: int, W: int, focal, center=None, blender: bool = True):
+    """Focal-based camera dirs (dataLoader/ray_utils.py:29-71)."""
+    i, j = np.meshgrid(
+        np.arange(W, dtype=np.float32) + 0.5,
+        np.arange(H, dtype=np.float32) + 0.5,
+        indexing="xy",
+    )
+    cx, cy = center if center is not None else (W / 2, H / 2)
+    sign = -1.0 if blender else 1.0
+    return np.stack(
+        [(i - cx) / focal[0], sign * (j - cy) / focal[1],
+         sign * np.ones_like(i)],
+        axis=-1,
+    )
+
+
+def rays_simple_np(directions, c2w):
+    """(dataLoader/ray_utils.py:74-95)"""
+    rays_d = directions @ c2w[:3, :3].T
+    rays_o = np.broadcast_to(c2w[:3, 3], rays_d.shape)
+    return rays_o.reshape(-1, 3).copy(), rays_d.reshape(-1, 3)
+
+
+def ndc_rays_blender_np(H, W, focal, near, rays_o, rays_d):
+    """(dataLoader/ray_utils.py:98-123)"""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    o0 = -1.0 / (W / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (H / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+    d0 = -1.0 / (W / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2]
+    )
+    d1 = -1.0 / (H / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2]
+    )
+    d2 = -2.0 * near / rays_o[..., 2]
+    return np.stack([o0, o1, o2], -1), np.stack([d0, d1, d2], -1)

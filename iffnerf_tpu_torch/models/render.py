@@ -5,8 +5,10 @@ As in the JAX package, the reference's boolean-mask gathers become masked
 dense compute: every sample's density and appearance is evaluated and
 invalid ones are zeroed. The AABB sampler takes the training jitter, one
 uniform draw a ray from a ``torch.Generator`` or handed in as ``jitter``;
-the point-colour sampler is the pose pipeline's. NDC, infinity and
-unisphere sampling are not ported and raise.
+the point-colour sampler is the pose pipeline's. The NDC sampler of
+forward-facing scenes takes one uniform draw a sample, from a
+``torch.Generator`` or handed in as ``jitter``. Infinity and unisphere
+sampling are not ported and raise.
 """
 
 from __future__ import annotations
@@ -73,6 +75,44 @@ def sample_ray(config: FieldConfig, rays_o, rays_d, *, gen=None,
     return xyz, z_vals, _in_aabb(aabb, xyz)
 
 
+def _linspace(start: float, stop: float, n: int, like: torch.Tensor):
+    """jnp.linspace's float32 arithmetic, bit for bit: start * (1 - f) +
+    stop * f with f = i times the float32 reciprocal of n - 1, and the
+    last value stop itself."""
+    if n < 2:
+        return torch.full((n,), start, dtype=like.dtype, device=like.device)
+    recip = torch.tensor(1.0 / (n - 1), dtype=like.dtype).item()
+    frac = torch.arange(n - 1, dtype=like.dtype, device=like.device) * recip
+    head = start * (1 - frac) + stop * frac
+    return torch.cat([head, torch.full((1,), stop, dtype=like.dtype,
+                                       device=like.device)])
+
+
+def sample_ray_ndc(config: FieldConfig, rays_o, rays_d, *, gen=None,
+                   jitter=None, is_train: bool = True, n_samples: int = -1):
+    """Samples linear in NDC depth over [near, far], jittered in training by
+    one uniform draw a sample (reference sample_ray_ndc,
+    tensorBase.py:460-471). The draw is ``jitter`` [N, n] when given, else
+    ``torch.rand`` from ``gen``; ``is_train`` needs one of them.
+
+    Returns (xyz [N, n, 3], z_vals [N, n], valid [N, n])."""
+    n = n_samples if n_samples > 0 else config.n_samples
+    near, far = config.near_far
+    aabb = _aabb(config, rays_o)
+    interpx = _linspace(near, far, n, rays_o)[None, :]
+    if is_train:
+        if jitter is None:
+            if gen is None:
+                raise ValueError("training sampling needs a generator or a "
+                                 "jitter draw")
+            jitter = torch.rand((rays_o.shape[0], n), generator=gen,
+                                device=gen.device)
+        interpx = interpx + jitter.to(device=rays_o.device,
+                                      dtype=rays_o.dtype) * ((far - near) / n)
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
+    return xyz, interpx.expand(rays_o.shape[0], n), _in_aabb(aabb, xyz)
+
+
 def sample_point_color_fn(config: FieldConfig, rays_o, rays_d,
                           n_samples: int = 20):
     """Samples centred on the ray origin (a surface point): +-N/2 steps
@@ -115,20 +155,26 @@ def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
       * depth = sum(w*z) + (1-acc) * rays_chunk[..., -1];
       * rgb composited as rgb*acc + bg*(1-acc), clipped.
 
-    ``sample_mode`` is "aabb" or "point_color"; rays_chunk is [N, 6|7]
-    (ori, dir, optional mip radius). ``is_train`` jitters the AABB samples
-    (``sample_ray``'s ``gen`` or ``jitter``). The alpha-mask lookup is a
+    ``sample_mode`` is "aabb", "point_color" or "ndc" (``ndc_ray`` too:
+    samples linear in NDC depth, ``dists`` scaled by the direction's norm
+    and the view directions normalised); rays_chunk is [N, 6|7] (ori, dir,
+    optional mip radius). ``is_train`` jitters the AABB or NDC samples
+    (``sample_ray``'s or ``sample_ray_ndc``'s ``gen`` or ``jitter``: [N, 1]
+    for the AABB, [N, n] for NDC). The alpha-mask lookup is a
     boolean test on detached points, and the depth carries no gradient, as
     in the JAX package. Returns (rgb [N,3], depth [N], acc [N],
     alpha [N,S], z_vals [N,S], dists [N,S])."""
-    if ndc_ray:
-        raise NotImplementedError("ndc sampling is not ported")
+    ndc = ndc_ray or sample_mode == "ndc"
     rays_o = rays_chunk[:, :3]
     viewdirs = rays_chunk[:, 3:6]
     if sample_mode == "point_color":
         xyz, z_vals, ray_valid = sample_point_color_fn(
             config, rays_o, viewdirs,
             n_samples=n_samples if n_samples > 0 else 20)
+    elif ndc:
+        xyz, z_vals, ray_valid = sample_ray_ndc(
+            config, rays_o, viewdirs, gen=gen, jitter=jitter,
+            is_train=is_train, n_samples=n_samples)
     elif sample_mode == "aabb":
         xyz, z_vals, ray_valid = sample_ray(
             config, rays_o, viewdirs, gen=gen, jitter=jitter,
@@ -138,6 +184,10 @@ def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
 
     dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                        torch.zeros_like(z_vals[:, :1])], dim=-1)
+    if ndc:
+        rays_norm = torch.linalg.vector_norm(viewdirs, dim=-1, keepdim=True)
+        dists = dists * rays_norm
+        viewdirs = viewdirs / rays_norm
     if mask is not None:
         ray_valid = ray_valid & (sample_alpha(mask, xyz.detach()) > 0)
 

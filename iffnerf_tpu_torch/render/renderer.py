@@ -1,6 +1,6 @@
-"""Chunked rendering and image evaluation (reference renderer.py:12-140),
-the JAX package's ``render_chunked`` and ``evaluation``
-(``iffnerf_tpu/render/renderer.py:94,205``).
+"""Chunked rendering, image evaluation and camera-path videos (reference
+renderer.py:12-197), the JAX package's ``render_chunked``, ``evaluation``
+and ``evaluation_path`` (``iffnerf_tpu/render/renderer.py:94,205,286``).
 
 Every ray goes through ``render_rays`` densely: a ray that misses the AABB
 has no valid sample and comes out as the background with its far depth,
@@ -20,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from iffnerf_tpu_torch.data.rays_np import ray_directions_Ks_np, rays_with_radii_np
 from iffnerf_tpu_torch.device import as_tensor, resolve_device
 from iffnerf_tpu_torch.models.field import AlphaMask, FieldConfig
 from iffnerf_tpu_torch.models.render import render_rays
@@ -152,3 +153,46 @@ def evaluation(dataset, config: FieldConfig, params, mask: AlphaMask | None,
     if log is not None:
         log.update(ssim=ssims, seconds=times)
     return psnrs
+
+
+def evaluation_path(config: FieldConfig, params, mask: AlphaMask | None,
+                    c2ws, dataset, save_path: str | None = None,
+                    prtx: str = "", n_samples: int = -1,
+                    white_bg: bool = False, ndc_ray: bool = False,
+                    chunk_samples: int = CHUNK_SAMPLES, device=None,
+                    log: dict | None = None):
+    """Renders a camera path c2ws [M, 4, 4] at ``dataset``'s ``img_wh`` and
+    ``K`` (reference renderer.py:143-197) -> the frames, uint8 [H, W, 3]
+    numpy arrays; a video when ``save_path`` is given. Each frame's rays
+    are cast with mip radii (``rays_with_radii_np``) and rendered with
+    ``ndc_ray`` as given, without an NDC warp: the JAX package's path
+    render does so (``iffnerf_tpu/render/renderer.py:286-322``), where
+    the LLFF loader warps its own rays. ``log``, a dict, receives the list
+    ``seconds`` (each frame's render time up to a synchronize)."""
+    dev = resolve_device(device)
+    w, h = dataset.img_wh
+    ori_dirs, dx, dy = ray_directions_Ks_np(h, w, np.asarray(dataset.K))
+    ori_dirs, dx, dy = ori_dirs[0], dx[0], dy[0]
+    dirs = ori_dirs / np.linalg.norm(ori_dirs, axis=-1, keepdims=True)
+
+    frames, times = [], []
+    if save_path is not None:
+        os.makedirs(save_path, exist_ok=True)
+    for c2w in np.asarray(c2ws):
+        t0 = time.perf_counter()
+        rays_o, rays_d, radii = rays_with_radii_np(
+            dirs, c2w.astype(np.float32), directions=ori_dirs, dx=dx, dy=dy)
+        rays = np.concatenate([rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
+                               radii.reshape(-1, 1)], -1).astype(np.float32)
+        rgb, _ = render_chunked(
+            config, params, mask, rays, n_samples=n_samples,
+            white_bg=white_bg, ndc_ray=ndc_ray, chunk_samples=chunk_samples,
+            device=dev)
+        rgb = rgb.reshape(h, w, 3).cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        frames.append((np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+    if save_path is not None and frames:
+        _write_video(f"{save_path}/{prtx}video.mp4", frames)
+    if log is not None:
+        log.update(seconds=times)
+    return frames

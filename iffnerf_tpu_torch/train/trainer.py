@@ -8,7 +8,11 @@ iterations: the alpha-mask update (with the AABB shrink at the first and
 the ray filtering at the second), and the log-spaced grid upsamples, each
 of which rebuilds the optimizer on the new tensors as the JAX trainer does
 (``train_field``). ``reconstruction`` loads the datasets and makes or
-loads the field, then calls ``train_field``.
+loads the field, then calls ``train_field``. Forward-facing scenes
+(``--ndc_ray 1``) train on NDC rays, as the JAX trainer does: the samples
+are linear in NDC depth with one jitter draw a sample, and the rays are
+never filtered (not by the AABB before the first step, nor by the alpha
+mask at the second mask update).
 
 Optimizer parity (train.py:193-202,348-349): Adam with betas (0.9, 0.99)
 and eps 1e-8, one group for the factor grids at ``lr_init`` and one for
@@ -136,15 +140,17 @@ def make_optimizer(params, lr_spatial: float, lr_network: float,
 def field_loss(config: FieldConfig, params, mask, rays, rgbs, bg_color,
                weights, *, n_samples: int, ortho_weight: float = 0.0,
                use_l1: bool = False, use_tv_density: bool = False,
-               use_tv_app: bool = False, gen=None, jitter=None):
+               use_tv_app: bool = False, ndc_ray: bool = False, gen=None,
+               jitter=None):
     """The training loss of a ray batch (the JAX step's ``loss_fn``,
     trainer.py:170-194) -> (total, mse). An RGBA target is blended with
     ``bg_color`` (reference train.py:277-281); ``weights`` holds the L1 and
-    TV weights of this step; the jitter is ``jitter`` [N, 1] or drawn from
-    ``gen``."""
+    TV weights of this step; ``ndc_ray`` samples the rays in NDC; the
+    jitter is ``jitter`` ([N, 1] on the AABB, [N, n_samples] in NDC) or
+    drawn from ``gen``."""
     rgb_map, _, _, alpha, _, _ = render_rays(
         config, params, mask, rays, gen=gen, jitter=jitter, is_train=True,
-        bg_color=bg_color, n_samples=n_samples)
+        bg_color=bg_color, ndc_ray=ndc_ray, n_samples=n_samples)
     if rgbs.shape[-1] > 3:
         rgbs = torch.clamp(rgbs[..., :3] * rgbs[..., -1:]
                            + bg_color * (1 - rgbs[..., -1:]), 0.0, 1.0)
@@ -266,8 +272,6 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
     trainer does, also for a loaded field; the field's grid by default)."""
     dev = resolve_device(device)
     ndc_ray = bool(args.ndc_ray)
-    if ndc_ray:
-        raise NotImplementedError("ndc sampling is not ported")
     white_bg = train_dataset.white_bg
     expname = args.expname or "exp"
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -282,9 +286,13 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
     n_voxel_list = n_voxel_schedule(args.N_voxel_init, args.N_voxel_final,
                                     len(upsample_list))
 
-    allrays, allrgbs = filtering_rays_host(
-        config, train_dataset.all_rays, train_dataset.all_rgbs,
-        bbox_only=True, device=dev, log_fn=log_fn)
+    if ndc_ray:
+        allrays = as_tensor(train_dataset.all_rays, dev, torch.float32)
+        allrgbs = as_tensor(train_dataset.all_rgbs, dev, torch.float32)
+    else:
+        allrays, allrgbs = filtering_rays_host(
+            config, train_dataset.all_rays, train_dataset.all_rgbs,
+            bbox_only=True, device=dev, log_fn=log_fn)
     batch_size = (args.train_batch_size if args.train_batch_size > 0
                   else args.batch_size)
     sampler = SimpleSampler(allrays.shape[0], batch_size, seed=seed)
@@ -295,7 +303,7 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
         ortho_weight=args.Ortho_weight,
         use_l1=args.L1_weight_inital > 0 or args.L1_weight_rest > 0,
         use_tv_density=args.TV_weight_density > 0,
-        use_tv_app=args.TV_weight_app > 0)
+        use_tv_app=args.TV_weight_app > 0, ndc_ray=ndc_ray)
 
     # mid-schedule resume (trainer.py:559-594): restart at a phase boundary;
     # Adam's moments start fresh at the rate decayed since the last reset
@@ -315,7 +323,7 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
         reso_cur = list(config.grid_size)
         n_samples = min(args.nSamples,
                         cal_n_samples(config.grid_size, args.step_ratio))
-        if (mask is not None and len(update_mask_list) > 1
+        if (mask is not None and not ndc_ray and len(update_mask_list) > 1
                 and start_it >= update_mask_list[1]):
             allrays, allrgbs = filtering_rays_host(
                 config, allrays, allrgbs, mask=mask, log_fn=log_fn)
@@ -377,7 +385,8 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
             psnrs_test = evaluation(
                 test_dataset, config, params, mask, f"{logfolder}/imgs_vis",
                 N_vis=args.N_vis, prtx=f"{it + 1:06d}_", n_samples=n_samples,
-                white_bg=white_bg, compute_extra_metrics=False, device=dev)
+                white_bg=white_bg, ndc_ray=ndc_ray,
+                compute_extra_metrics=False, device=dev)
             writer.add_scalar("test/psnr", float(np.mean(psnrs_test)),
                               global_step=it)
 
@@ -407,7 +416,8 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
                 opt = make_optimizer(params, args.lr_init * decay,
                                      args.lr_basis * decay, lr_factor)
                 kind += " + shrink"
-            if len(update_mask_list) > 1 and it + 1 == update_mask_list[1]:
+            if (not ndc_ray and len(update_mask_list) > 1
+                    and it + 1 == update_mask_list[1]):
                 allrays, allrgbs = filtering_rays_host(
                     config, allrays, allrgbs, mask=mask, log_fn=log_fn)
                 sampler = SimpleSampler(allrays.shape[0], batch_size,
@@ -491,13 +501,13 @@ def reconstruction(args, seed: int = 20211202, log_fn=print, device=None):
 def final_renders(args, config, params, mask, logfolder, test_dataset,
                   n_samples: int = -1, log_fn=print, device=None):
     """The train and test renders that ``--render_train`` and
-    ``--render_test`` ask for (reference train.py:431-497) -> {split: mean
-    PSNR}. ``--render_path`` (``evaluation_path``) is not ported."""
+    ``--render_test`` ask for, and the camera path's video that
+    ``--render_path`` asks for where the dataset has a path (reference
+    train.py:431-497) -> {split: mean PSNR}."""
     from iffnerf_tpu_torch.data import dataset_dict
-    from iffnerf_tpu_torch.render.renderer import evaluation
+    from iffnerf_tpu_torch.render.renderer import evaluation, evaluation_path
 
-    if args.render_path:
-        raise NotImplementedError("evaluation_path is not ported")
+    ndc_ray = bool(args.ndc_ray)
     white_bg = test_dataset.white_bg
     out = {}
     splits = []
@@ -511,7 +521,12 @@ def final_renders(args, config, params, mask, logfolder, test_dataset,
         psnrs = evaluation(ds, config, params, mask,
                            f"{logfolder}/imgs_{name}_all", N_vis=-1,
                            n_samples=n_samples, white_bg=white_bg,
-                           device=device)
+                           ndc_ray=ndc_ray, device=device)
         out[name] = float(np.mean(psnrs))
         log_fn(f"======> {args.expname} {name} all psnr: {out[name]} <====")
+    if args.render_path and test_dataset.render_path is not None:
+        evaluation_path(config, params, mask, test_dataset.render_path,
+                        test_dataset, f"{logfolder}/imgs_path_all",
+                        n_samples=n_samples, white_bg=white_bg,
+                        ndc_ray=ndc_ray, device=device)
     return out

@@ -5,9 +5,12 @@ train.py:126-521) read through the port's ``config.py``.
     python -m iffnerf_tpu_torch.train_cli --config configs/lego.txt \\
         --render_only 1 --render_test 1 --ckpt <ckpt.npz>
 
-It trains on the CUDA card unless ``--device cpu`` is given. The Blender
-and Tanks-and-Temples loaders are ported; ``--export_mesh``,
-``--render_path`` and NDC rays are not, and raise.
+    python -m iffnerf_tpu_torch.train_cli --config configs/flower.txt
+
+It trains on the CUDA card unless ``--device cpu`` is given. The Blender,
+Tanks-and-Temples, LLFF (NDC rays, ``--render_path``'s spiral), Mip-NeRF
+360, NSVF and your-own loaders are ported; the Repair and CO3D loaders
+and ``--export_mesh`` are not, and raise.
 """
 
 from __future__ import annotations

@@ -181,9 +181,14 @@ def test_port_imports_no_jax():
         import iffnerf_tpu_torch.data
         import iffnerf_tpu_torch.data.base
         import iffnerf_tpu_torch.data.blender
+        import iffnerf_tpu_torch.data.colmap
+        import iffnerf_tpu_torch.data.llff
+        import iffnerf_tpu_torch.data.mip360
         import iffnerf_tpu_torch.data.nsvf
+        import iffnerf_tpu_torch.data.pose_utils
         import iffnerf_tpu_torch.data.rays_np
         import iffnerf_tpu_torch.data.tankstemple
+        import iffnerf_tpu_torch.data.your_own
         import iffnerf_tpu_torch.device
         import iffnerf_tpu_torch.inerf
         import iffnerf_tpu_torch.inerf.estimate
@@ -267,6 +272,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         estimate_pose_inerf(np.eye(4), np.zeros((8, 8, 4)), np.eye(3), None,
                             {}, None, sampling_strategy="random")
+    from types import SimpleNamespace
+
+    from iffnerf_tpu_torch.render.renderer import evaluation_path
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluation_path(None, {}, None, np.eye(4)[None],
+                        SimpleNamespace(img_wh=(4, 3), K=np.eye(3)[None]))
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu():

@@ -480,8 +480,11 @@ def test_each_grid_sampler_launches_the_gather_once(dev):
         assert gather_rows.launches == before + 1, fn.__name__
 
 
+# flower's uneven ranks (configs/flower.txt) on a grid of its AABB's
+# proportions: per-pair widths of 16, 4 and 4 float4 words
 FIELDS = {"lego": ((300, 300, 300), (16, 16, 16), (48, 48, 48)),
           "non_cubic": ((160, 170, 180), (16, 12, 8), (48, 40, 24)),
+          "flower": ((160, 178, 107), (16, 4, 4), (48, 12, 12)),
           "non_cubic_scalar": ((16, 17, 18), (2, 3, 4), (3, 4, 5))}
 
 
@@ -595,8 +598,8 @@ def test_field_backward_kernel_matches_plain(dev, vm_field, layout, n, with_app)
     largest, on scattered points and on ray-ordered samples
     (``_backward_inputs``): flagged-out corners add nothing, zero upstream
     words are skipped, runs merge sums across ray ends. Lego's 300^3 grid
-    (float4 words), a non-cubic grid and one with ranks 2-5 (4-byte
-    words), density-only and with appearance."""
+    (float4 words), two non-cubic grids (one at flower's ranks 16/4/4
+    and 48/12/12) and one with ranks 2-5 (4-byte words), density-only and with appearance."""
     config, params = vm_field
     xyz, dsigma, dapp = _backward_inputs(config, layout, n, dev)
     n = xyz.shape[0]
@@ -684,8 +687,9 @@ def test_field_forward_kernel_matches_plain_on_rays(dev, vm_field, layout, n,
     axes and the diagonals at half-texel steps, leaving [-1, 1], ray ends
     inside runs; sample counts at the edges of the longest run and one
     that takes it): app products bit-equal to the plain version's, sigma
-    within its tolerance. Lego's 300^3 grid (float4 words), a non-cubic
-    grid and one with ranks 2-5 (4-byte words), density-only and with
+    within its tolerance. Lego's 300^3 grid (float4 words), two non-cubic
+    grids (one at flower's ranks 16/4/4 and 48/12/12) and one with ranks
+    2-5 (4-byte words), density-only and with
     appearance."""
     config, params = vm_field
     _assert_forward_matches_plain(config, params,
@@ -791,8 +795,9 @@ def test_field_coords_grad_kernel_matches_plain(dev, vm_field, n, with_app):
     """The coordinate kernel against field_features_coords_grad_plain
     within COORDS_GRAD_TOL of the largest |dxyz|, at points in and beyond
     [-1, 1] and on texel boundaries (the forward's cells), samples without
-    upstream giving zeros. Lego's 300^3 grid (float4 words), a non-cubic
-    grid and one with ranks 2-5 (4-byte words), density-only and with
+    upstream giving zeros. Lego's 300^3 grid (float4 words), two non-cubic
+    grids (one at flower's ranks 16/4/4 and 48/12/12) and one with ranks
+    2-5 (4-byte words), density-only and with
     appearance."""
     config, params = vm_field
     xyz, dsigma, dapp = _coords_inputs(config, n, dev)

@@ -231,10 +231,15 @@ def test_render_rays_match(vm, sample_mode):
 
 
 def test_render_rays_refuses_what_is_not_ported(vm):
+    """NDC sampling is ported (tests/test_torch_ndc.py); the unisphere
+    contraction and other samplers are not."""
     _, (tcfg, tp, tmask) = vm
-    with pytest.raises(NotImplementedError, match="ndc"):
+    with pytest.raises(NotImplementedError, match="unisphere"):
+        trender.render_rays(tcfg.replace(contraction_type="unisphere"), tp,
+                            tmask, torch.zeros((2, 6)))
+    with pytest.raises(NotImplementedError, match="infinity"):
         trender.render_rays(tcfg, tp, tmask, torch.zeros((2, 6)),
-                            sample_mode="ndc")
+                            sample_mode="infinity")
 
 
 # ---------------------------------------------------------------------------

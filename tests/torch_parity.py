@@ -5,6 +5,7 @@ numpy arrays; the JAX parameters come from the JAX package's own
 ``init_id_module`` and reach the port through its weight bridge.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -140,3 +141,16 @@ def recorded_inerf(monkeypatch, n_iters=2):
 
     monkeypatch.setattr(tinerf, "estimate_pose_inerf", recorded)
     return calls
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch on one thread while open: a run of thousands of small ops
+    (a short training run on the CPU) slows most when its threads contend
+    for the cores with other test processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
