@@ -32,7 +32,8 @@ lego-width field with low-frequency appearance (``estimate_pose_inerf``:
 800 iterations of 1024 rays from the JAX test's perturbation of a frame
 rendered from the field, then ``test_pose_estimation`` with
 ``inerf_refinement``), with ``field_features``' coordinate-gradient
-kernel held to its plain version and timed beside it. It checks
+kernel held to its plain version, at an iteration's samples and on an
+all-live set, bit-equal across repeats, and timed beside it. It checks
 what comes out, and times kernels, estimates, the object side,
 training steps and refinement iterations with CUDA events and the host
 clock. Each
@@ -260,6 +261,11 @@ INERF_ITERS, INERF_BATCH, INERF_LRATE, INERF_STEP_RATIO = 800, 1024, 0.02, 0.5
 INERF_COARSE, INERF_APP_STD = 12, 3.0
 INERF_ROT_DEG, INERF_SHIFT, INERF_GAIN = 12.0, 0.15, 0.7
 INERF_ROUTE_ITERS, INERF_PROFILE_ITERS = 10, 10
+# the coordinate kernel's all-live input: as many samples as an iteration
+# (2048 rays x 518 = 1024 x 1036), ray-ordered half a texel apart at the
+# field's grid round centres within INERF_LIVE_SPREAD of the origin, every
+# upstream word normal
+INERF_LIVE_RAYS, INERF_LIVE_PER_RAY, INERF_LIVE_SPREAD = 2048, 518, 0.3
 # the coordinate kernel against its plain version, of the largest |dxyz|:
 # each coordinate sums up to 3 x 64 rank terms at lego's ranks in another
 # order (shuffles against autograd's), n x 6e-8 of their magnitudes at worst
@@ -2475,21 +2481,12 @@ def library_coords_backward(params, xyz, dsigma, dapp):
     return run, diff
 
 
-def phase_inerf(id_params, id_cfg, rays, dev):
-    """iNeRF refinement at lego's width (``make_inerf_field``): the
-    coordinate kernel held to its plain version at one iteration's
-    samples and upstream, on random, texel-boundary and axis-aligned
-    points and on non-cubic fields (4-byte words too), and timed beside
-    its bound, its plain version and F.grid_sample's backward; one
-    iteration's pose gradient through the kernels against the all-plain
-    route, and 10 iterations of both on the same draws; then the main
-    path: ``estimate_pose_inerf`` at test_pose_estimation's settings from
-    the JAX test's perturbation of an 800x800 frame rendered from the
-    field (launch counts set to 0 just before and read just after; the
-    errors before and after, the loss, host and CUDA-event ms, a profiled
-    stretch of iterations, peak memory); and ``test_pose_estimation`` with
-    ``inerf_refinement`` on that frame. -> (the main path's launch counts,
-    the kernels line's entry for the coordinate kernel)."""
+def inerf_scene(dev):
+    """The refinement's set-up (``make_inerf_field``): the field, an
+    800x800 frame rendered from it at a pose looking at the object, the
+    JAX test's perturbation of that pose and the loop's inputs ->
+    namespace (config, params, mask, cam_k, gt, obs, start, obs_t, cand,
+    dirs, radii, start_t, coverage, target_s)."""
     t0 = time.perf_counter()
     config, params, mask = make_inerf_field(dev)
     cam_k = lego_camera()
@@ -2504,28 +2501,95 @@ def phase_inerf(id_params, id_cfg, rays, dev):
           f"({coverage})")
     start = perturbed(gt)
     obs_t, cand, dirs, radii = loop_inputs(obs, cam_k, dev)
-    start_t = torch.as_tensor(start, device=dev)
-    n_cand = cand.shape[0]
+    return types.SimpleNamespace(
+        config=config, params=params, mask=mask, cam_k=cam_k, gt=gt, obs=obs,
+        start=start, obs_t=obs_t, cand=cand, dirs=dirs, radii=radii,
+        start_t=torch.as_tensor(start, device=dev), coverage=coverage,
+        target_s=target_s)
+
+
+def inerf_pose_grad(sc, cfg, p, idx, colour):
+    """One iteration's (w, v, theta) gradient at the pose ``p`` off the
+    start, for the draws (idx, colour), through ``cfg``'s route."""
+    leaf = p.clone().requires_grad_()
+    total, _ = inerf_estimate._loss(cfg, sc.params, sc.mask, leaf, sc.start_t,
+                                    sc.obs_t, sc.dirs, sc.radii, sc.cand[idx],
+                                    colour, True)
+    return torch.autograd.grad(total, leaf)[0]
+
+
+def captured_iteration(sc, dev):
+    """One iteration's pose gradient through the kernels at a pose 0.05
+    from the start, on the first draws of the seed, with the inputs of its
+    coordinate-kernel launch kept -> (gradient, (p, idx, colour), the
+    kernel's (params, xyz, dsigma, dapp))."""
+    p = torch.as_tensor((0.05 * np.random.default_rng(SEED + 41)
+                         .standard_normal(7)).astype(np.float32), device=dev)
+    idx, colour = GeneratorDraws(SEED, sc.cand.shape[0], INERF_BATCH,
+                                 dev).step(0)
+    with captured_coords_grad() as caught:
+        grad = inerf_pose_grad(sc, sc.config, p, idx, colour)
+    return grad, (p, idx, colour), caught["inputs"]
+
+
+def all_live_coords_inputs(params, dev):
+    """The coordinate kernel's all-live input at ``params``' grid:
+    INERF_LIVE_RAYS rays in random directions of INERF_LIVE_PER_RAY samples
+    half a texel apart (``ray_ordered_samples``), every upstream word
+    normal (numpy, from the seed) -> (params, xyz, dsigma, dapp)."""
+    grid = tuple(params["density_plane"][0].shape[1::-1]) + (
+        params["density_line"][0].shape[0],)
+    dirs = np.random.default_rng(SEED + 46).standard_normal(
+        (INERF_LIVE_RAYS, 3))
+    xyz = ray_ordered_samples(grid, dirs, INERF_LIVE_PER_RAY, SEED + 47,
+                              spread=INERF_LIVE_SPREAD)
+    rng = np.random.default_rng(SEED + 48)
+    n = xyz.shape[0]
+    width = sum(a.shape[-1] for a in params["app_plane"])
+    dsigma = rng.standard_normal(n, dtype=np.float32)
+    dapp = rng.standard_normal((n, width), dtype=np.float32)
+    return (params, *(torch.as_tensor(a, device=dev)
+                      for a in (xyz, dsigma, dapp)))
+
+
+def coords_grad_repeats(params, xyz, dsigma, dapp, calls=3):
+    """Whether ``calls`` launches of the coordinate kernel on the same
+    inputs give bit-equal gradients."""
+    first = field_features_coords_grad(FieldConfig(), params, xyz, dsigma,
+                                       dapp)
+    return all(torch.equal(first, field_features_coords_grad(
+        FieldConfig(), params, xyz, dsigma, dapp)) for _ in range(calls - 1))
+
+
+def phase_inerf(id_params, id_cfg, rays, dev):
+    """iNeRF refinement at lego's width (``make_inerf_field``): the
+    coordinate kernel held to its plain version at one iteration's
+    samples and upstream, on an all-live ray-ordered set, random,
+    texel-boundary and axis-aligned points and on non-cubic fields (4-byte
+    words too), bit-equal across repeats at the iteration and the all-live
+    set, and timed at both beside its bound, its plain version and
+    F.grid_sample's backward; one
+    iteration's pose gradient through the kernels against the all-plain
+    route, and 10 iterations of both on the same draws; then the main
+    path: ``estimate_pose_inerf`` at test_pose_estimation's settings from
+    the JAX test's perturbation of an 800x800 frame rendered from the
+    field (launch counts set to 0 just before and read just after; the
+    errors before and after, the loss, host and CUDA-event ms, a profiled
+    stretch of iterations, peak memory); and ``test_pose_estimation`` with
+    ``inerf_refinement`` on that frame. -> (the main path's launch counts,
+    the kernels line's entry for the coordinate kernel)."""
+    sc = inerf_scene(dev)
+    config, params, mask = sc.config, sc.params, sc.mask
+    cam_k, gt, obs, start = sc.cam_k, sc.gt, sc.obs, sc.start
+    obs_t, cand, dirs, radii = sc.obs_t, sc.cand, sc.dirs, sc.radii
+    start_t, n_cand = sc.start_t, sc.cand.shape[0]
 
     # one iteration's pose gradient: both kernels against the all-plain
     # route, at a pose 0.05 from the start; the kernel's inputs kept
-    p = torch.as_tensor((0.05 * np.random.default_rng(SEED + 41)
-                         .standard_normal(7)).astype(np.float32), device=dev)
-    draws = GeneratorDraws(SEED, n_cand, INERF_BATCH, dev)
-    idx, colour = draws.step(0)
-
-    def pose_grad(cfg):
-        leaf = p.clone().requires_grad_()
-        total, _ = inerf_estimate._loss(cfg, params, mask, leaf, start_t,
-                                        obs_t, dirs, radii, cand[idx], colour,
-                                        True)
-        return torch.autograd.grad(total, leaf)[0]
-
+    g_kernel, (p, idx, colour), it_inputs = captured_iteration(sc, dev)
     plain_cfg = config.replace(fused_eval="off")
-    with captured_coords_grad() as caught:
-        g_kernel = pose_grad(config)
     with plain_gathers():
-        g_plain = pose_grad(plain_cfg)
+        g_plain = inerf_pose_grad(sc, plain_cfg, p, idx, colour)
     grad_share = float((g_kernel - g_plain).abs().max()) / (
         POSE_GRAD_TOL * float(g_plain.abs().max()))
     check(grad_share <= 1.0, f"pose gradient, kernels vs all-plain route: "
@@ -2552,7 +2616,7 @@ def phase_inerf(id_params, id_cfg, rays, dev):
 
     # the coordinate kernel against its plain version, and its times
     g = torch.Generator(device=dev).manual_seed(SEED + 42)
-    it_params, it_xyz, it_dsigma, it_dapp = caught["inputs"]
+    it_params, it_xyz, it_dsigma, it_dapp = it_inputs
     width = it_dapp.shape[1]
 
     def upstream(n, seed):
@@ -2561,7 +2625,8 @@ def phase_inerf(id_params, id_cfg, rays, dev):
 
     texels = (torch.randint(0, GRID, (10 ** 5, 3), generator=g, device=dev)
               .float() * (2.0 / (GRID - 1)) - 1.0)
-    cases = {"iteration": (it_params, it_xyz, it_dsigma, it_dapp),
+    cases = {"iteration": it_inputs,
+             "all_live": all_live_coords_inputs(params, dev),
              "uniform_1e6": (params, random_coords(10 ** 6, 1.2, g, dev),
                              *upstream(10 ** 6, SEED + 43)),
              "texel_boundaries": (params, texels,
@@ -2575,23 +2640,33 @@ def phase_inerf(id_params, id_cfg, rays, dev):
         cases[name] = (nc, random_coords(n, 1.1, g, dev), ds, da)
     kernel_checks = {name: coords_grad_errors(*case)
                      for name, case in cases.items()}
+    for name in ("iteration", "all_live"):
+        kernel_checks[name]["repeats_bit_equal"] = coords_grad_repeats(
+            *cases[name])
+        check(kernel_checks[name]["repeats_bit_equal"],
+              f"coordinate kernel repeats bit-equal at {name}")
+    live_case = cases["all_live"]
     del cases
     b_ms, b_by = coords_grad_bound(it_params, it_xyz, it_dsigma, it_dapp)
     lib, lib_diff = library_coords_backward(it_params, it_xyz, it_dsigma,
                                             it_dapp)
 
-    def ours():
-        return field_features_coords_grad(FieldConfig(), it_params, it_xyz,
-                                          it_dsigma, it_dapp)
+    def ours(case):
+        return field_features_coords_grad(FieldConfig(), *case)
 
-    row = {"n": it_xyz.shape[0], "ms": time_ms(ours, graph=True),
-           "eager_ms": time_ms(ours),
+    row = {"n": it_xyz.shape[0],
+           "iteration_live_samples":
+               kernel_checks["iteration"]["samples_with_upstream"],
+           "ms": time_ms(lambda: ours(it_inputs), graph=True),
+           "eager_ms": time_ms(lambda: ours(it_inputs)),
            "plain_ms": time_ms(lambda: plain_coords_grad_chunked(
                it_params, it_xyz, it_dsigma, it_dapp), reps=3),
            "library_ms": time_ms(lib, reps=FT_REPS),
            "bound_ms": b_ms, "bound_by": b_by,
-           "library_max_rel_diff": lib_diff}
-    del lib, caught, it_params, it_xyz, it_dsigma, it_dapp
+           "library_max_rel_diff": lib_diff,
+           "all_live_ms": time_ms(lambda: ours(live_case), graph=True),
+           "all_live_bound_ms": coords_grad_bound(*live_case)[0]}
+    del lib, it_inputs, it_params, it_xyz, it_dsigma, it_dapp, live_case
     torch.cuda.empty_cache()
 
     # the main path: estimate_pose_inerf at test_pose_estimation's settings
@@ -2659,7 +2734,8 @@ def phase_inerf(id_params, id_cfg, rays, dev):
           f"test_pose_estimation with the refinement: {tpe_t}, {tpe_a}")
     emit(phase="inerf", grid=GRID, step_ratio=INERF_STEP_RATIO,
          n_samples=config.n_samples, batch=INERF_BATCH, iters=INERF_ITERS,
-         target_render_s=target_s, coverage=coverage, routes=routes,
+         target_render_s=sc.target_s, coverage=sc.coverage, routes=routes,
+         iteration_live_samples=row["iteration_live_samples"],
          coords_kernel_checks=kernel_checks, tolerance=COORDS_GRAD_TOL,
          coords_kernel_at_iteration=row,
          errors_before={"translation": t_err0, "angle_deg": a_err0},
@@ -2683,11 +2759,16 @@ def phase_inerf(id_params, id_cfg, rays, dev):
                       " gathers (_gather_contract_bwd :256,"
                       " _lerp_contract_mm_bwd :293); no pallas_call"
                       " differentiates this work",
-        design="a group of 16 lanes a sample (a float4 word of an axis"
-               " pair's ranks each), the three pairs in turn: the corner"
-               " words times their flags, the lerp derivatives times the"
-               " upstream, sums by shuffles, one store of three floats;"
-               " no corner read for a zero upstream word",
+        design="warp-specialised: a producer lane bulk-copies each"
+               " stage's xyz, dsigma and dapp rows into a 2-stage mbarrier"
+               " ring (L2 evict-first); one vote on each sample's whole"
+               " upstream row (a stage with none stores zeros); the"
+               " forward's cell pass writes each live sample's step; a"
+               " group of lanes a run of 8 and axis-pair part walks the"
+               " run's live samples with its corner words in registers,"
+               " reading only the rows a cell enters, then sums the run by"
+               " shuffles; the parts meet in a fixed order, one store a"
+               " float",
         launches=counts["field_features_coords_grad"],
         launches_by_path={"inerf": counts["field_features_coords_grad"]},
         max_abs_err=kernel_checks["iteration"]["max_abs_err"], **row)

@@ -114,14 +114,37 @@
 // by (size - 1) / 2. The JAX package derives it in XLA from the
 // interpolation weights' cotangent (g_weights in _gather_contract_bwd and
 // _lerp_contract_mm_bwd, iffnerf_tpu/ops/packed_sample.py:256,293), not in
-// a Pallas kernel. It takes the forward's floors (axis_floor), so a sample
-// at a texel boundary falls in the forward's cell. Bound on an H100 SXM:
-// bytes, nearly all of them the upstream read (576 B a sample at lego's
-// ranks, about 0.6 GB at an iNeRF iteration's 1.06 M samples), most of it
-// zeros; the corner rows of the samples with upstream come from L1 and
-// L2. The design is the simple one: a group of lanes a sample, the pairs
-// in turn, sums by shuffles, one plain store of three floats (no atomics:
-// the result is deterministic), and no corner read for a zero word.
+// a Pallas kernel.
+//
+// Bound on an H100 SXM: bytes, nearly all of them the upstream read: dapp
+// is 576 B a sample at lego's ranks, about 0.6 GB at an iNeRF iteration's
+// 1.06 M samples, and only about 4 % of those samples (the ones inside the
+// alpha mask and above the weight threshold) carry any upstream; each word
+// has to be read to know. The first design of this kernel (a group of
+// lanes a sample, the pairs in turn, each lane loading its upstream word
+// and, when not zero, its 6 corner words) kept one 16-byte load a lane in
+// flight, three dependent bursts a sample, and reached a third of the
+// device-memory rate: 2.9 times the bound.
+//
+// The design here streams the upstream and does work only where it is not
+// zero. A producer lane bulk-copies each stage's xyz, dsigma and dapp rows
+// (contiguous for a stage of consecutive samples) into a kStages-deep
+// mbarrier ring under L2's evict-first policy, as the backward does; the
+// stage a call ends with, and every stage when a pointer is not 16-byte
+// aligned, the consumers copy into its slot themselves. The consumers take
+// one vote on each sample's whole upstream row (each word of the stage read
+// once, by one thread); a stage with no live sample, most stages of an
+// iteration, stores its zeros and releases its slot at once. Otherwise the
+// forward's cell pass (make_step, the same axis_floor and step record, so
+// each sample's cell is the forward's bit for bit) writes each live
+// sample's step, taking as the previous sample the run's previous live
+// one, and a group of g lanes for each run of kCoordRun samples and part
+// (each axis pair its own groups, as in the forward) walks the run's live
+// samples with its words of the 6 corner slots in registers, reading only
+// the rows a cell enters. Its lane sums for the run's samples meet by
+// shuffles after the walk; the parts' sums of a sample are added in a
+// fixed order through shared memory and stored once. No atomics: repeats
+// are bit-equal, and a sample with no upstream is exactly 0.
 #include <cstdint>
 #include <numeric>
 
@@ -286,7 +309,9 @@ struct __align__(16) Step {
   int2 line;   // rows the line slots read
   int4 plane;  // rows (y * w + x) the plane slots read
   int out;     // bit s: plane slot s's corner lies outside the plane; 4 + s: line slot s's
-  int pad[3];
+  int odd;     // bits 0, 1, 2: the cell's lower corner on x, y, the line is odd (slot 1 is
+               // then the lower corner: the coordinate kernel's sign)
+  int pad[2];
 };
 
 // One lane's word of one axis pair: where it reads and writes.
@@ -299,7 +324,7 @@ struct Word {
 };
 
 // Part `part` of a run -> this lane's word (lane `lane` of a group of g);
-// false when the lane has none.
+// false when the lane has none (o.pair is the part's pair either way).
 template <int VEC>
 __device__ __forceinline__ bool resolve(const FieldArgs& a, int part, int lane, int g, Word& o) {
   int i = 0, first = 0;
@@ -314,13 +339,13 @@ __device__ __forceinline__ bool resolve(const FieldArgs& a, int part, int lane, 
   }
   const int nd = of_pair(a.rd, i) / VEC;
   const int j = first + lane;
+  o.pair = i;
   if (j >= nd + of_pair(a.ra, i) / VEC) return false;
   const bool dens = j < nd;
   const int col = (dens ? j : j - nd) * VEC;
   o.c = dens ? of_pair(a.rd, i) : of_pair(a.ra, i);
   o.plane = (dens ? of_pair(a.dplane, i) : of_pair(a.aplane, i)) + col;
   o.line = (dens ? of_pair(a.dline, i) : of_pair(a.aline, i)) + col;
-  o.pair = i;
   o.out = dens ? -1 : of_pair(a.app_off, i) + col;
   return true;
 }
@@ -333,21 +358,29 @@ __device__ __forceinline__ void slot_weights(const Floor& f, float& w0, float& w
 
 __device__ __forceinline__ int clamp_index(int v, int size) { return min(max(v, 0), size - 1); }
 
+// A coordinate: through the read-only path (kGlobal: the forward's xyz) or
+// a generic load (shared memory: the coordinate kernel's staged xyz)
+template <bool kGlobal>
+__device__ __forceinline__ float load_coord(const float* p) {
+  return kGlobal ? __ldg(p) : *p;
+}
+
 // The cell pass: sample k of the span (at x, the run's previous sample at
 // prev, or null when k starts a run) for axis pair i -> its step.
+template <bool kGlobal = true>
 __device__ __forceinline__ Step make_step(const FieldArgs& a, int i, const float* x,
                                           const float* prev) {
   // MAT_MODE ((0, 1), (0, 2), (1, 2)), VEC_MODE (2, 1, 0)
   const int mx = i == 2 ? 1 : 0, my = i == 0 ? 1 : 2, ml = 2 - i;
   const int h = of_pair(a.h, i), w = of_pair(a.w, i), len = of_pair(a.len, i);
-  const Floor fx = axis_floor(__ldg(x + mx), w);
-  const Floor fy = axis_floor(__ldg(x + my), h);
-  const Floor fl = axis_floor(__ldg(x + ml), len);
+  const Floor fx = axis_floor(load_coord<kGlobal>(x + mx), w);
+  const Floor fy = axis_floor(load_coord<kGlobal>(x + my), h);
+  const Floor fl = axis_floor(load_coord<kGlobal>(x + ml), len);
   int cy = kNoCell, cx = kNoCell, cl = kNoCell;  // the cell the slots hold
   if (prev) {
-    cx = axis_floor(__ldg(prev + mx), w).f;
-    cy = axis_floor(__ldg(prev + my), h).f;
-    cl = axis_floor(__ldg(prev + ml), len).f;
+    cx = axis_floor(load_coord<kGlobal>(prev + mx), w).f;
+    cy = axis_floor(load_coord<kGlobal>(prev + my), h).f;
+    cl = axis_floor(load_coord<kGlobal>(prev + ml), len).f;
   }
   Step st;
   slot_weights(fx, st.wxy.x, st.wxy.y);
@@ -373,6 +406,7 @@ __device__ __forceinline__ Step make_step(const FieldArgs& a, int i, const float
   st.plane = make_int4(rows[0], rows[1], rows[2], rows[3]);
   st.line = make_int2(lrows[0], lrows[1]);
   st.out = out;
+  st.odd = (fx.f & 1) | (fy.f & 1) << 1 | (fl.f & 1) << 2;
   return st;
 }
 
@@ -902,103 +936,300 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 
 namespace cgrad {
 
-constexpr int kThreads = 256;
+constexpr int kCoordRun = 8;        // samples a run, a power of two up to 32: a group walks
+                                    // a run's live samples in order
+constexpr int kConsumerWarps = 8;   // 16 groups of 16 lanes at lego's ranks: 5 runs a stage
+constexpr int kConsumerThreads = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumerThreads + 32;  // and one producer warp
+constexpr int kStages = 2;          // ring depth
+constexpr int kBlocksPerSM = 2;
+constexpr int kBarrierBytes = 128;  // the full and empty barriers, then the ring
+constexpr int kSmallSmem = 48 * 1024;
+constexpr int kMaxSmem = 227 * 1024;
+constexpr unsigned kRunMask = kCoordRun == 32 ? 0xffffffffu : (1u << kCoordRun) - 1;
+static_assert(32 % kCoordRun == 0 && kCoordRun % 4 == 0,
+              "a run lies in one warp's ballot, a stage's rows are whole 16-byte units");
 
-// The coordinate gradient: a group of g lanes a sample (g as the forward's,
-// 16 at lego's ranks in float4 words), each lane a word of the axis pair's
-// ranks, the three pairs in turn. A lane reads the pair's 4 plane and 2
-// line corner words of its ranks (each times its flag, as the samplers
-// multiply a fetched row by it) and adds, over its word, u lerp(L) d(bilerp
-// P)/dwx, u lerp(L) d(bilerp P)/dwy and u bilerp(P) (L1 - L0), u the
-// upstream word; the weights' derivatives are scaled by (size - 1) / 2 into
-// the coordinates'. The group's sums meet by shuffles and lane 0 stores the
-// sample's three floats. A word whose upstream is zero (most of them: a
-// sample outside the AABB or the alpha mask has none) reads no corner.
+// The host's split of the work. A stage is `runs` runs of kCoordRun
+// consecutive samples, read through the ring at once; a run needs `parts`
+// groups (each axis pair's words, g at a time), and a block's groups take
+// the stage's runs and parts in turn.
+struct Plan {
+  int log_g;        // lanes a group: 1 << log_g
+  int parts;        // groups a run
+  int runs;         // runs a stage
+  int stage;        // samples a stage: runs * kCoordRun
+  int cols;         // dapp's width, 0 density-only
+  int stage_bytes;  // a stage's xyz, dsigma and dapp rows
+  int direct;       // read every stage from global memory (an unaligned pointer)
+  long long stages;
+};
+
+// One of the two buffers the stages take in turn: each sample's step for
+// the 3 axis pairs (the forward's cell pass), each sample's and part's
+// three sums, whether each sample has upstream, each run's live samples.
+__host__ __device__ inline int buffer_bytes(const Plan& p) {
+  return (3 * p.stage * static_cast<int>(sizeof(fwd::Step)) + p.stage * p.parts * 12 +
+          p.stage * 4 + p.runs * 4 + 15) & ~15;
+}
+
+// bar.red.or over the consumer warps (named barrier 2): whether any of
+// their threads holds p; it orders their shared-memory writes as a bar.sync
+__device__ __forceinline__ bool consumers_any(bool p) {
+  int r;
+  asm volatile(
+      "{\n.reg .pred pi, po;\n"
+      "setp.ne.s32 pi, %1, 0;\n"
+      "bar.red.or.pred po, 2, %2, pi;\n"
+      "selp.s32 %0, 1, 0, po;\n}\n"
+      : "=r"(r)
+      : "r"(static_cast<int>(p)), "n"(kConsumerThreads)
+      : "memory");
+  return r != 0;
+}
+
+// The coordinate gradient, warp-specialised. A producer lane bulk-copies
+// each stage's xyz, dsigma and dapp rows (contiguous) into a kStages-deep
+// ring under L2's evict-first policy; the consumer warps, for each stage:
+// vote on each sample's whole upstream row (a stage with no live sample
+// stores its zeros and is done); the cell pass, a thread a sample and axis
+// pair, writes each live sample's step as the forward's cell pass does,
+// its previous sample the run's previous live one; a group of g lanes a
+// run and part walks the run's live samples in order with its words of the
+// 4 plane and 2 line corner slots in registers, reading only the rows a
+// cell enters, adds its u lerp(L) dbilerp(P)/dwx, dbilerp/dwy and u
+// bilerp(P) dlerp(L)/dwl for each sample, then adds them over the group by
+// shuffles and writes each sample's three sums for its part; then a thread
+// an output float adds the parts in a fixed order and stores it (0 for a
+// sample with no upstream).
 template <int VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kConsumerThreads + 32, kBlocksPerSM)
     field_features_coords_grad_kernel(const float* __restrict__ xyz,
                                       const float* __restrict__ dsigma,
                                       const float* __restrict__ dapp,
-                                      const __grid_constant__ FieldArgs a, int log_g, int64_t N,
+                                      const __grid_constant__ FieldArgs a,
+                                      const __grid_constant__ Plan p, int64_t N,
                                       float* __restrict__ dxyz) {
-  const int g = 1 << log_g;
-  const int lane = threadIdx.x & (g - 1);
-  const int groups = blockDim.x >> log_g;
-  const unsigned gmask =
-      g == 32 ? 0xffffffffu : ((1u << g) - 1) << ((threadIdx.x & 31) & ~(g - 1));
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * groups;
-  for (int64_t n = static_cast<int64_t>(blockIdx.x) * groups + (threadIdx.x >> log_g); n < N;
-       n += stride) {
-    const float x[3] = {__ldg(xyz + 3 * n), __ldg(xyz + 3 * n + 1), __ldg(xyz + 3 * n + 2)};
-    const float ds = __ldg(dsigma + n);
-    float acc[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      // MAT_MODE ((0, 1), (0, 2), (1, 2)), VEC_MODE (2, 1, 0)
-      const int mx = i == 2 ? 1 : 0, my = i == 0 ? 1 : 2, ml = 2 - i;
-      const int h = a.h[i], w = a.w[i], len = a.len[i];
-      // the forward's floors: a sample's cell is chosen as the forward chooses it
-      const Floor fx = axis_floor(x[mx], w);
-      const Floor fy = axis_floor(x[my], h);
-      const Floor fl = axis_floor(x[ml], len);
-      const bool ix0 = fx.f >= 0 && fx.f < w, ix1 = fx.f + 1 >= 0 && fx.f + 1 < w;
-      const bool iy0 = fy.f >= 0 && fy.f < h, iy1 = fy.f + 1 >= 0 && fy.f + 1 < h;
-      const float flag[4] = {iy0 && ix0 ? 1.0f : 0.0f, iy0 && ix1 ? 1.0f : 0.0f,
-                             iy1 && ix0 ? 1.0f : 0.0f, iy1 && ix1 ? 1.0f : 0.0f};
-      const float lflag[2] = {fl.f >= 0 && fl.f < len ? 1.0f : 0.0f,
-                              fl.f + 1 >= 0 && fl.f + 1 < len ? 1.0f : 0.0f};
-      const int y0 = fwd::clamp_index(fy.f, h) * w, y1 = fwd::clamp_index(fy.f + 1, h) * w;
-      const int x0 = fwd::clamp_index(fx.f, w), x1 = fwd::clamp_index(fx.f + 1, w);
-      const int rows[4] = {y0 + x0, y0 + x1, y1 + x0, y1 + x1};
-      const int lrows[2] = {fwd::clamp_index(fl.f, len), fwd::clamp_index(fl.f + 1, len)};
-      const int nd = a.rd[i] / VEC;
-      const int nw = nd + a.ra[i] / VEC;
-      float gx = 0.0f, gy = 0.0f, gl = 0.0f;
-      for (int j = lane; j < nw; j += g) {
-        const bool dens = j < nd;
-        const int col = (dens ? j : j - nd) * VEC;
-        Vec<VEC> u;
-        if (dens) {
-#pragma unroll
-          for (int q = 0; q < VEC; ++q) u.v[q] = ds;
-        } else {
-          u = load_vec<VEC>(dapp + n * a.app_cols + a.app_off[i] + col);
-        }
-        if (!any_nonzero<VEC>(u)) continue;
-        const int c = dens ? a.rd[i] : a.ra[i];
-        const float* plane = (dens ? a.dplane[i] : a.aplane[i]) + col;
-        const float* line = (dens ? a.dline[i] : a.aline[i]) + col;
-        Vec<VEC> t[4], l[2];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) t[s] = load_vec<VEC>(plane + rows[s] * c);
-#pragma unroll
-        for (int s = 0; s < 2; ++s) l[s] = load_vec<VEC>(line + lrows[s] * c);
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) {
-          const float p00 = t[0].v[q] * flag[0], p01 = t[1].v[q] * flag[1];
-          const float p10 = t[2].v[q] * flag[2], p11 = t[3].v[q] * flag[3];
-          const float l0 = l[0].v[q] * lflag[0], l1 = l[1].v[q] * lflag[1];
-          const float lf = lerp(l0, l1, fl.u, fl.w);
-          const float pf = lerp(lerp(p00, p01, fx.u, fx.w), lerp(p10, p11, fx.u, fx.w), fy.u, fy.w);
-          const float ul = u.v[q] * lf;
-          gx += ul * (fy.u * (p01 - p00) + fy.w * (p11 - p10));
-          gy += ul * (fx.u * (p10 - p00) + fx.w * (p11 - p01));
-          gl += u.v[q] * pf * (l1 - l0);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  unsigned char* ring = smem + kBarrierBytes;
+  unsigned char* buffers = ring + kStages * p.stage_bytes;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(full + s, 1);
+      hop::mbar_init(empty + s, kConsumerWarps);
+    }
+    hop::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // producer: a stage's three rows of samples, one bulk copy each
+    if (lane != 0) return;
+    const uint64_t once = stream_policy();
+    int it = 0;
+    for (int64_t item = blockIdx.x; item < p.stages; item += gridDim.x, ++it) {
+      const int s = it % kStages;
+      hop::mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+      const int64_t n0 = item * p.stage;
+      const bool staged = !p.direct && n0 + p.stage <= N;
+      hop::mbar_arrive_expect_tx(full + s, staged ? p.stage_bytes : 0);
+      if (!staged) continue;
+      unsigned char* dst = ring + s * p.stage_bytes;
+      hop::bulk_load(dst, xyz + 3 * n0, p.stage * 12, full + s, once);
+      hop::bulk_load(dst + p.stage * 12, dsigma + n0, p.stage * 4, full + s, once);
+      if (p.cols)
+        hop::bulk_load(dst + p.stage * 16, dapp + n0 * p.cols, p.stage * 4 * p.cols, full + s,
+                       once);
+    }
+    return;
+  }
+
+  // consumers: group gid of g lanes, the lanes of a group adjacent in a warp
+  const int g = 1 << p.log_g;
+  const int glane = threadIdx.x & (g - 1);
+  const int gid = threadIdx.x >> p.log_g;
+  const int groups = kConsumerThreads >> p.log_g;
+  const unsigned gmask = g == 32 ? ~0u : ((1u << g) - 1) << (lane & ~(g - 1));
+  const int slots = p.runs * p.parts;
+  const int cells = 3 * p.stage;
+  const int bytes = buffer_bytes(p);
+  int it = 0;
+  for (int64_t item = blockIdx.x; item < p.stages; item += gridDim.x, ++it) {
+    const int s = it % kStages;
+    unsigned char* buf = buffers + (it & 1) * bytes;
+    fwd::Step* steps = reinterpret_cast<fwd::Step*>(buf);           // [3, stage]
+    float* sums = reinterpret_cast<float*>(steps + cells);           // [stage, parts, 3]
+    int* live = reinterpret_cast<int*>(sums + p.stage * p.parts * 3);  // [stage]
+    unsigned* masks = reinterpret_cast<unsigned*>(live + p.stage);   // [runs]
+    const int64_t n0 = item * p.stage;
+    const int count = N - n0 < p.stage ? static_cast<int>(N - n0) : p.stage;
+    // the stage's xyz [stage, 3], dsigma [stage] and dapp [stage, cols] in
+    // its ring slot: every read below is a shared-memory load
+    float* sx = reinterpret_cast<float*>(ring + s * p.stage_bytes);
+    float* ss = sx + 3 * p.stage;
+    float* sa = sx + 4 * p.stage;
+    hop::mbar_wait(full + s, (it / kStages) & 1);
+    if (p.direct || count < p.stage) {
+      // not bulk-copied (the call's last stage, or an unaligned pointer):
+      // the consumers copy it in, zeros past N (no upstream: dead samples)
+      for (int q = threadIdx.x; q < 3 * p.stage; q += kConsumerThreads)
+        sx[q] = q < 3 * count ? xyz[3 * n0 + q] : 0.0f;
+      for (int q = threadIdx.x; q < p.stage; q += kConsumerThreads)
+        ss[q] = q < count ? dsigma[n0 + q] : 0.0f;
+      for (int q = threadIdx.x; q < p.stage * p.cols; q += kConsumerThreads)
+        sa[q] = q < count * p.cols ? dapp[n0 * p.cols + q] : 0.0f;
+      hop::named_sync<kConsumerThreads>();
+    }
+
+    // the vote on each sample's whole upstream row: dsigma's word, then
+    // every word of the stage's dapp rows at once (a thread a word, which
+    // marks its sample live when not zero)
+    bool any = false;
+    for (int k = threadIdx.x; k < p.stage; k += kConsumerThreads) {
+      const bool nz = ss[k] != 0.0f;
+      live[k] = nz;
+      any |= nz;
+    }
+    hop::named_sync<kConsumerThreads>();
+    const int words = p.stage * p.cols / VEC;
+#pragma unroll 4
+    for (int w = threadIdx.x; w < words; w += kConsumerThreads) {
+      if (any_nonzero<VEC>(bwd::load_any<VEC>(sa + w * VEC))) {
+        live[w * VEC / p.cols] = 1;
+        any = true;
+      }
+    }
+    if (!consumers_any(any)) {
+      if (lane == 0) hop::mbar_arrive(empty + s);
+      for (int t = threadIdx.x; t < 3 * count; t += kConsumerThreads) dxyz[3 * n0 + t] = 0.0f;
+      continue;
+    }
+
+    // the cell pass: a thread a sample and axis pair; a run's threads lie in
+    // one warp, its ballot the run's live samples
+    for (int t0 = 0; t0 < cells; t0 += kConsumerThreads) {
+      const int t = t0 + static_cast<int>(threadIdx.x);
+      const int i = t / p.stage;
+      const int k = t - i * p.stage;
+      const bool on = t < cells && live[k];
+      const unsigned ballot = __ballot_sync(0xffffffffu, on);
+      if (t < cells) {
+        const int u = k & (kCoordRun - 1);
+        const unsigned m = (ballot >> (lane - u)) & kRunMask;
+        if (i == 0 && u == 0) masks[k / kCoordRun] = m;
+        if (on) {
+          const unsigned below = m & ((1u << u) - 1);
+          const int prev = below ? k - u + 31 - __clz(below) : -1;
+          steps[t] = fwd::make_step<false>(a, i, sx + 3 * k, prev >= 0 ? sx + 3 * prev : nullptr);
         }
       }
-      acc[mx] += gx * (0.5f * static_cast<float>(w - 1));
-      acc[my] += gy * (0.5f * static_cast<float>(h - 1));
-      acc[ml] += gl * (0.5f * static_cast<float>(len - 1));
     }
+    hop::named_sync<kConsumerThreads>();
+
+    // the word pass: a group a run and part walks the run's live samples
+    for (int job = gid; job < slots; job += groups) {
+      const int r = job / p.parts;
+      const int part = job - r * p.parts;
+      fwd::Word o;
+      const bool has = fwd::resolve<VEC>(a, part, glane, g, o);
+      const int i = o.pair;
+      const fwd::Step* st = steps + i * p.stage + r * kCoordRun;
+      // MAT_MODE ((0, 1), (0, 2), (1, 2)), VEC_MODE (2, 1, 0)
+      const int mx = i == 2 ? 1 : 0, my = i == 0 ? 1 : 2, ml = 2 - i;
+      const float scale_x = 0.5f * static_cast<float>(of_pair(a.w, i) - 1);
+      const float scale_y = 0.5f * static_cast<float>(of_pair(a.h, i) - 1);
+      const float scale_l = 0.5f * static_cast<float>(of_pair(a.len, i) - 1);
+      Vec<VEC> t[4], l[2];
 #pragma unroll
-    for (int off = g >> 1; off > 0; off >>= 1) {
+      for (int c = 0; c < 4; ++c) t[c] = zero_vec<VEC>();
+      l[0] = l[1] = zero_vec<VEC>();
+      const unsigned m = masks[r];
+      // each live sample's lane sums, added over the group after the walk:
+      // no shuffle waits inside it, so a sample's loads need not wait for
+      // the previous sample's sums
+      float acc[kCoordRun][3];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) acc[k] += __shfl_xor_sync(gmask, acc[k], off);
+      for (int u = 0; u < kCoordRun; ++u) acc[u][0] = acc[u][1] = acc[u][2] = 0.0f;
+#pragma unroll
+      for (int u = 0; u < kCoordRun; ++u) {
+        if (!has || !((m >> u) & 1)) continue;
+        const int k = r * kCoordRun + u;
+        const fwd::Step e = st[u];
+        fwd::enter<VEC>(t[0], o.plane, e.plane.x, o.c);
+        fwd::enter<VEC>(t[1], o.plane, e.plane.y, o.c);
+        fwd::enter<VEC>(t[2], o.plane, e.plane.z, o.c);
+        fwd::enter<VEC>(t[3], o.plane, e.plane.w, o.c);
+        fwd::enter<VEC>(l[0], o.line, e.line.x, o.c);
+        fwd::enter<VEC>(l[1], o.line, e.line.y, o.c);
+        if (e.out) {  // rare: a corner outside the grid
+          fwd::flag_out<VEC>(t[0], e.out & 1);
+          fwd::flag_out<VEC>(t[1], e.out & 2);
+          fwd::flag_out<VEC>(t[2], e.out & 4);
+          fwd::flag_out<VEC>(t[3], e.out & 8);
+          fwd::flag_out<VEC>(l[0], e.out & 16);
+          fwd::flag_out<VEC>(l[1], e.out & 32);
+        }
+        Vec<VEC> up;
+        if (o.out < 0) {
+          const float d = ss[k];
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) up.v[q] = d;
+        } else {
+          up = bwd::load_any<VEC>(sa + k * p.cols + o.out);
+        }
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) {
+          // slots by parity: t[0] (y slot 0, x slot 0), t[1] (0, 1), t[2]
+          // (1, 0), t[3] (1, 1); the derivatives in the upper corners'
+          // weights, up to the sign of an odd cell
+          const float r0 = t[0].v[q] * e.wxy.x + t[1].v[q] * e.wxy.y;
+          const float r1 = t[2].v[q] * e.wxy.x + t[3].v[q] * e.wxy.y;
+          const float pf = r0 * e.wxy.z + r1 * e.wxy.w;
+          const float lf = l[0].v[q] * e.wl.x + l[1].v[q] * e.wl.y;
+          const float ul = up.v[q] * lf;
+          acc[u][0] += ul * (e.wxy.z * (t[1].v[q] - t[0].v[q]) +
+                             e.wxy.w * (t[3].v[q] - t[2].v[q]));
+          acc[u][1] += ul * (r1 - r0);
+          acc[u][2] += up.v[q] * pf * (l[1].v[q] - l[0].v[q]);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        if (off < g) {
+#pragma unroll
+          for (int u = 0; u < kCoordRun; ++u) {
+            acc[u][0] += __shfl_xor_sync(gmask, acc[u][0], off);
+            acc[u][1] += __shfl_xor_sync(gmask, acc[u][1], off);
+            acc[u][2] += __shfl_xor_sync(gmask, acc[u][2], off);
+          }
+        }
+      }
+      if (glane == 0) {
+#pragma unroll
+        for (int u = 0; u < kCoordRun; ++u) {
+          if (!((m >> u) & 1)) continue;
+          const int odd = st[u].odd;
+          float* out = sums + ((r * kCoordRun + u) * p.parts + part) * 3;
+          out[mx] = (odd & 1 ? -acc[u][0] : acc[u][0]) * scale_x;
+          out[my] = (odd & 2 ? -acc[u][1] : acc[u][1]) * scale_y;
+          out[ml] = (odd & 4 ? -acc[u][2] : acc[u][2]) * scale_l;
+        }
+      }
     }
-    if (lane == 0) {
-      dxyz[3 * n] = acc[0];
-      dxyz[3 * n + 1] = acc[1];
-      dxyz[3 * n + 2] = acc[2];
+    hop::named_sync<kConsumerThreads>();
+    if (lane == 0) hop::mbar_arrive(empty + s);
+
+    // the parts' sums in a fixed order, a thread an output float
+    for (int t = threadIdx.x; t < 3 * count; t += kConsumerThreads) {
+      const int k = t / 3;
+      float v = 0.0f;
+      if (live[k])
+        for (int q = 0; q < p.parts; ++q) v += sums[(k * p.parts + q) * 3 + t - 3 * k];
+      dxyz[3 * n0 + t] = v;
     }
   }
 }
@@ -1226,19 +1457,45 @@ extern "C" int iff_field_features_coords_grad(const void* xyz, long long N,
     const int ranks = a.rd[i] > a.ra[i] ? a.rd[i] : a.ra[i];
     if (rows * ranks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long groups = c::kThreads >> log_g;
-  long long blocks = (N + groups - 1) / groups;
+  const int words = vec ? 4 : 1;
+  const int g = 1 << log_g;
+  c::Plan p;
+  p.log_g = log_g;
+  p.parts = 0;
+  for (int i = 0; i < 3; ++i) p.parts += ((a.rd[i] + a.ra[i]) / words + g - 1) / g;
+  const int groups = c::kConsumerThreads >> log_g;
+  p.cols = dapp ? a.app_cols : 0;
+  // as many runs as the groups take at once, fewer while the ring and the
+  // two buffers overflow shared memory
+  p.runs = groups / p.parts < 1 ? 1 : groups / p.parts;
+  // a consumer warp votes on at most 32 samples a stage
+  if (p.runs > 32 * c::kConsumerWarps / c::kCoordRun) p.runs = 32 * c::kConsumerWarps / c::kCoordRun;
+  int smem;
+  for (;;) {
+    p.stage = p.runs * c::kCoordRun;
+    p.stage_bytes = p.stage * (16 + 4 * p.cols);
+    smem = c::kBarrierBytes + c::kStages * p.stage_bytes + 2 * c::buffer_bytes(p);
+    if (smem <= c::kMaxSmem || p.runs == 1) break;
+    --p.runs;
+  }
+  if (smem > c::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t ends = reinterpret_cast<uintptr_t>(xyz) | reinterpret_cast<uintptr_t>(dsigma) |
+                         reinterpret_cast<uintptr_t>(dapp);
+  p.direct = 0 != (ends & 15);
+  p.stages = (N + p.stage - 1) / p.stage;
+  auto kernel = vec ? c::field_features_coords_grad_kernel<4>
+                    : c::field_features_coords_grad_kernel<1>;
+  if (smem > c::kSmallSmem)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, c::kThreads, smem);
+  long long blocks = static_cast<long long>(per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
   if (blocks > max_blocks) blocks = max_blocks;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* x = static_cast<const float*>(xyz);
-  auto* ds = static_cast<const float*>(dsigma);
-  auto* da = static_cast<const float*>(dapp);
-  auto* out = static_cast<float*>(dxyz);
-  if (vec)
-    c::field_features_coords_grad_kernel<4>
-        <<<static_cast<int>(blocks), c::kThreads, 0, s>>>(x, ds, da, a, log_g, N, out);
-  else
-    c::field_features_coords_grad_kernel<1>
-        <<<static_cast<int>(blocks), c::kThreads, 0, s>>>(x, ds, da, a, log_g, N, out);
+  if (blocks > p.stages) blocks = p.stages;
+  kernel<<<static_cast<int>(blocks), c::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xyz), static_cast<const float*>(dsigma),
+      static_cast<const float*>(dapp), a, p, N, static_cast<float*>(dxyz));
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,14 +2,17 @@
 renderer.py:12-197), the JAX package's ``render_chunked``, ``evaluation``
 and ``evaluation_path`` (``iffnerf_tpu/render/renderer.py:94,205,286``).
 
-Every ray goes through ``render_rays`` densely: a ray that misses the AABB
-has no valid sample and comes out as the background with its far depth,
-which is what the JAX package's span-sorted chunks give it without
-touching the field (that sorting sizes the TPU's compiled programs and is
-not ported). A chunk holds as many rays as keep its samples within
-``chunk_samples``: at lego's 300^3 grid a ray has about a thousand samples,
-and a fixed 16 384-ray chunk would hold about 10 GB of appearance products
-alone.
+The parameters are the JAX package's, in its order, with its defaults;
+``device`` (and ``log``) come last. Every ray goes through ``render_rays``
+densely: a ray that misses the AABB has no valid sample and comes out as
+the background with its far depth, which is what the JAX package's
+span-sorted chunks give it without touching the field (that compaction,
+``active_rays``, sizes the TPU's compiled programs; it is accepted and
+not ported). A chunk of ``chunk`` rays is marched in pieces of at most
+CHUNK_SAMPLES samples: at lego's 300^3 grid a ray has about a thousand
+samples, and JAX's 16 384-ray evaluation chunk would hold about 10 GB of
+appearance products alone. Rays are independent, so the pieces change no
+value. The sharded route (``mesh``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -26,29 +29,40 @@ from iffnerf_tpu_torch.models.field import AlphaMask, FieldConfig
 from iffnerf_tpu_torch.models.render import render_rays
 from iffnerf_tpu_torch.utils.metrics import mse2psnr, rgb_lpips, rgb_ssim
 
-CHUNK_SAMPLES = 1 << 22  # samples a chunk of render_chunked
+CHUNK_SAMPLES = 1 << 22  # samples a piece of a chunk of render_chunked at most
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("the sharded render route is not ported")
 
 
 @torch.no_grad()
 def render_chunked(config: FieldConfig, params, mask: AlphaMask | None,
-                   rays, n_samples: int = -1, white_bg: bool = False,
-                   ndc_ray: bool = False, chunk_samples: int = CHUNK_SAMPLES,
-                   device=None):
+                   rays, chunk: int = 4096, n_samples: int = -1,
+                   white_bg: bool = False, ndc_ray: bool = False,
+                   mesh=None, active_rays: bool = True, device=None):
     """rays [N, 6|7] (numpy or tensor) -> (rgb [N, 3], depth [N]) tensors
     on ``device`` (CUDA unless ``device="cpu"``), the counterpart of
-    ``OctreeRender_trilinear_fast`` (reference renderer.py:12-25). A chunk
-    takes as many rays as keep it within ``chunk_samples`` samples."""
+    ``OctreeRender_trilinear_fast`` (reference renderer.py:12-25). Chunks
+    of ``chunk`` rays, each marched in pieces of at most CHUNK_SAMPLES
+    samples; ``active_rays`` (the TPU's compaction of AABB hits) is
+    accepted and ignored: the dense march gives the same values."""
+    _refuse_mesh(mesh)
     dev = resolve_device(device)
     rays = as_tensor(rays, dev, torch.float32)
+    n = rays.shape[0]
     s = n_samples if n_samples > 0 else config.n_samples
-    step = max(1, chunk_samples // max(s, 1))
+    piece = max(1, min(chunk, CHUNK_SAMPLES // max(s, 1)))
     rgbs, depths = [], []
-    for i in range(0, rays.shape[0], step):
-        rgb, depth, *_ = render_rays(
-            config, params, mask, rays[i:i + step], is_train=False,
-            white_bg=white_bg, ndc_ray=ndc_ray, n_samples=n_samples)
-        rgbs.append(rgb)
-        depths.append(depth)
+    for i in range(0, n, chunk):
+        for j in range(i, min(i + chunk, n), piece):
+            rgb, depth, *_ = render_rays(
+                config, params, mask, rays[j:min(j + piece, i + chunk)],
+                is_train=False, white_bg=white_bg, ndc_ray=ndc_ray,
+                n_samples=n_samples)
+            rgbs.append(rgb)
+            depths.append(depth)
     if not rgbs:
         return (torch.zeros((0, 3), device=dev), torch.zeros((0,), device=dev))
     return torch.cat(rgbs), torch.cat(depths)
@@ -83,7 +97,7 @@ def evaluation(dataset, config: FieldConfig, params, mask: AlphaMask | None,
                save_path: str | None = None, N_vis: int = 5, prtx: str = "",
                n_samples: int = -1, white_bg: bool = False,
                ndc_ray: bool = False, compute_extra_metrics: bool = True,
-               chunk_samples: int = CHUNK_SAMPLES, device=None,
+               chunk: int = 16384, mesh=None, device=None,
                log: dict | None = None):
     """Held-out-view evaluation (reference renderer.py:28-140): renders
     every selected image of a stacked ``dataset`` on ``device`` and returns
@@ -93,6 +107,7 @@ def evaluation(dataset, config: FieldConfig, params, mask: AlphaMask | None,
     ``save_path`` is given (imageio and cv2 are imported then). ``log``, a
     dict, receives the lists ``ssim`` and ``seconds`` (each image's render
     time up to a synchronize)."""
+    _refuse_mesh(mesh)
     psnrs, ssims, l_alex, l_vgg, times = [], [], [], [], []
     if save_path is not None:
         os.makedirs(save_path, exist_ok=True)
@@ -108,9 +123,8 @@ def evaluation(dataset, config: FieldConfig, params, mask: AlphaMask | None,
         t_img = time.perf_counter()
         rays = dataset.all_rays[idx].reshape(-1, dataset.all_rays.shape[-1])
         rgb, depth = render_chunked(
-            config, params, mask, rays, n_samples=n_samples,
-            white_bg=white_bg, ndc_ray=ndc_ray, chunk_samples=chunk_samples,
-            device=dev)
+            config, params, mask, rays, chunk=chunk, n_samples=n_samples,
+            white_bg=white_bg, ndc_ray=ndc_ray, device=dev)
         rgb = rgb.reshape(h, w, 3).cpu().numpy()
         depth = depth.reshape(h, w).cpu().numpy()
         times.append(time.perf_counter() - t_img)
@@ -159,7 +173,7 @@ def evaluation_path(config: FieldConfig, params, mask: AlphaMask | None,
                     c2ws, dataset, save_path: str | None = None,
                     prtx: str = "", n_samples: int = -1,
                     white_bg: bool = False, ndc_ray: bool = False,
-                    chunk_samples: int = CHUNK_SAMPLES, device=None,
+                    chunk: int = 8192, mesh=None, device=None,
                     log: dict | None = None):
     """Renders a camera path c2ws [M, 4, 4] at ``dataset``'s ``img_wh`` and
     ``K`` (reference renderer.py:143-197) -> the frames, uint8 [H, W, 3]
@@ -169,6 +183,7 @@ def evaluation_path(config: FieldConfig, params, mask: AlphaMask | None,
     render does so (``iffnerf_tpu/render/renderer.py:286-322``), where
     the LLFF loader warps its own rays. ``log``, a dict, receives the list
     ``seconds`` (each frame's render time up to a synchronize)."""
+    _refuse_mesh(mesh)
     dev = resolve_device(device)
     w, h = dataset.img_wh
     ori_dirs, dx, dy = ray_directions_Ks_np(h, w, np.asarray(dataset.K))
@@ -185,9 +200,8 @@ def evaluation_path(config: FieldConfig, params, mask: AlphaMask | None,
         rays = np.concatenate([rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
                                radii.reshape(-1, 1)], -1).astype(np.float32)
         rgb, _ = render_chunked(
-            config, params, mask, rays, n_samples=n_samples,
-            white_bg=white_bg, ndc_ray=ndc_ray, chunk_samples=chunk_samples,
-            device=dev)
+            config, params, mask, rays, chunk=chunk, n_samples=n_samples,
+            white_bg=white_bg, ndc_ray=ndc_ray, device=dev)
         rgb = rgb.reshape(h, w, 3).cpu().numpy()
         times.append(time.perf_counter() - t0)
         frames.append((np.clip(rgb, 0, 1) * 255).astype(np.uint8))

@@ -1,5 +1,6 @@
 """Times field_features' backward kernel, or with ``--forward`` its
-forward kernel, on one card, beside the parent's kernel and variants.
+forward kernel, or with ``--coords`` its coordinate-gradient kernel, on
+one card, beside the parent's kernel and variants.
 
 Imports ``iffnerf_tpu_torch`` and ``chip_smoke`` from the working
 directory. Its inputs are those of ``chip_smoke.py``'s field-training
@@ -23,7 +24,18 @@ axis pair with a gradient against the rows a run's walk leaves,
 axis pair against the rows a walk's cells enter, at runs of 1, 8, 16 and
 the source's longest, ``row_fetches``) and each case's bytes bound.
 
-    cd <checkout> && python3 <path>/ff_time.py <label> [--forward] [--variants A,B] [--rounds N] [--parent DIR]
+    cd <checkout> && python3 <path>/ff_time.py <label> [--forward | --coords] [--variants A,B] [--rounds N] [--parent DIR]
+
+With ``--coords`` the inputs are those of ``chip_smoke.py``'s iNeRF
+phase instead (no training run): one refinement iteration's samples and
+upstream, kept at its coordinate-kernel launch
+(``chip_smoke.captured_iteration``: 1 060 864 samples at 300^3, about 4 %
+of them with upstream), and the all-live ray-ordered set of as many
+samples (``chip_smoke.all_live_coords_inputs``); for each variant the
+kernel's graph-replayed and eager ms at both, its check against the
+plain version (``chip_smoke.coords_grad_errors``) and bit-equal repeats,
+and once each case's bound (``chip_smoke.coords_grad_bound``) and live
+samples.
 
 ``--variants`` builds text edits of the checkout's
 ``csrc/field_features.cu`` into ``build/kernels/variants/``, all nvcc
@@ -56,6 +68,21 @@ times over:
 - ``clocks``: counters of each group's cycles waiting for ring stages and
   in the adds, and of its adds and walked samples, over one call at each
   input.
+
+The coordinate kernel's variants (with ``--coords``; ``source`` and
+``parent`` as above, the parent's kernel the first design: a group of
+lanes a sample, its upstream and corners loaded in dependent bursts):
+
+- ``c_no_ring``: every stage copied in by the consumers' own loads, the
+  producer copying nothing: what the bulk-copy ring buys;
+- ``c_no_walk``: every live sample reads all 6 corner rows of each pair
+  (no run walk);
+- ``c_no_skip``: every sample counted live (the dead ones computed with
+  their zero upstream): what skipping dead samples and stages buys;
+- ``c_stages3``, ``c_stages4``: a 3- or 4-stage ring in place of 2;
+- ``c_run4``, ``c_run16``: runs of 4 or 16 samples in place of 8;
+- ``c_warps4``, ``c_warps12``: 4 or 12 consumer warps in place of 8;
+- ``c_occ3``: registers capped for 3 blocks an SM.
 
 The forward's variants (with ``--forward``; ``source`` and ``parent`` as
 above):
@@ -313,6 +340,28 @@ _FWD_VARIANTS = {
 }
 
 
+# coordinate-kernel variants: name -> (text edits of the source, whether
+# its gradients mean anything)
+_COORD_VARIANTS = {
+    "c_no_ring": ([("  p.direct = 0 != (ends & 15);", "  p.direct = 1;")], True),
+    "c_no_walk": ([("const int prev = below ? k - u + 31 - __clz(below) : -1;",
+                    "const int prev = -1;")], True),
+    "c_no_skip": ([("      const bool nz = ss[k] != 0.0f;", "      const bool nz = k < count;"),
+                   ("    const int words = p.stage * p.cols / VEC;", "    const int words = 0;")],
+                  True),
+    **{f"c_stages{k}": ([("constexpr int kStages = 2;          // ring depth",
+                          f"constexpr int kStages = {k};          // ring depth")], True)
+       for k in (3, 4)},
+    **{f"c_run{r}": ([("constexpr int kCoordRun = 8;", f"constexpr int kCoordRun = {r};")], True)
+       for r in (4, 16)},
+    **{f"c_warps{w}": ([("constexpr int kConsumerWarps = 8;", f"constexpr int kConsumerWarps = {w};")],
+                       True) for w in (4, 12)},
+    # a 2-stage ring and registers capped for 3 blocks an SM
+    "c_occ3": ([("constexpr int kBlocksPerSM = 2;\nconstexpr int kBarrierBytes",
+                 "constexpr int kBlocksPerSM = 3;\nconstexpr int kBarrierBytes")], True),
+}
+
+
 def ray_ordered_samples(grid, directions, per_ray, seed, spread=0.8,
                         texels=0.5):
     """Normalized coords [len(directions) * per_ray, 3] float32, ray-major:
@@ -478,6 +527,37 @@ def _slot_weights(f, w, u):
     return np.where(odd, w, u)[:, None], np.where(odd, u, w)[:, None]
 
 
+def _enter(plane, line, t, lines, cells, sel, y, x, z):
+    """The walk's step for the runs ``sel`` whose next walked samples lie
+    in cells (y, x) and z: each slot whose corner the run's previous
+    cell (``cells``: cy, cx, cl, updated) does not hold is read (times the
+    corner's flag) into the slots ``t`` [runs, 4, R] and ``lines`` [runs,
+    2, R] -> the rows read."""
+    h, w, _ = plane.shape
+    length = line.shape[0]
+    cy, cx, cl = cells
+    fetched = 0
+    for s in range(4):
+        yy = y + (((s >> 1) ^ y) & 1)
+        xx = x + (((s & 1) ^ x) & 1)
+        need = ((yy - cy[sel] < 0) | (yy - cy[sel] > 1)
+                | (xx - cx[sel] < 0) | (xx - cx[sel] > 1))
+        yv, xv = yy[need], xx[need]
+        flag = ((yv >= 0) & (yv < h) & (xv >= 0) & (xv < w)).astype(np.float32)
+        t[sel[need], s] = (plane[np.clip(yv, 0, h - 1), np.clip(xv, 0, w - 1)]
+                           * flag[:, None])
+        fetched += int(need.sum())
+    for s in range(2):
+        zz = z + ((s ^ z) & 1)
+        need = (zz - cl[sel] < 0) | (zz - cl[sel] > 1)
+        zv = zz[need]
+        flag = ((zv >= 0) & (zv < length)).astype(np.float32)
+        lines[sel[need], s] = line[np.clip(zv, 0, length - 1)] * flag[:, None]
+        fetched += int(need.sum())
+    cy[sel], cx[sel], cl[sel] = y, x, z
+    return fetched
+
+
 def _walk_pair(plane, line, gx, gy, gl, run):
     """The walk of one axis pair over runs of ``run`` consecutive samples:
     for each run, slots of the cell's 4 plane and 2 line corner rows by
@@ -500,24 +580,7 @@ def _walk_pair(plane, line, gx, gy, gl, run):
         sel = np.arange(runs)[np.arange(runs) * run + u < n]
         ids = sel * run + u
         y, x, z = fy[ids], fx[ids], fl[ids]
-        for s in range(4):
-            yy = y + (((s >> 1) ^ y) & 1)
-            xx = x + (((s & 1) ^ x) & 1)
-            need = ((yy - cy[sel] < 0) | (yy - cy[sel] > 1)
-                    | (xx - cx[sel] < 0) | (xx - cx[sel] > 1))
-            yv, xv = yy[need], xx[need]
-            flag = ((yv >= 0) & (yv < h) & (xv >= 0) & (xv < w)).astype(np.float32)
-            t[sel[need], s] = (plane[np.clip(yv, 0, h - 1), np.clip(xv, 0, w - 1)]
-                               * flag[:, None])
-            fetched += int(need.sum())
-        for s in range(2):
-            zz = z + ((s ^ z) & 1)
-            need = (zz - cl[sel] < 0) | (zz - cl[sel] > 1)
-            zv = zz[need]
-            flag = ((zv >= 0) & (zv < length)).astype(np.float32)
-            lines[sel[need], s] = line[np.clip(zv, 0, length - 1)] * flag[:, None]
-            fetched += int(need.sum())
-        cy[sel], cx[sel], cl[sel] = y, x, z
+        fetched += _enter(plane, line, t, lines, (cy, cx, cl), sel, y, x, z)
         x0, x1 = _slot_weights(x, wx[ids], ux[ids])
         y0, y1 = _slot_weights(y, wy[ids], uy[ids])
         l0, l1 = _slot_weights(z, wl[ids], ul[ids])
@@ -572,6 +635,89 @@ def walk_forward(params, xyz, with_app=True, vec=True, run=32):
     return sigma, app, fetched
 
 
+def _walk_pair_coords(plane, line, gx, gy, gl, up, live, run):
+    """The coordinate kernel's walk of one axis pair: runs of ``run``
+    consecutive samples, each run's live samples in order, slots of the
+    cell's 4 plane and 2 line corner rows by the corner's parity, a slot
+    read only when a live sample's cell enters its corner (relative to the
+    run's previous live sample; then multiplied by the corner's flag) ->
+    (the derivatives [n, 3] in the upper corners' weights of x, y and the
+    line, summed over the ranks with the upstream ``up`` [n, R]; zero for
+    a sample that is not live, rows read)."""
+    h, w, _ = plane.shape
+    length = line.shape[0]
+    n = gx.shape[0]
+    (fx, wx, ux), (fy, wy, uy), (fl, wl, ul) = (
+        _cells(gx, w), _cells(gy, h), _cells(gl, length))
+    runs = -(-n // run)
+    cy, cx, cl = (np.full(runs, NO_CELL, np.int64) for _ in range(3))
+    t = np.zeros((runs, 4, plane.shape[2]), np.float32)
+    lines = np.zeros((runs, 2, plane.shape[2]), np.float32)
+    out = np.zeros((n, 3), np.float32)
+    fetched = 0
+    for u in range(run):
+        sel = np.arange(runs)[np.arange(runs) * run + u < n]
+        sel = sel[live[sel * run + u]]
+        ids = sel * run + u
+        y, x, z = fy[ids], fx[ids], fl[ids]
+        fetched += _enter(plane, line, t, lines, (cy, cx, cl), sel, y, x, z)
+        x0, x1 = _slot_weights(x, wx[ids], ux[ids])
+        y0, y1 = _slot_weights(y, wy[ids], uy[ids])
+        l0, l1 = _slot_weights(z, wl[ids], ul[ids])
+        tt, ll, g = t[sel], lines[sel], up[ids]
+        r0 = tt[:, 0] * x0 + tt[:, 1] * x1
+        r1 = tt[:, 2] * x0 + tt[:, 3] * x1
+        pf = r0 * y0 + r1 * y1
+        lf = ll[:, 0] * l0 + ll[:, 1] * l1
+        d = np.stack([
+            (g * lf * (y0 * (tt[:, 1] - tt[:, 0]) + y1 * (tt[:, 3] - tt[:, 2]))).sum(-1),
+            (g * lf * (r1 - r0)).sum(-1),
+            (g * pf * (ll[:, 1] - ll[:, 0])).sum(-1)], -1)
+        # slot 1 holds the lower corner of an odd cell: the other sign
+        odd = np.stack([x & 1, y & 1, z & 1], -1) == 1
+        out[ids] = np.where(odd, -d, d)
+    return out, fetched
+
+
+def walk_coords_grad(params, xyz, dsigma, dapp=None, run=8):
+    """A numpy model of the coordinate kernel: a sample is live when any
+    word of its upstream row (dsigma, and dapp when given) is not zero;
+    each axis pair walks runs of ``run`` samples (``_walk_pair_coords``)
+    and its derivatives scale by (size - 1) / 2 into the coordinates ->
+    (dxyz [n, 3], exactly 0 for a sample that is not live; rows read).
+    ``params``: the 12 tables as numpy or CPU torch arrays."""
+    from iffnerf_tpu_torch.ops.field_features import MAT_MODE, VEC_MODE, kernel_layout
+
+    with_app = dapp is not None
+    _, dims = kernel_layout(params, with_app)
+    xyz = np.asarray(xyz, np.float32)
+    dsigma = np.asarray(dsigma, np.float32)
+    live = dsigma != 0
+    if with_app:
+        dapp = np.asarray(dapp, np.float32)
+        live = live | (dapp != 0).any(-1)
+    n = xyz.shape[0]
+    out = np.zeros((n, 3), np.float32)
+    fetched = 0
+    for i in range(3):
+        h, w, length, rd, ra = dims[5 * i:5 * i + 5]
+        kinds = ("density", "app") if with_app else ("density",)
+        plane = np.concatenate([np.asarray(params[f"{k}_plane"][i], np.float32)
+                                for k in kinds], -1)
+        line = np.concatenate([np.asarray(params[f"{k}_line"][i], np.float32)
+                               for k in kinds], -1)
+        up = np.repeat(dsigma[:, None], rd, -1)
+        if with_app:
+            up = np.concatenate([up, dapp[:, dims[15 + i]:dims[15 + i] + ra]], -1)
+        m0, m1 = MAT_MODE[i]
+        d, f = _walk_pair_coords(plane, line, xyz[:, m0], xyz[:, m1],
+                                 xyz[:, VEC_MODE[i]], up, live, run)
+        fetched += f
+        for c, (axis, size) in enumerate(((m0, w), (m1, h), (VEC_MODE[i], length))):
+            out[:, axis] += d[:, c] * np.float32(0.5 * (size - 1))
+    return out, fetched
+
+
 def _build_variants(names, parent):
     """{name: the field_features library of variant name}, the nvcc
     processes all started together (``source``: the checkout's build)."""
@@ -586,7 +732,8 @@ def _build_variants(names, parent):
         if name == "source":
             continue
         base, edits = ("source", _VARIANTS[name][0]) if name in _VARIANTS else (
-            ("parent", []) if name == "parent" else _FWD_VARIANTS[name][:2])
+            ("source", _COORD_VARIANTS[name][0]) if name in _COORD_VARIANTS else (
+                ("parent", []) if name == "parent" else _FWD_VARIANTS[name][:2]))
         if base == "parent" and parent is None:
             raise RuntimeError(f"the {name} variant needs --parent DIR")
         parent_cu = (None if parent is None else Path(parent).resolve()
@@ -759,6 +906,37 @@ def backward_main(run, cases, libs, variants, rounds, result):
             row.setdefault("step_split", []).append(split)
 
 
+def coords_main(cases, libs, variants, rounds, result):
+    """The coordinate kernel's variants in turns at each case (see the
+    module's docstring) into ``result``."""
+    import chip_smoke
+    from iffnerf_tpu_torch.models.field import FieldConfig
+    from iffnerf_tpu_torch.ops import _build
+    from iffnerf_tpu_torch.ops.field_features import field_features_coords_grad
+
+    result["bound_ms"] = {case: chip_smoke.coords_grad_bound(*c)[0]
+                          for case, c in cases.items()}
+    for case, (_, _, dsigma, dapp) in cases.items():
+        result.setdefault("live_samples", {})[case] = int(
+            ((dsigma != 0) | (dapp != 0).any(-1)).sum())
+    for rnd in range(rounds):
+        for name in variants:
+            _build._LIBS["field_features"] = libs[name]
+            print(f"ff_time: {name} round {rnd}", file=sys.stderr, flush=True)
+            row = result.setdefault(f"coords_{name}", {})
+            for case, c in cases.items():
+                cell = row.setdefault(case, {"graph_ms": [], "ms": []})
+
+                def call():
+                    return field_features_coords_grad(FieldConfig(), *c)
+                cell["graph_ms"].append(chip_smoke.time_ms(call, graph=True))
+                cell["ms"].append(chip_smoke.time_ms(call))
+                if rnd == 0 and _COORD_VARIANTS.get(name, ((), True))[1]:
+                    cell.update(chip_smoke.coords_grad_errors(*c))
+                    cell["repeats_bit_equal"] = chip_smoke.coords_grad_repeats(*c)
+                torch.cuda.empty_cache()
+
+
 def main() -> int:
     sys.path.insert(0, ".")   # the checkout in the working directory
     import chip_smoke
@@ -772,6 +950,18 @@ def main() -> int:
     rounds = int(_arg("--rounds", "1"))
     libs = _build_variants(variants, _arg("--parent", None))
     dev = torch.device("cuda")
+    if "--coords" in sys.argv:
+        sc = chip_smoke.inerf_scene(dev)
+        _, _, inputs = chip_smoke.captured_iteration(sc, dev)
+        del sc
+        cases = {"iteration": inputs,
+                 "all_live": chip_smoke.all_live_coords_inputs(inputs[0], dev)}
+        result = {"label": label, "card": chip_smoke.card_line(),
+                  "coord_run": run_samples(Path("."), "kCoordRun"),
+                  "n": {k: v[1].shape[0] for k, v in cases.items()}}
+        coords_main(cases, libs, variants, rounds, result)
+        print(json.dumps(result), flush=True)
+        return 0
     run = chip_smoke.train_with_capture(dev)
     cases = _cases(run, dev, forward)
     result = {"label": label, "card": chip_smoke.card_line(),

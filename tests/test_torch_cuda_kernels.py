@@ -33,7 +33,13 @@ the edges of the kernel's run length). Its coordinate-gradient kernel
 (``field_features_coords_grad``, iNeRF's) is held to
 ``field_features_coords_grad_plain`` on the same fields at scattered
 points, texel boundaries and ray-ordered samples, aligned and not, zero
-upstream giving zeros, and under autograd beside the table backward.
+upstream giving zeros, and under autograd beside the table backward; its
+walk on ray-ordered samples half a texel and a texel apart, at sample
+counts around its run and stage lengths (the last stage read from global
+memory) and an odd count, with dead samples inside runs, whole dead runs
+and samples whose density or appearance upstream alone is zero, density
+only and with appearance, at every field's ranks (flower's 16/4/4 and
+48/12/12 among them), in bit-equal repeats.
 """
 
 import dataclasses
@@ -854,3 +860,116 @@ def test_field_coords_grad_kernel_refuses_mismatched_upstream(dev):
         with pytest.raises(ValueError, match="upstream"):
             field_features_coords_grad(config, params, xyz, *bad)
     assert field_features_coords_grad.launches == before
+
+
+# the coordinate kernel's walk: ray-ordered samples half a texel or a texel
+# apart (rays along the axes and the diagonals, leaving [-1, 1]), at sample
+# counts around its run (kCoordRun, from its source) and lego's stage of 5
+# runs, and odd counts
+COORD_CASES = ([(0.5, n) for n in (1, "run-1", "run", "run+1", "2run+1", 39,
+                                   40, 41, 81, 100001)]
+               + [(1.0, n) for n in (41, 60000, 100001)])
+
+
+def _coords_ray_inputs(config, texels, n, dev):
+    """``n`` ray-ordered samples ``texels`` texels apart and their
+    upstream: normal, with dead samples inside runs (3 of every 12), whole
+    dead runs (every third stretch of 97), dsigma alone zero on every fifth
+    sample and dapp alone zero on every seventh."""
+    if isinstance(n, str):
+        run = run_samples(Path(__file__).resolve().parents[1], "kCoordRun")
+        n = {"run-1": run - 1, "run": run, "run+1": run + 1,
+             "2run+1": 2 * run + 1}[n]
+    per_ray = int((2 * max(config.grid_size) + 37) / (2 * texels))
+    dirs = AXES + DIAGONALS
+    xyz = np.concatenate([
+        ray_ordered_samples(config.grid_size, dirs, per_ray, 11 + k,
+                            spread=0.9, texels=texels)
+        for k in range(-(-n // (per_ray * len(dirs))))])[:n]
+    rng = np.random.default_rng(n)
+    width = sum(config.app_n_comp)
+    dsigma = rng.standard_normal(n).astype(np.float32)
+    dapp = rng.standard_normal((n, width)).astype(np.float32)
+    k = np.arange(n)
+    dead = ((k // 3) % 4 == 1) | ((k // 97) % 3 == 2)
+    dsigma[dead | (k % 5 == 0)] = 0.0
+    dapp[dead | (k % 7 == 0)] = 0.0
+    return tuple(torch.as_tensor(a, device=dev) for a in (xyz, dsigma, dapp))
+
+
+@pytest.mark.parametrize("with_app", [False, True])
+@pytest.mark.parametrize("texels,n", COORD_CASES)
+def test_field_coords_grad_kernel_walks_rays(dev, vm_field, texels, n,
+                                             with_app):
+    """The coordinate kernel's walk of each run's live samples against
+    field_features_coords_grad_plain within COORDS_GRAD_TOL, samples
+    without upstream exactly 0, and a second call bit-equal to the first:
+    every field's ranks (float4 and 4-byte words), density-only and with
+    appearance."""
+    config, params = vm_field
+    xyz, dsigma, dapp = _coords_ray_inputs(config, texels, n, dev)
+    dapp = dapp if with_app else None
+    _assert_coords_grad_matches_plain(config, params, xyz, dsigma, dapp)
+    first = field_features_coords_grad(config, params, xyz, dsigma, dapp)
+    again = field_features_coords_grad(config, params, xyz, dsigma, dapp)
+    assert torch.equal(first, again)
+
+
+def test_field_coords_grad_kernel_all_live_repeats_bit_equal(dev):
+    """Lego's ranks on an all-live ray-ordered set (every upstream word
+    normal): within COORDS_GRAD_TOL of the plain version, and bit-equal
+    across repeats (no atomics: the parts meet in a fixed order)."""
+    config, params = _field(FIELDS["lego"], dev)
+    xyz, _, _ = _coords_ray_inputs(config, 0.5, 200001, dev)
+    g = torch.Generator().manual_seed(17)
+    dsigma = torch.randn(xyz.shape[0], generator=g).to(dev)
+    dapp = torch.randn((xyz.shape[0], sum(config.app_n_comp)),
+                       generator=g).to(dev)
+    _assert_coords_grad_matches_plain(config, params, xyz, dsigma, dapp)
+    first = field_features_coords_grad(config, params, xyz, dsigma, dapp)
+    for _ in range(3):
+        assert torch.equal(field_features_coords_grad(config, params, xyz,
+                                                      dsigma, dapp), first)
+
+
+def test_field_features_autograd_both_gradients_on_rays(dev):
+    """Under autograd with the tables and xyz requiring grad, on
+    ray-ordered samples at flower's ranks with dead samples in the
+    upstream (a loss masked as the renderer masks it): one launch of each
+    backward kernel, the tables' gradients within FIELD_GRAD_TOL and xyz's
+    within COORDS_GRAD_TOL of the plain route's."""
+    config, field = _field(FIELDS["flower"], dev)
+    xyz, dsigma, dapp = _coords_ray_inputs(config, 0.5, 50001, dev)
+    keep_sigma, keep_app = (dsigma != 0).float(), (dapp != 0).float()
+    g = torch.Generator().manual_seed(4)
+    w = torch.randn((sum(config.app_n_comp), 27), generator=g).to(dev)
+
+    def loss(sigma, app):
+        return ((sigma * keep_sigma).square().sum()
+                + ((app * keep_app) @ w).sin().sum())
+
+    leaves = {k: tuple(a.clone().requires_grad_() for a in field[k])
+              for k in TABLES}
+    leaf = xyz.clone().requires_grad_()
+    before = (field_features_backward.launches,
+              field_features_coords_grad.launches)
+    loss(*field_features(config, leaves, leaf, True)).backward()
+    torch.cuda.synchronize()
+    assert (field_features_backward.launches,
+            field_features_coords_grad.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    plain = {k: tuple(a.detach().clone().requires_grad_() for a in field[k])
+             for k in TABLES}
+    plain_xyz = xyz.clone().requires_grad_()
+    loss(*field_features_plain(plain, plain_xyz, True,
+                               gather_rows_plain)).backward()
+    for name in TABLES:
+        for a, b in zip(leaves[name], plain[name]):
+            torch.testing.assert_close(
+                a.grad, b.grad, rtol=0,
+                atol=FIELD_GRAD_TOL * float(b.grad.abs().max()))
+    torch.testing.assert_close(
+        leaf.grad, plain_xyz.grad, rtol=0,
+        atol=COORDS_GRAD_TOL * float(plain_xyz.grad.abs().max()))
+    dead = (dsigma == 0) & (dapp == 0).all(-1)
+    assert not leaf.grad[dead].any()

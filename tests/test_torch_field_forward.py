@@ -1,6 +1,7 @@
-"""field_features' forward on ray-ordered samples, the layout its kernel
-walks: the plain version against the JAX package, and a numpy model of the
-kernel's walk against the plain version.
+"""field_features' forward and its coordinate gradient on ray-ordered
+samples, the layout their kernels walk: the plain version against the JAX
+package, and numpy models of the kernels' walks against the plain
+versions.
 
 On the card the forward kernel is held to ``field_features_plain``
 (``tests/test_torch_cuda_kernels.py``). Here (a) that plain version is held
@@ -17,8 +18,15 @@ held bit-equal to the plain version's appearance products and to its sigma
 within that tolerance, at sample counts around the kernel's longest run
 read from its source (ray ends inside runs), in float4 and 4-byte words;
 its row count to ``row_fetches``; the host's run-length rule
-(``forward_plan``) to the split the kernel's design names. A 32^3 field
-with unequal ranks; tables and inputs from numpy seeds.
+(``forward_plan``) to the split the kernel's design names. (c) The
+coordinate kernel's walk (``tools/ff_time.py::walk_coords_grad``: a sample
+live when its upstream row has a word that is not zero, each run's live
+samples walked in order with the forward's slots, the derivatives' signs
+by the cell's parity) is held to ``field_features_coords_grad_plain``
+within COORDS_GRAD_TOL of the largest |dxyz|, samples without upstream
+exactly 0, on rays whose upstream has dead samples and dead runs, at the
+kernel's run length read from its source. A 32^3 field with unequal
+ranks; tables and inputs from numpy seeds.
 """
 
 from pathlib import Path
@@ -35,8 +43,10 @@ from iffnerf_tpu_torch.tools.ff_time import (
     DIAGONALS,
     forward_plan,
     ray_ordered_samples,
+    ray_upstream,
     row_fetches,
     run_samples,
+    walk_coords_grad,
     walk_forward,
 )
 
@@ -47,7 +57,12 @@ N = 808
 LAYOUTS = {"axes": (AXES, 5), "diagonals": (DIAGONALS, 11),
            "rays": (AXES + DIAGONALS, 17)}
 RUN = run_samples(Path(__file__).resolve().parents[1], "kMaxRun")
+COORD_RUN = run_samples(Path(__file__).resolve().parents[1], "kCoordRun")
 TOL = dict(rtol=1e-5, atol=1e-6)
+# the coordinate gradient against autograd's through the samplers, of the
+# largest |dxyz|: each coordinate sums up to 3 x (Rd + Ra) rank terms in
+# another order (the card's rule, chip_smoke.COORDS_GRAD_TOL)
+COORDS_GRAD_TOL = 1e-4
 
 
 def _tables(density, app, seed):
@@ -189,3 +204,62 @@ def test_forward_plan_at_lego_ranks():
     assert dens["runs"] * (3 * 64 + 3 * 4 * dens["red"]) * RUN <= 64 * 1024
     scalar = forward_plan(dims, False, 4_239_360, resident)
     assert (scalar["g"], scalar["parts"], scalar["runs"], scalar["red"]) == (32, 6, 1, 16)
+
+
+@pytest.mark.parametrize("with_app", [True, False])
+@pytest.mark.parametrize("n", [5 * COORD_RUN + 1, N])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_coords_walk_model_matches_plain(route, layout, n, with_app):
+    """The coordinate kernel's walk against field_features_coords_grad_plain
+    on rays with dead samples inside runs and dead runs (``ray_upstream``),
+    density-only and with appearance: within COORDS_GRAD_TOL, a sample
+    without upstream exactly 0."""
+    _, _, port = route
+    xyz = _samples(layout, n)
+    width = sum(a.shape[-1] for a in port["app_plane"])
+    dsigma, dapp = ray_upstream(n, width, 3)
+    if not with_app:
+        dapp = None
+    live = dsigma != 0
+    if with_app:
+        live = live | (dapp != 0).any(-1)
+    assert 0 < live.sum() < n
+    want = tff.field_features_coords_grad_plain(
+        port, torch.from_numpy(xyz), torch.from_numpy(dsigma),
+        None if dapp is None else torch.from_numpy(dapp)).numpy()
+    got, _ = walk_coords_grad(port, xyz, dsigma, dapp, COORD_RUN)
+    np.testing.assert_allclose(got, want, rtol=0, atol=COORDS_GRAD_TOL
+                               * float(np.abs(want).max()))
+    assert not got[~live].any()
+
+
+def test_coords_walk_reads_fewer_rows_on_rays():
+    """Runs of the kernel's length read fewer corner rows than 18 a live
+    sample on half-texel rays; runs of 1 read exactly 18."""
+    port = {k: tuple(torch.from_numpy(a) for a in v)
+            for k, v in _tables(*ROUTES["float4"], seed=9).items()}
+    xyz = _samples("diagonals", N)
+    dsigma, dapp = ray_upstream(N, sum(a.shape[-1] for a in port["app_plane"]), 4)
+    live = int(((dsigma != 0) | (dapp != 0).any(-1)).sum())
+    _, walked = walk_coords_grad(port, xyz, dsigma, dapp, COORD_RUN)
+    _, alone = walk_coords_grad(port, xyz, dsigma, dapp, 1)
+    assert alone == 18 * live
+    assert walked < 0.6 * alone
+
+
+@pytest.mark.parametrize("table", ["_VARIANTS", "_FWD_VARIANTS", "_COORD_VARIANTS"])
+def test_ff_time_variants_edit_the_source(table):
+    """Every text edit of ``tools/ff_time.py``'s variants of this
+    checkout's kernels (the backward's, the forward's walk and the
+    coordinate kernel's) finds its text exactly once in
+    ``csrc/field_features.cu``, so that each variant builds."""
+    import iffnerf_tpu_torch.tools.ff_time as ff_time
+
+    src = (Path(__file__).resolve().parents[1] / "iffnerf_tpu_torch" / "csrc"
+           / "field_features.cu").read_text()
+    for name, spec in getattr(ff_time, table).items():
+        if table == "_FWD_VARIANTS" and spec[0] != "source":
+            continue
+        edits = spec[1] if table == "_FWD_VARIANTS" else spec[0]
+        for old, _ in edits:
+            assert src.count(old) == 1, (name, old[:60])

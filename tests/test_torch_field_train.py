@@ -1,7 +1,7 @@
 """Port parity for the field's training math (``iffnerf_tpu_torch``'s
 ``models/field.py``, ``models/render.py``, ``models/shading.py``,
-``ops/interpolate.py``, ``utils/``) against the JAX package, and the F4
-repair of the pose harness's signatures.
+``ops/interpolate.py``, ``utils/``) against the JAX package, and the F4 and
+F5 repairs of the pose harness's and the renderer's signatures.
 
 Fields are made by the JAX package (``torch_parity.field``: a 20^3 grid,
 Ref shading) and reach the port through its checkpoint bridge; inputs and
@@ -23,6 +23,7 @@ from iffnerf_tpu.models import render as jrender
 from iffnerf_tpu.ops import interpolate as jinterp
 from iffnerf_tpu.pose import id_module as jid
 from iffnerf_tpu.pose import test as jtest
+from iffnerf_tpu.render import renderer as jrenderer
 from iffnerf_tpu.utils import metrics as jmetrics
 from iffnerf_tpu.utils import misc as jmisc
 from iffnerf_tpu_torch.checkpoint import _flatten, _numpy_leaves, params_from_numpy
@@ -32,6 +33,7 @@ from iffnerf_tpu_torch.ops import field_features as tff
 from iffnerf_tpu_torch.ops import interpolate as tinterp
 from iffnerf_tpu_torch.pose import id_module as tid
 from iffnerf_tpu_torch.pose import test as ttest
+from iffnerf_tpu_torch.render import renderer as trenderer
 from iffnerf_tpu_torch.utils import metrics as tmetrics
 from iffnerf_tpu_torch.utils import misc as tmisc
 
@@ -79,12 +81,18 @@ def _leaf_close(got, want, share, what):
 @pytest.mark.parametrize("jax_fn,port_fn,trailing", [
     (jtest.test_pose_estimation, ttest.test_pose_estimation, ("device",)),
     (jid.score_rays, tid.score_rays, ()),
+    (jrenderer.render_chunked, trenderer.render_chunked, ("device",)),
+    (jrenderer.evaluation, trenderer.evaluation, ("device", "log")),
+    (jrenderer.evaluation_path, trenderer.evaluation_path, ("device", "log")),
 ])
 def test_signatures_follow_jax_order(jax_fn, port_fn, trailing):
     """The port's parameter names, in order, are JAX's plus a trailing
-    ``device`` (a call in JAX's positional order binds the same ones)."""
+    ``device`` (and the renderers' ``log``), with JAX's defaults (a call
+    in JAX's positional order binds the same ones)."""
     want = list(inspect.signature(jax_fn).parameters) + list(trailing)
     assert list(inspect.signature(port_fn).parameters) == want
+    for name, p in inspect.signature(jax_fn).parameters.items():
+        assert inspect.signature(port_fn).parameters[name].default == p.default
 
 
 def test_ported_signatures_refuse_what_is_not_ported():
@@ -93,6 +101,42 @@ def test_ported_signatures_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="sharded"):
         ttest.test_pose_estimation(None, {}, None, None, None, None, None,
                                    mesh=object(), device="cpu")
+    for call in (lambda: trenderer.render_chunked(None, {}, None, np.zeros(
+                     (1, 6), np.float32), mesh=object(), device="cpu"),
+                 lambda: trenderer.evaluation(None, None, {}, None,
+                                              mesh=object(), device="cpu"),
+                 lambda: trenderer.evaluation_path(None, {}, None, None, None,
+                                                   mesh=object(),
+                                                   device="cpu")):
+        with pytest.raises(NotImplementedError, match="sharded"):
+            call()
+
+
+@pytest.fixture(scope="module")
+def f5_field(tmp_path_factory):
+    return field(tmp_path_factory.mktemp("f5"), seed=0)
+
+
+@pytest.mark.parametrize("args", [(256, -1, True), (7, 12, False, False,
+                                                    None, False)])
+def test_render_chunked_positional_matches_jax(f5_field, args):
+    """F5: ``render_chunked`` called positionally in JAX's order (the
+    fault's call: chunk 256, n_samples -1, white_bg; and chunks of 7 rays
+    at 12 samples with every parameter through ``active_rays``) on the
+    20^3 field of seed 0 and 64 rays from numpy seed 0 (origins within
+    0.3 of (0, 0, -3), directions (0, 0, 1) + N(0, 0.1)): rgb and depth
+    within the render parity rule, rtol 1e-5 and atol 1e-6."""
+    (jcfg, jp, jmask), (tcfg, tp, tmask) = f5_field
+    rng = np.random.default_rng(0)
+    ori = rng.uniform(-0.3, 0.3, (64, 3)) + np.array([0.0, 0.0, -3.0])
+    dirs = unit(np.array([0.0, 0.0, 1.0]) + rng.normal(0, 0.1, (64, 3)))
+    rays = np.concatenate([ori, dirs], -1).astype(np.float32)
+    want = jrenderer.render_chunked(jcfg, jp, jmask, rays, *args)
+    got = trenderer.render_chunked(tcfg, tp, tmask, rays, *args,
+                                   device="cpu")
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
     with pytest.raises(NotImplementedError, match="sharded"):
         tid.score_rays(None, tid.IDConfig(), None, None, None, None, None,
                        "data")

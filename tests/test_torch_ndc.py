@@ -40,7 +40,7 @@ from iffnerf_tpu_torch.render.renderer import evaluation_path
 from iffnerf_tpu_torch.train import trainer as ttrainer
 
 from tests.test_loaders import llff_scene  # noqa: F401
-from torch_parity import one_torch_thread, t
+from torch_parity import t
 
 N_SAMPLES = 48
 # JAX's render_rays compiled once a case (its eager ops compile one by one,
@@ -258,9 +258,8 @@ def test_train_cli_trains_an_llff_scene(llff_scene, tmp_path,  # noqa: F811
     args = train_cli.parse_args(argv)
     assert args.ndc_ray == 1 and args.dataset_name == "llff"
     assert args.shadingMode == "MLP_Fea" and args.n_lamb_sh == [48, 12, 12]
-    with one_torch_thread():
-        cfg, params, mask, logfolder = ttrainer.reconstruction(
-            args, log_fn=lines.append, device="cpu")
+    cfg, params, mask, logfolder = ttrainer.reconstruction(
+        args, log_fn=lines.append, device="cpu")
     psnr = [float(ln.split("psnr: ")[1].split(" ")[0]) for ln in lines
             if "test all psnr" in ln]
     assert len(psnr) == 1 and np.isfinite(psnr[0])

@@ -30,7 +30,6 @@ from iffnerf_tpu_torch.data.llff import get_spiral
 from tests.fixtures import make_blender_fixture
 from tests.test_loaders import llff_scene, nsvf_scene  # noqa: F401
 from tests.test_mip360 import colmap_scene  # noqa: F401
-from torch_parity import one_torch_thread
 
 FIELDS = ("all_rays", "all_rgbs", "poses", "K", "scene_bbox", "directions",
           "render_path")
@@ -249,8 +248,7 @@ def test_train_cli_trains_each_config(config, scene, flags, request,
     its loader, cut to 2 iterations of 128 rays on a 10^3 grid: it loads
     both splits, trains (a finite mse each step) and saves the field. The
     TensorBoard writer is the trainer's no-op one (importing TensorBoard
-    loads TensorFlow here), and torch runs on one thread
-    (``one_torch_thread``)."""
+    loads TensorFlow here)."""
     from iffnerf_tpu_torch import train_cli
     from iffnerf_tpu_torch.train import trainer
 
@@ -265,9 +263,8 @@ def test_train_cli_trains_each_config(config, scene, flags, request,
          "--upsamp_list", "100", "--update_AlphaMask_list", "100",
          "--N_vis", "0", "--ckpt_every", "0"] + flags)
     lines = []
-    with one_torch_thread():
-        cfg, _, _, logfolder = trainer.reconstruction(
-            args, log_fn=lines.append, device="cpu")
+    cfg, _, _, logfolder = trainer.reconstruction(
+        args, log_fn=lines.append, device="cpu")
     mses = [float(ln.split("mse ")[1]) for ln in lines if " mse " in ln]
     assert len(mses) == 2 and all(np.isfinite(mses))
     assert os.path.exists(os.path.join(logfolder, f"{config}.npz"))

@@ -34,7 +34,7 @@ from iffnerf_tpu_torch.device import trainable
 from iffnerf_tpu_torch.render.renderer import evaluation
 from iffnerf_tpu_torch.train import trainer as ttrainer
 
-from torch_parity import field, near_mask_points, t, unit
+from torch_parity import field, jax_child, near_mask_points, t, unit
 
 CPU = torch.device("cpu")
 # a shortened fixture schedule: 16^3 -> 24^3, 200 iterations of 512 rays,
@@ -205,23 +205,34 @@ def test_field_config_from_args_matches(scene):
         assert np.array_equal(getattr(got, name), getattr(want, name)), name
 
 
+def jax_reference_run(scene, basedir):
+    """The JAX package's reconstruction of the shortened schedule on the
+    fixture scene and its test PSNRs (``runs`` runs it in a child process,
+    ``torch_parity.jax_child``)."""
+    jargs = jconfig_parser(["--datadir", scene, "--expname", "fx",
+                            "--basedir", basedir] + FLAGS)
+    jcfg, jp, jmask, _ = jtrainer.reconstruction(jargs, log_fn=lambda *a: None)
+    jds = jload_blender(scene, split="test", is_stack=True)
+    return [float(p) for p in jevaluation(
+        jds, jcfg, jp, jmask, None, N_vis=-1, white_bg=True,
+        compute_extra_metrics=False, chunk=4096)]
+
+
 @pytest.fixture(scope="module")
 def runs(scene, tmp_path_factory):
     """The shortened schedule through both packages' reconstruction, from
     one seed (their initial draws differ: a JAX key and a torch
-    Generator), and the JAX run's test PSNRs."""
+    Generator), and the JAX run's test PSNRs. The JAX run goes on in a
+    child process on two cores while the port's runs here."""
     base = tmp_path_factory.mktemp("runs")
     common = ["--datadir", scene, "--expname", "fx"] + FLAGS
-    jargs = jconfig_parser(common + ["--basedir", str(base / "jax")])
-    jcfg, jp, jmask, _ = jtrainer.reconstruction(jargs, log_fn=lambda *a: None)
-    jds = jload_blender(scene, split="test", is_stack=True)
-    jpsnr = jevaluation(jds, jcfg, jp, jmask, None, N_vis=-1, white_bg=True,
-                        compute_extra_metrics=False, chunk=4096)
+    jax_psnr = jax_child("test_torch_train_loop:jax_reference_run", scene,
+                         str(base / "jax"), cpus=2)
     targs = config_parser(common + ["--basedir", str(base / "port")])
     lines = []
     tcfg, tp, tmask, logfolder = ttrainer.reconstruction(
         targs, log_fn=lines.append, device="cpu")
-    return {"jax_psnr": jpsnr, "port": (tcfg, tp, tmask), "logfolder":
+    return {"jax_psnr": jax_psnr(), "port": (tcfg, tp, tmask), "logfolder":
             logfolder, "common": common, "base": base, "lines": lines}
 
 

@@ -3,10 +3,20 @@
 Every input is drawn from a numpy seed and handed to both packages as
 numpy arrays; the JAX parameters come from the JAX package's own
 ``init_id_module`` and reach the port through its weight bridge.
+
+Importing this module puts torch on one thread in the test process: the
+suite runs in several processes at once, and torch's threads, one a core
+in each of them, would contend for the same cores (the port's tests ran
+3-6 times slower in the suite than alone, a short training run most).
 """
 
-import contextlib
 import dataclasses
+import importlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
 
 import numpy as np
 import jax
@@ -19,6 +29,8 @@ from iffnerf_tpu_torch.pose import id_module as tid
 from iffnerf_tpu_torch.pose.vit import ViTConfig as TViTConfig
 
 UP = np.asarray([0.0, 0.0, 1.0], np.float32)
+
+torch.set_num_threads(1)
 
 
 def configs(depth=1, **kw):
@@ -143,14 +155,50 @@ def recorded_inerf(monkeypatch, n_iters=2):
     return calls
 
 
-@contextlib.contextmanager
-def one_torch_thread():
-    """torch on one thread while open: a run of thousands of small ops
-    (a short training run on the CPU) slows most when its threads contend
-    for the cores with other test processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
+def jax_child(target: str, *args, cpus: int = 1, timeout: float = 1800.0):
+    """Starts ``target`` ("module:function" of a module in tests/) on the
+    JSON-able ``args`` in a child interpreter whose JAX runs on one CPU
+    device with its thread pool held to ``cpus`` cores (its affinity), and
+    returns at once -> a function that waits for the child and returns
+    what ``target`` returned (JSON). A test process cannot hold its own
+    JAX to fewer threads or devices: its backend starts with the
+    conftest's 8 virtual devices and every core. So a long JAX reference
+    runs beside the port's run in the test process, and off the cores the
+    other test processes share."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, XLA_FLAGS="--xla_cpu_multi_thread_eigen=false",
+               JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+                   [here, os.path.dirname(here)]
+                   + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    cores = ",".join(map(str, sorted(os.sched_getaffinity(0))[-cpus:]))
+    # files, not pipes: a child that fills a pipe would wait for this
+    # process, which reads only when the port's run is done
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), target, json.dumps(args),
+         cores], cwd=here, env=env, stdout=out, stderr=err, text=True)
+
+    def result():
+        proc.wait(timeout=timeout)
+        out.seek(0)
+        err.seek(0)
+        if proc.returncode:
+            raise RuntimeError(f"{target} failed in its child process "
+                               f"(rc {proc.returncode}):\n{err.read()[-4000:]}")
+        return json.loads(out.read().strip().splitlines()[-1])
+
+    return result
+
+
+def _child_main(target: str, args: str, cores: str) -> None:
+    # before the XLA backend starts its thread pool, which sizes itself by
+    # and inherits this affinity (no Python runs between fork and exec)
+    os.sched_setaffinity(0, {int(c) for c in cores.split(",")})
+    jax.config.update("jax_platforms", "cpu")
+    module, name = target.split(":")
+    print(json.dumps(getattr(importlib.import_module(module), name)(
+        *json.loads(args))), flush=True)
+
+
+if __name__ == "__main__":
+    _child_main(*sys.argv[1:4])
