@@ -27,11 +27,18 @@ loader's geometry, 12 steps through its upsamples and mask update to its
 configs/bicycle.txt at its 639^3 grid on Mip-NeRF 360 cameras through that
 loader's geometry; each with ``field_features``' forward and backward held
 to their plain versions at its final step's samples and timed beside their
-bounds), and the iNeRF refinement on a
+bounds), object captures (configs/co3d.txt on a CO3D sequence whose
+annotation files the CO3D loader reads, through its schedule with its
+mask updates to its 300^3-voxel grid, a test view and its mesh through
+``export_mesh_from_field``; configs/repair_27_RPf_00192b.txt at its
+377x377x188 grid on a Metashape cameras.xml, a test view and a spiral-path
+frame; lego's widths under the unisphere contraction; the field kernels
+held to their plain versions at each), and the iNeRF refinement on a
 lego-width field with low-frequency appearance (``estimate_pose_inerf``:
 800 iterations of 1024 rays from the JAX test's perturbation of a frame
 rendered from the field, then ``test_pose_estimation`` with
-``inerf_refinement``), with ``field_features``' coordinate-gradient
+``inerf_refinement``, its refinement cut to 100 iterations), with
+``field_features``' coordinate-gradient
 kernel held to its plain version, at an iteration's samples and on an
 all-live set, bit-equal across repeats, and timed beside it. It checks
 what comes out, and times kernels, estimates, the object side,
@@ -72,9 +79,11 @@ from iffnerf_tpu_torch.checkpoint import (
     save_field,
 )
 from iffnerf_tpu_torch.config import config_parser
-from iffnerf_tpu_torch.data import llff, mip360
+from iffnerf_tpu_torch.data import co3d, llff, mip360, repair
+from iffnerf_tpu_torch.data.metashape import load_cameras_xml
 from iffnerf_tpu_torch.data.rays_np import ray_directions_np
 from iffnerf_tpu_torch.device import leaves, resolve_device, trainable
+from iffnerf_tpu_torch import inerf as inerf_module
 from iffnerf_tpu_torch.inerf import estimate as inerf_estimate
 from iffnerf_tpu_torch.inerf.estimate import (
     GeneratorDraws,
@@ -83,7 +92,9 @@ from iffnerf_tpu_torch.inerf.estimate import (
     ray_grids,
 )
 from iffnerf_tpu_torch.models.field import (
+    DENSE_ALPHA_CHUNK,
     FieldConfig,
+    get_dense_alpha,
     init_field,
     make_alpha_mask,
     normalize_coord,
@@ -167,6 +178,8 @@ from iffnerf_tpu_torch.render.renderer import evaluation, evaluation_path
 from iffnerf_tpu_torch.tools.ff_time import AXES, ray_ordered_samples, ray_upstream
 from iffnerf_tpu_torch.train import trainer as field_trainer
 from iffnerf_tpu_torch.train.trainer import field_config_from_args, train_field
+from iffnerf_tpu_torch.utils.mesh import build as build_marching_cubes
+from iffnerf_tpu_torch.utils.mesh import export_mesh_from_field, read_ply
 from iffnerf_tpu_torch.utils.misc import N_to_reso, cal_n_samples, n_voxel_schedule
 
 SEED = 0
@@ -261,6 +274,10 @@ INERF_ITERS, INERF_BATCH, INERF_LRATE, INERF_STEP_RATIO = 800, 1024, 0.02, 0.5
 INERF_COARSE, INERF_APP_STD = 12, 3.0
 INERF_ROT_DEG, INERF_SHIFT, INERF_GAIN = 12.0, 0.15, 0.7
 INERF_ROUTE_ITERS, INERF_PROFILE_ITERS = 10, 10
+# test_pose_estimation's own refinement (800 iterations, as estimate_pose_
+# inerf above runs them) cut to this many: the entry point is driven, the
+# 800-iteration loop measured once
+INERF_TPE_ITERS = 100
 # the coordinate kernel's all-live input: as many samples as an iteration
 # (2048 rays x 518 = 1024 x 1036), ray-ordered half a texel apart at the
 # field's grid round centres within INERF_LIVE_SPREAD of the origin, every
@@ -297,7 +314,32 @@ RS_FLOWER_IMAGES, RS_FLOWER_WH, RS_FLOWER_FOCAL = 34, (4032, 3024), 3260.0
 RS_FLOWER_ITERS, RS_FLOWER_UPSAMPLES, RS_FLOWER_MASK = 12, (2, 4, 6, 8), 3
 RS_BICYCLE_IMAGES, RS_BICYCLE_WH, RS_BICYCLE_FOCAL = 8, (4946, 3286), 4100.0
 RS_BICYCLE_STEPS, RS_PATH_FRAMES, RS_DOWNSAMPLE = 3, 2, 4.0
+# Object captures. configs/co3d.txt (CO3D: MLP_Fea, softplus with
+# density_shift -10 and distance_scale 25, rm_weight_mask_thre 1e-2, ranks
+# 16/48) on a CO3D sequence of OC_CO3D_FRAMES phone-video frames at
+# OC_CO3D_WH (downsample_train 5: 384x216, 90 train views) on a ring round
+# the object, its annotation files written and read by the loader; from a
+# young object field at its 128^3 start through its schedule cut to
+# OC_CO3D_ITERS of 30 000 iterations (its five upsamples at 2000-7000 and
+# its mask updates at 2000 and 4000 moved to OC_CO3D_UPSAMPLES and
+# OC_CO3D_MASKS), then its mesh at its final grid.
+# configs/repair_27_RPf_00192b.txt (Repair: MLP_Fea, relu, ranks 16/16/4
+# and 48/48/12) on a Metashape cameras.xml of OC_REPAIR_CAMERAS cameras of
+# one OC_REPAIR_WH sensor (downsample 5: 400x300, 54 train views) on three
+# rings, at its final grid (300^3 voxels over its [[-1,-1,0],[1,1,1]] box:
+# 377x377x188) for OC_REPAIR_STEPS steps. The unisphere contraction at
+# configs/lego.txt's widths and 300^3 grid, OC_UNI_STEPS steps on
+# OC_UNI_FRAMES synthetic 800x800 frames. The capture rigs are tilted by
+# OC_RIG_TILT degrees: the loaders' camera-plane fit turns a level rig's
+# normal onto +z by a reflection.
+OC_CO3D_FRAMES, OC_CO3D_WH, OC_CO3D_FOCAL = 100, (1920, 1080), 1500.0
+OC_CO3D_CATEGORY, OC_CO3D_SEQUENCE = "cake", "374_42274_84517"
+OC_CO3D_ITERS, OC_CO3D_UPSAMPLES, OC_CO3D_MASKS = 10, (2, 3, 5, 6, 7), (2, 4)
+OC_REPAIR_CAMERAS, OC_REPAIR_WH, OC_REPAIR_FOCAL = 60, (2000, 1500), 1800.0
+OC_REPAIR_STEPS, OC_DOWNSAMPLE, OC_RIG_TILT = 3, 5.0, 10.0
+OC_UNI_STEPS, OC_UNI_FRAMES = 3, 10
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+T_START = time.perf_counter()
 
 
 def check(ok, what: str) -> None:
@@ -306,6 +348,10 @@ def check(ok, what: str) -> None:
 
 
 def emit(**kw) -> None:
+    """One JSON line; a phase's line also carries the script's seconds so
+    far."""
+    if "phase" in kw:
+        kw["elapsed_s"] = time.perf_counter() - T_START
     print(json.dumps(kw), flush=True)
 
 
@@ -2666,7 +2712,13 @@ def phase_inerf(id_params, id_cfg, rays, dev):
            "library_max_rel_diff": lib_diff,
            "all_live_ms": time_ms(lambda: ours(live_case), graph=True),
            "all_live_bound_ms": coords_grad_bound(*live_case)[0]}
-    del lib, it_inputs, it_params, it_xyz, it_dsigma, it_dapp, live_case
+    del lib
+    live_lib, live_lib_diff = library_coords_backward(*live_case)
+    row.update(all_live_plain_ms=time_ms(
+        lambda: plain_coords_grad_chunked(*live_case), reps=3),
+        all_live_library_ms=time_ms(live_lib, reps=FT_REPS),
+        all_live_library_max_rel_diff=live_lib_diff)
+    del live_lib, it_inputs, it_params, it_xyz, it_dsigma, it_dapp, live_case
     torch.cuda.empty_cache()
 
     # the main path: estimate_pose_inerf at test_pose_estimation's settings
@@ -2721,17 +2773,30 @@ def phase_inerf(id_params, id_cfg, rays, dev):
 
     profile = _profiled("inerf_iteration", some_iterations)
 
-    # test_pose_estimation with the refinement, on the rendered frame
+    # test_pose_estimation with the refinement, on the rendered frame; its
+    # refinement (looked up in iffnerf_tpu_torch.inerf at each call) cut to
+    # INERF_TPE_ITERS iterations
     frame = types.SimpleNamespace(all_rgbs=obs[None], poses=gt[None],
                                   img_wh=(FT_WH, FT_WH), K=cam_k[None])
-    t0 = time.perf_counter()
-    rows, tpe_t, tpe_a, _, _ = test_pose_estimation(
-        frame, id_params, id_cfg, *rays, torch.tensor(UP), sequence_id="lego",
-        inerf_refinement=True, nerf=(config, params, mask),
-        log_fn=lambda *a: None, device=dev)
-    tpe_s = _sync_s(t0)
+    full_refinement = inerf_module.estimate_pose_inerf
+    inerf_module.estimate_pose_inerf = lambda *a, **kw: full_refinement(
+        *a, **dict(kw, n_iters=INERF_TPE_ITERS))
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        rows, tpe_t, tpe_a, _, _ = test_pose_estimation(
+            frame, id_params, id_cfg, *rays, torch.tensor(UP),
+            sequence_id="lego", inerf_refinement=True,
+            nerf=(config, params, mask), log_fn=lambda *a: None, device=dev)
+        tpe_s = _sync_s(t0)
+        tpe_counts = _counts()
+    finally:
+        inerf_module.estimate_pose_inerf = full_refinement
     check(len(rows) == 1 and math.isfinite(tpe_t) and math.isfinite(tpe_a),
           f"test_pose_estimation with the refinement: {tpe_t}, {tpe_a}")
+    check(tpe_counts["field_features_coords_grad"] == INERF_TPE_ITERS,
+          f"test_pose_estimation's refinement ran its iterations through "
+          f"the coordinate kernel: {tpe_counts}")
     emit(phase="inerf", grid=GRID, step_ratio=INERF_STEP_RATIO,
          n_samples=config.n_samples, batch=INERF_BATCH, iters=INERF_ITERS,
          target_render_s=sc.target_s, coverage=sc.coverage, routes=routes,
@@ -2750,7 +2815,9 @@ def phase_inerf(id_params, id_cfg, rays, dev):
          iteration_events_ms=events_ms / INERF_ITERS,
          profile=profile, peak_mem_gb=peak_gb,
          test_pose_estimation={"s": tpe_s, "translation_error": tpe_t,
-                               "angular_error": tpe_a})
+                               "angular_error": tpe_a,
+                               "refinement_iters": INERF_TPE_ITERS,
+                               "launches": tpe_counts})
     entry = dict(
         name="field_features_coords_grad", route="cuda",
         source="iffnerf_tpu_torch/csrc/field_features.cu",
@@ -2804,10 +2871,10 @@ def synthetic_colours(n, img_wh, seed, dev):
                       for _ in range(n)])
 
 
-def _scene(rays, rgbs, img_wh, bbox, near_far, **extra):
+def _scene(rays, rgbs, img_wh, bbox, near_far, white_bg=False, **extra):
     return types.SimpleNamespace(
         all_rays=rays, all_rgbs=rgbs, img_wh=img_wh, scene_bbox=bbox,
-        near_far=near_far, white_bg=False, **extra)
+        near_far=near_far, white_bg=white_bg, **extra)
 
 
 def flower_scene(dev):
@@ -2898,15 +2965,19 @@ def bicycle_scene(dev):
                                 c2ws[:, :3, 3], axis=-1).mean())}
 
 
-def train_real_scene(args, pool, test, reso, dev):
+def train_real_scene(args, pool, test, reso, dev, init=None):
     """``train_field`` from a field made as ``reconstruction`` makes it
-    (``init_field`` at ``reso`` over the pool's AABB), launch counts set to
-    0 just before and read just after, each step timed, the inputs of the
-    first backward at the last grid kept -> a namespace of the run."""
+    (``init_field`` at ``reso`` over the pool's AABB, then ``init`` on its
+    parameters when given), launch counts set to 0 just before and read
+    just after, each step timed, the inputs of the first backward at the
+    last grid kept -> a namespace of the run (with the trainer's log
+    lines)."""
     config = field_config_from_args(args, pool.scene_bbox, reso,
                                     pool.near_far)
     params = init_field(torch.Generator(device=dev).manual_seed(SEED), config)
-    events = []
+    if init is not None:
+        params = init(params)
+    events, lines = [], []
     torch.cuda.synchronize()
     with timed_field_steps() as steps, \
             captured_backwards(last_only=True) as caught:
@@ -2915,13 +2986,14 @@ def train_real_scene(args, pool, test, reso, dev):
         config, params, mask = train_field(
             args, config, params, None, pool, test,
             str(WORK_DIR / f"real_{args.dataset_name}"),
-            log_fn=lambda *a: None, device=dev, events=events, reso_cur=reso)
+            log_fn=lines.append, device=dev, events=events, reso_cur=reso)
         run_s = _sync_s(t0)
         counts = _counts()
     check(len(steps) == args.n_iters, f"{len(steps)} steps")
     check(counts["field_features"] >= args.n_iters
           and counts["field_features_backward"] == args.n_iters,
-          f"every step launched field_features and its backward: {counts}")
+          f"every step launched field_features and its backward: {counts}; "
+          f"events {events}; log {lines}; steps {steps}")
     check(counts["banked_scores"] == 0 and counts["fused_ray_scores"] == 0
           and counts["field_features_coords_grad"] == 0,
           f"field training runs no scoring or coordinate kernel: {counts}")
@@ -2934,7 +3006,7 @@ def train_real_scene(args, pool, test, reso, dev):
     (inputs,) = caught.values()
     return types.SimpleNamespace(config=config, params=params, mask=mask,
                                  steps=steps, events=events, counts=counts,
-                                 run_s=run_s, caught=inputs)
+                                 run_s=run_s, caught=inputs, log=lines)
 
 
 def kernel_holds(caught):
@@ -2954,14 +3026,15 @@ def kernel_holds(caught):
     return f_row, b_row
 
 
-def render_real_scene(run, test, n_samples, ndc_ray, path_frames=0):
+def render_real_scene(run, test, n_samples, ndc_ray, path_frames=0,
+                      white_bg=False):
     """One test view (seconds, PSNR, peak memory) and ``path_frames`` of
     the test set's render path (seconds each), through ``evaluation`` and
     ``evaluation_path``."""
     log, plog = {}, {}
     torch.cuda.reset_peak_memory_stats()
     psnr = evaluation(test, run.config, run.params, run.mask, None, N_vis=-1,
-                      n_samples=n_samples, white_bg=False, ndc_ray=ndc_ray,
+                      n_samples=n_samples, white_bg=white_bg, ndc_ray=ndc_ray,
                       compute_extra_metrics=False, device=test.all_rays.device,
                       log=log)
     out = {"test_view_s": log["seconds"][0], "psnr": psnr[0],
@@ -2971,7 +3044,8 @@ def render_real_scene(run, test, n_samples, ndc_ray, path_frames=0):
     if path_frames:
         frames = evaluation_path(
             run.config, run.params, run.mask, test.render_path[:path_frames],
-            test, None, n_samples=n_samples, white_bg=False, ndc_ray=ndc_ray,
+            test, None, n_samples=n_samples, white_bg=white_bg,
+            ndc_ray=ndc_ray,
             device=test.all_rays.device, log=plog)
         w, h = test.img_wh
         check(len(frames) == path_frames and all(
@@ -3084,6 +3158,434 @@ def phase_real_scenes(dev):
     return result
 
 
+# ---------------------------------------------------------------------------
+# object captures: CO3D and Repair (Metashape) loaders, mesh export, the
+# unisphere contraction
+# ---------------------------------------------------------------------------
+
+
+def _ring_c2ws(n, radius, elevations_deg, rng):
+    """``n`` OpenCV-convention c2w [4, 4] float64 on rings round the origin
+    at the given elevations (split evenly), each looking at the origin with
+    its azimuth jittered by up to a fifth of a step, the rig tilted by
+    OC_RIG_TILT degrees about x."""
+    tilt = np.eye(4)
+    a = math.radians(OC_RIG_TILT)
+    tilt[1:3, 1:3] = [[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]]
+    out = []
+    per_ring = -(-n // len(elevations_deg))
+    for k in range(n):
+        ring, j = divmod(k, per_ring)
+        theta = 2 * math.pi * (j + 0.2 * rng.random()) / per_ring
+        phi = math.radians(elevations_deg[ring])
+        out.append(tilt @ _look_at_c2w(radius * np.array(
+            [math.cos(theta) * math.cos(phi), math.sin(theta) * math.cos(phi),
+             math.sin(phi)])).astype(np.float64))
+    return out
+
+
+def rgba_colours(n, img_wh, seed, dev):
+    """``synthetic_colours`` with the blob mask as a fourth channel."""
+    w, h = img_wh
+    alpha = blob_mask(h, w, dev).float().reshape(-1, 1).repeat(n, 1)
+    return torch.cat([synthetic_colours(n, img_wh, seed, dev), alpha], -1)
+
+
+def write_co3d_sequence(root):
+    """A CO3D sequence's annotation files only, in CO3D's layout under
+    ``root``: ``<category>/frame_annotations.jgz`` (OC_CO3D_FRAMES frames
+    of a phone video at OC_CO3D_WH on a ring round the object, their
+    PyTorch3D NDC viewpoints made from OpenCV cameras as
+    ``tests/test_co3d.py`` makes them) and ``<category>/set_lists/*.json``
+    (every 10th frame held out) -> (category dir, sequence name)."""
+    import gzip
+
+    rng = np.random.default_rng(SEED + 70)
+    category = Path(root) / OC_CO3D_CATEGORY
+    (category / "set_lists").mkdir(parents=True, exist_ok=True)
+    w, h = OC_CO3D_WH
+    scale = min(h, w) / 2.0
+    flip = np.diag([-1.0, -1.0, 1.0, 1.0])
+    annotations, train, test = [], [], []
+    for i, c2w in enumerate(_ring_c2ws(OC_CO3D_FRAMES, 3.0, (20.0,), rng)):
+        m = np.linalg.inv(c2w)
+        m[:3, :3] = m[:3, :3].T
+        m = m @ np.linalg.inv(flip)
+        img = f"{OC_CO3D_CATEGORY}/{OC_CO3D_SEQUENCE}/images/frame{i:06d}.jpg"
+        cx, cy = w / 2 + rng.normal(0, 4), h / 2 + rng.normal(0, 4)
+        annotations.append({
+            "sequence_name": OC_CO3D_SEQUENCE, "frame_number": i,
+            "image": {"path": img, "size": [h, w]},
+            "mask": {"path": img.replace("images", "masks")[:-4] + ".png"},
+            "viewpoint": {
+                "R": m[:3, :3].tolist(), "T": m[:3, 3].tolist(),
+                "focal_length": [-OC_CO3D_FOCAL / scale] * 2,
+                "principal_point": [-(cx - w / 2) / scale,
+                                    -(cy - h / 2) / scale]}})
+        (test if i % 10 == 0 else train).append([OC_CO3D_SEQUENCE, i, img])
+    with gzip.open(category / "frame_annotations.jgz", "wt") as fh:
+        json.dump(annotations, fh)
+    with open(category / "set_lists" / "set_lists_fewview.json", "w") as fh:
+        json.dump({"train": train, "val": test, "test": test}, fh)
+    return str(category), OC_CO3D_SEQUENCE
+
+
+def co3d_capture(dev, root):
+    """configs/co3d.txt's capture from its annotation files alone: the
+    loader's ``read_category_annotations`` (the NDC-to-OpenCV conversion,
+    recentring and rescaling) and ``co3d_rays`` (the K flip, 7-channel
+    rays with mip radii at downsample_train), RGBA colours made on the
+    card -> (train pool, a stacked test set of one view, the capture's
+    sizes)."""
+    category, sequence = write_co3d_sequence(root)
+    frames, _, _ = co3d.read_category_annotations(category, sequence)
+    img_wh = tuple(int(x / OC_DOWNSAMPLE) for x in OC_CO3D_WH)
+
+    def rays_of(split):
+        return torch.cat([torch.from_numpy(co3d.co3d_rays(
+            K, c2w, img_wh, OC_DOWNSAMPLE)).reshape(-1, 7).to(dev)
+            for _, c2w, K in split])
+
+    train, test = frames["train"], frames["test"][:1]
+    pool = _scene(rays_of(train), rgba_colours(len(train), img_wh,
+                                               SEED + 71, dev),
+                  img_wh, co3d.SCENE_BBOX.copy(), co3d.NEAR_FAR,
+                  white_bg=True)
+    shape = (1, img_wh[1], img_wh[0])
+    test_set = _scene(rays_of(test).reshape(shape + (7,)),
+                      rgba_colours(1, img_wh, SEED + 72, dev).reshape(
+                          shape + (4,)),
+                      img_wh, co3d.SCENE_BBOX.copy(), co3d.NEAR_FAR,
+                      white_bg=True)
+    return pool, test_set, {"frames": OC_CO3D_FRAMES,
+                            "train_views": len(train),
+                            "test_views_held_out": len(frames["test"]),
+                            "img_wh": list(img_wh)}
+
+
+REPAIR_XML = """<?xml version="1.0" encoding="UTF-8"?>
+<document version="1.5.0">
+  <chunk label="Chunk 1" enabled="true">
+    <sensors>
+      <sensor id="0" label="camera" type="frame">
+        <resolution width="{w}" height="{h}"/>
+        <calibration type="frame" class="adjusted">
+          <resolution width="{w}" height="{h}"/>
+          <f>{f}</f><cx>{cx}</cx><cy>{cy}</cy>
+          <k1>-0.05</k1><k2>0.01</k2><p1>0.0002</p1><p2>-0.0001</p2>
+        </calibration>
+      </sensor>
+    </sensors>
+    <cameras>
+{cameras}
+    </cameras>
+  </chunk>
+</document>
+"""
+
+
+def repair_capture(dev, root):
+    """configs/repair_27_RPf_00192b.txt's capture from a Metashape
+    ``cameras.xml`` alone (one sensor, OC_REPAIR_CAMERAS cameras on three
+    rings above the fragment, labels with their file extension so that no
+    image is looked for): the loader's ``load_cameras_xml`` (recentring by
+    the camera-plane fit, rescaling; cv2's undistorted K where cv2
+    imports), ``repair_split`` and ``repair_rays`` (each camera's own K,
+    7-channel rays with mip radii), RGBA colours made on the card ->
+    (train pool, a stacked test set of one view with its K and the
+    spiral path, the capture's sizes)."""
+    rng = np.random.default_rng(SEED + 80)
+    w, h = OC_REPAIR_WH
+    cams = []
+    for i, c2w in enumerate(_ring_c2ws(OC_REPAIR_CAMERAS, 2.5,
+                                       (25.0, 45.0, 65.0), rng)):
+        cams.append(f'      <camera id="{i}" sensor_id="0" '
+                    f'label="IMG_{i:04d}.JPG"><transform>'
+                    + " ".join(repr(float(v)) for v in c2w.reshape(-1))
+                    + "</transform></camera>")
+    base = Path(root) / "repair"
+    base.mkdir(parents=True, exist_ok=True)
+    (base / "cameras.xml").write_text(REPAIR_XML.format(
+        w=w, h=h, f=OC_REPAIR_FOCAL, cx=w / 2 + 6.5, cy=h / 2 - 4.0,
+        cameras="\n".join(cams)))
+    cameras, _, _ = load_cameras_xml(str(base / "cameras.xml"), str(base),
+                                     img_resize_factor=OC_DOWNSAMPLE)
+    check(len(cameras["filenames"]) == OC_REPAIR_CAMERAS,
+          f"{len(cameras['filenames'])} cameras parsed")
+    img_wh = tuple(int(x / OC_DOWNSAMPLE) for x in OC_REPAIR_WH)
+    poses = np.stack([repair.homogeneous(c) for c in cameras["cam2world"]])
+
+    def rays_of(ids):
+        return torch.cat([torch.from_numpy(repair.repair_rays(
+            cameras["Ks"][i], poses[i], img_wh)).reshape(-1, 7).to(dev)
+            for i in ids])
+
+    train = repair.repair_split(OC_REPAIR_CAMERAS, "train")
+    test = repair.repair_split(OC_REPAIR_CAMERAS, "test")
+    bbox = repair.SCENE_BBOX.copy()
+    pool = _scene(rays_of(train), rgba_colours(len(train), img_wh,
+                                               SEED + 81, dev),
+                  img_wh, bbox, repair.NEAR_FAR, white_bg=True)
+    shape = (1, img_wh[1], img_wh[0])
+    test_set = _scene(
+        rays_of(test[:1]).reshape(shape + (7,)),
+        rgba_colours(1, img_wh, SEED + 82, dev).reshape(shape + (4,)),
+        img_wh, bbox, repair.NEAR_FAR, white_bg=True,
+        K=cameras["Ks"][test[0]][None].astype(np.float32),
+        render_path=repair.spiral_path(bbox, poses[test]))
+    return pool, test_set, {"cameras": OC_REPAIR_CAMERAS,
+                            "train_views": len(train),
+                            "test_views_held_out": len(test),
+                            "img_wh": list(img_wh),
+                            "camera_radius": float(np.linalg.norm(
+                                poses[:, :3, 3], axis=-1).mean())}
+
+
+def object_density(params, aabb, feature=20.0, width=0.5):
+    """Density factors that put a separable blob at the AABB's centre:
+    each plane rank a(u)a(v) and each line rank a(w), a = c exp(-(x /
+    width)^2) with c^3 x (3 pairs x ranks) = ``feature``, so that the
+    density feature is ``feature`` exp(-|x|^2 / width^2) (sigma =
+    softplus(feature - 10) about 10 at the centre, which the first steps'
+    pull towards the background leave well above the mask's threshold): a
+    young object field, which the first mask update shrinks to -> params
+    with new density factors."""
+    aabb = np.asarray(aabb, np.float32)
+    ranks = params["density_line"][0].shape[1]
+    c = (feature / (3 * ranks)) ** (1 / 3)
+    dev = params["density_line"][0].device
+
+    def axis(n, i):
+        x = torch.linspace(float(aabb[0][i]), float(aabb[1][i]), n,
+                           device=dev)
+        return c * torch.exp(-(x / width) ** 2)
+
+    out = dict(params)
+    out["density_plane"] = tuple(
+        (axis(p.shape[0], m1)[:, None] * axis(p.shape[1], m0)[None, :]
+         )[..., None].expand(p.shape).contiguous()
+        for p, (m0, m1) in zip(params["density_plane"], MAT_MODE))
+    out["density_line"] = tuple(
+        axis(l.shape[0], VEC_MODE[i])[:, None].expand(l.shape).contiguous()
+        for i, l in enumerate(params["density_line"]))
+    return out
+
+
+def mesh_export(run, path):
+    """``export_mesh_from_field`` on a trained field at its grid (the dense
+    alpha through the density-only field_features on the card, marching
+    cubes on the host), launch counts set to 0 just before and read just
+    after; the PLY read back: its counts, every face index in range, every
+    vertex inside the AABB; the dense alpha's device ms timed apart, and
+    the marching-cubes library's g++ build (at first use) before it all."""
+    t0 = time.perf_counter()
+    build_marching_cubes()
+    build_s = time.perf_counter() - t0
+    log = {}
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    export_mesh_from_field(run.config, run.params, run.mask, str(path),
+                           log=log)
+    total_s = time.perf_counter() - t0
+    counts = _counts()
+    n_points = math.prod(run.config.grid_size)
+    chunks = -(-n_points // DENSE_ALPHA_CHUNK)
+    check(counts["field_features"] == chunks
+          and counts["field_features_backward"] == 0
+          and counts["gather_rows"] == (chunks if run.mask is not None else 0),
+          f"the dense alpha's {chunks} chunks each launched field_features "
+          f"(density only) and the mask lookup: {counts}")
+    verts, faces = read_ply(path)
+    aabb = np.asarray(run.config.aabb, np.float32)
+    check(len(faces) == log["n_faces"] > 1000 and len(verts) == log["n_verts"],
+          f"the PLY's counts {len(verts)}, {len(faces)}: {log}")
+    check(int(faces.min()) >= 0 and int(faces.max()) < len(verts),
+          "every face index in range")
+    check(bool((verts >= aabb[0] - 1e-5).all() and (verts <= aabb[1] + 1e-5)
+               .all()), "every vertex inside the AABB")
+    with torch.no_grad():
+        alpha_ms = time_ms(lambda: get_dense_alpha(run.config, run.params,
+                                                   run.mask), reps=3)
+    return dict(log, total_s=total_s, alpha_device_ms=alpha_ms,
+                library_build_s=build_s,
+                n_points=n_points, launches=counts,
+                ply_mb=path.stat().st_size / 2 ** 20)
+
+
+def beyond_unit(xyz):
+    """The share of normalised coordinates beyond [-1, 1] and the largest
+    |coordinate|."""
+    return {"share_beyond_unit": float((xyz.abs() > 1).any(-1).float().mean()),
+            "max_abs_coord": float(xyz.abs().max())}
+
+
+def unisphere_run(dev):
+    """configs/lego.txt's widths with ``--contraction_type unisphere`` (its
+    300^3 grid over lego's AABB, the background samples to lego's far
+    plane) from make_lego_field's density, no alpha mask, OC_UNI_STEPS
+    steps on OC_UNI_FRAMES synthetic 800x800 frames made on the card
+    (``synthetic_ray_pool``, lego's camera rig); ``field_features``'
+    forward, backward and coordinate gradient held to their plain versions
+    at the last step's samples, which reach beyond [-1, 1]."""
+    pool = synthetic_ray_pool(dev, OC_UNI_FRAMES, SEED + 90)
+    args = config_args("lego", OC_UNI_STEPS, (10 ** 6,), (10 ** 6,))
+    args.contraction_type = "unisphere"
+    config = field_config_from_args(args, pool.scene_bbox, (GRID,) * 3,
+                                    pool.near_far)
+    check(config.n_samples_bg > 0, "unisphere background samples")
+    _, np_params, _ = make_lego_field(dev, GRID)
+    params = params_from_numpy(np_params, device=dev)
+    del np_params
+    events = []
+    with timed_field_steps() as steps, \
+            captured_backwards(last_only=True) as caught:
+        _reset_counts()
+        t0 = time.perf_counter()
+        config, params, mask = train_field(
+            args, config, params, None, pool, pool,
+            str(WORK_DIR / "unisphere"), log_fn=lambda *a: None, device=dev,
+            events=events)
+        run_s = _sync_s(t0)
+        counts = _counts()
+    mses = [st["mse"] for st in steps]
+    check(len(steps) == OC_UNI_STEPS and all(math.isfinite(x) for x in mses)
+          and counts["field_features_backward"] == OC_UNI_STEPS,
+          f"unisphere steps {mses}, {counts}")
+    (inputs,) = caught.values()
+    p, xyz, dsigma, dapp = inputs
+    out = {"grid": list(config.grid_size),
+           "n_samples": config.n_samples, "n_samples_bg": config.n_samples_bg,
+           "step_s": [st["s"] for st in steps], "mse": mses,
+           "run_s": run_s, "launches": counts,
+           "peak_mem_gb": max(st["peak_mem_gb"] for st in steps),
+           "samples": beyond_unit(xyz),
+           "forward": forward_errors(p, xyz),
+           "backward": backward_errors(p, xyz, dsigma, dapp),
+           "coords_grad": coords_grad_errors(p, xyz, dsigma, dapp)}
+    check(out["samples"]["share_beyond_unit"] > 0,
+          f"unisphere samples beyond [-1, 1]: {out['samples']}")
+    return out, counts
+
+
+def phase_object_captures(dev):
+    """co3d: ``train_field`` at configs/co3d.txt's widths on a CO3D
+    capture made by the loader's own functions, from a young object field
+    through its schedule (the mask update with its shrink, the upsamples,
+    the mask update with the ray filter) to its 300^3-voxel grid, a test
+    view, then its mesh; repair: configs/repair_27_RPf_00192b.txt at its
+    377x377x188 grid on a Metashape capture, a test view and a spiral-path
+    frame; the unisphere contraction at lego's widths. For co3d and
+    repair, ``field_features``' forward and backward held to their plain
+    versions at the last grid's first step and timed beside their bounds,
+    the coordinate kernel held too, a step's split and profile. -> {path:
+    (launch counts, forward row, backward row)} for the kernels line."""
+    import tempfile
+
+    out, result = {}, {}
+    root = tempfile.mkdtemp(dir=WORK_DIR)
+
+    # co3d through its schedule
+    t0 = time.perf_counter()
+    pool, test, scene = co3d_capture(dev, root)
+    t_scene = _sync_s(t0)
+    args = config_args("co3d", OC_CO3D_ITERS, OC_CO3D_UPSAMPLES, OC_CO3D_MASKS)
+    check(args.dataset_name == "co3d" and args.fea2denseAct == "softplus"
+          and args.density_shift == -10.0 and args.distance_scale == 25.0
+          and args.rm_weight_mask_thre == 1e-2, "configs/co3d.txt's field")
+    reso = N_to_reso(args.N_voxel_init, pool.scene_bbox)
+    run = train_real_scene(args, pool, test, reso, dev,
+                           init=lambda p: object_density(p, pool.scene_bbox))
+    kinds = [e["event"] for e in run.events]
+    check(kinds == ["alpha-mask update + shrink", "upsample", "upsample",
+                    "alpha-mask update + ray filtering", "upsample",
+                    "upsample", "upsample"], f"co3d's phase events {kinds}")
+    check(run.mask is not None and run.counts["gather_rows"] > 0,
+          f"the mask lookup ran after the mask update: {run.counts}")
+    kept = [float(ln.split()[-1]) for ln in run.log if "Ray filtering" in ln]
+    check(len(kept) == 2 and 0.05 < kept[1] <= 1.0,
+          f"the ray filter kept part of the rays: {run.log}")
+    check(math.prod(run.config.grid_size) > 0.9 * args.N_voxel_final,
+          f"co3d's final grid {run.config.grid_size}")
+    check(np.ptp(np.asarray(run.config.aabb), 0).max() < 1.9,
+          f"the first mask update shrank the AABB: {run.config.aabb}")
+    n_final = cal_n_samples(run.config.grid_size, args.step_ratio)
+    coords = coords_grad_errors(*run.caught)
+    holds = kernel_holds(run.caught)
+    run.caught = None
+    torch.cuda.empty_cache()
+    split = step_split_field(
+        run.config, run.params, run.mask, pool, n_final, dev,
+        weights={"l1": args.L1_weight_rest, "tv_d": args.TV_weight_density,
+                 "tv_a": args.TV_weight_app},
+        use_l1=True, use_tv_density=True, use_tv_app=True)
+    renders = render_real_scene(run, test, n_final, False, white_bg=True)
+    mesh = mesh_export(run, WORK_DIR / "co3d_mesh.ply")
+    out["co3d"] = real_scene_summary(run, args, holds, renders, scene, split,
+                                     t_scene)
+    out["co3d"].update(
+        start_grid=reso, coords_grad=coords, mesh=mesh,
+        ray_filter_kept=kept)
+    result["co3d"] = (run.counts, *holds)
+    result["mesh"] = (mesh["launches"], None, None)
+    del pool, test, run
+    torch.cuda.empty_cache()
+
+    # repair at its final grid
+    t0 = time.perf_counter()
+    pool, test, scene = repair_capture(dev, root)
+    t_scene = _sync_s(t0)
+    args = config_args("repair_27_RPf_00192b", OC_REPAIR_STEPS, (10 ** 6,),
+                       (10 ** 6,))
+    check(args.dataset_name == "repair" and args.fea2denseAct == "relu"
+          and list(args.n_lamb_sigma) == [16, 16, 4]
+          and list(args.n_lamb_sh) == [48, 48, 12],
+          "configs/repair_27_RPf_00192b.txt's field")
+    reso = N_to_reso(args.N_voxel_final, pool.scene_bbox)
+    check(reso == [377, 377, 188], f"repair's final grid {reso}")
+    run = train_real_scene(args, pool, test, reso, dev)
+    check(run.events == [] and list(run.config.grid_size) == reso,
+          f"repair's steps at {reso}: {run.config.grid_size}, {run.events}")
+    n_final = cal_n_samples(reso, args.step_ratio)
+    coords = coords_grad_errors(*run.caught)
+    holds = kernel_holds(run.caught)
+    run.caught = None
+    torch.cuda.empty_cache()
+    split = step_split_field(
+        run.config, run.params, run.mask, pool, n_final, dev,
+        weights={"l1": 0.0, "tv_d": args.TV_weight_density,
+                 "tv_a": args.TV_weight_app},
+        use_l1=False, use_tv_density=True, use_tv_app=True)
+    renders = render_real_scene(run, test, n_final, False, 1, white_bg=True)
+    out["repair"] = real_scene_summary(run, args, holds, renders, scene,
+                                       split, t_scene)
+    out["repair"]["coords_grad"] = coords
+    result["repair"] = (run.counts, *holds)
+    del pool, test, run
+    torch.cuda.empty_cache()
+
+    uni, uni_counts = unisphere_run(dev)
+    out["unisphere"] = uni
+    result["unisphere"] = (uni_counts, None, None)
+    torch.cuda.empty_cache()
+
+    emit(phase="object_captures", card=card_line(), **out, cuts={
+        "co3d": [f"{OC_CO3D_ITERS} of 30000 iterations, the upsamples at "
+                 f"{list(OC_CO3D_UPSAMPLES)} and the mask updates at "
+                 f"{list(OC_CO3D_MASKS)} (2000-7000 and 2000, 4000)",
+                 "from a young object field (a density blob) in place of "
+                 "2000 iterations of training",
+                 f"1 of {len(range(0, OC_CO3D_FRAMES, 10))} test views "
+                 "rendered"],
+        "repair": [f"{OC_REPAIR_STEPS} of 9000 iterations, all at the final"
+                   " grid (the schedule's earlier grids and its mask"
+                   " updates not run)", "1 test view and 1 of 100 spiral"
+                   " path frames rendered"],
+        "unisphere": [f"{OC_UNI_STEPS} steps at lego's final grid on "
+                      f"{OC_UNI_FRAMES} of lego's 100 frames, no alpha mask"]})
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3144,7 +3646,15 @@ def main() -> int:
     # final grid; field_features and its backward every step, K3 every
     # step after flower's mask update
     real = phase_real_scenes(dev)
+    # object captures: co3d through its schedule and its mesh, repair at
+    # its final grid, the unisphere contraction; field_features and its
+    # backward every step, K3 after co3d's mask update, the density-only
+    # field_features over the mesh's lattice
+    captures = phase_object_captures(dev)
     rs_counts = {name: r[0] for name, r in real.items()}
+    rs_counts.update({f"object_captures_{name}": r[0]
+                      for name, r in captures.items()})
+    trained = {name: r for name, r in captures.items() if r[1] is not None}
     # iNeRF refinement: field_features, its coordinate kernel and K3's mask
     # lookup every iteration
     inerf_counts, coords_entry = phase_inerf(params, cfg16, rays, dev)
@@ -3205,7 +3715,8 @@ def main() -> int:
              launches_by_path={"object": obj_counts["gather_rows"],
                                "id_train": id_counts["gather_rows"],
                                "field_train": ft_counts["gather_rows"],
-                               **{f"real_scenes_{k}": c["gather_rows"]
+                               **{(k if k.startswith("object_")
+                                   else f"real_scenes_{k}"): c["gather_rows"]
                                   for k, c in rs_counts.items()},
                                "inerf": inerf_counts["gather_rows"]},
              **rows["gather_rows/mask_stacked"]),
@@ -3231,19 +3742,27 @@ def main() -> int:
              launches_by_path={"object": obj_counts["field_features"],
                                "id_train": id_counts["field_features"],
                                "field_train": ft_counts["field_features"],
-                               **{f"real_scenes_{k}": c["field_features"]
+                               **{(k if k.startswith("object_")
+                                   else f"real_scenes_{k}"):
+                                  c["field_features"]
                                   for k, c in rs_counts.items()},
                                "inerf": inerf_counts["field_features"]},
              at_training_step=ft_forward,
              at_real_scenes={k: r[1] for k, r in real.items()},
+             at_object_captures={k: r[1] for k, r in trained.items()},
              **rows["field_features/colour_chunk/both"]),
         dict(ft_backward,
              launches_by_path=dict(
                  ft_backward["launches_by_path"],
-                 **{f"real_scenes_{k}": c["field_features_backward"]
+                 **{(k if k.startswith("object_") else f"real_scenes_{k}"):
+                    c["field_features_backward"]
                     for k, c in rs_counts.items()}),
-             at_real_scenes={k: r[2] for k, r in real.items()}),
-        coords_entry,
+             at_real_scenes={k: r[2] for k, r in real.items()},
+             at_object_captures={k: r[2] for k, r in trained.items()}),
+        dict(coords_entry, launches_by_path=dict(
+            coords_entry["launches_by_path"],
+            **{k: c["field_features_coords_grad"]
+               for k, c in rs_counts.items() if k.startswith("object_")})),
     ]
     emit(phase="latency", banked_ms_per_image=banked_ms,
          banked_float32_ms_per_image=banked32_ms, fused_ms_per_image=fused_ms,

@@ -155,6 +155,17 @@ def power_transformation(centered_xyz: torch.Tensor, alpha: float = -1.5):
             * (torch.pow(x_abs / negate_alpha + 1.0, alpha) - 1.0))
 
 
+def power_transformation_inv(center_metric: torch.Tensor,
+                             alpha: float = -1.5) -> torch.Tensor:
+    """Inverse of the Zip-NeRF power contraction
+    (reference utils.py:150-163)."""
+    negate_alpha = math.fabs(alpha - 1)
+    return (torch.sign(center_metric)
+            * (torch.pow((alpha * torch.abs(center_metric) + negate_alpha)
+                         / negate_alpha, 1.0 / alpha) - 1.0)
+            * negate_alpha)
+
+
 def sample_alpha(mask: AlphaMask, xyz: torch.Tensor) -> torch.Tensor:
     """Trilinear alpha-mask lookup at world coords xyz [..., 3] -> [...]."""
     if mask.unisphere:

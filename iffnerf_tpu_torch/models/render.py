@@ -5,10 +5,12 @@ As in the JAX package, the reference's boolean-mask gathers become masked
 dense compute: every sample's density and appearance is evaluated and
 invalid ones are zeroed. The AABB sampler takes the training jitter, one
 uniform draw a ray from a ``torch.Generator`` or handed in as ``jitter``;
-the point-colour sampler is the pose pipeline's. The NDC sampler of
-forward-facing scenes takes one uniform draw a sample, from a
-``torch.Generator`` or handed in as ``jitter``. Infinity and unisphere
-sampling are not ported and raise.
+the point-colour sampler is the pose pipeline's. Under the unisphere
+contraction the AABB sampler's steps after the first n + 1 are
+``step_size_bg`` long. The NDC and inverse-depth samplers take one
+uniform draw a sample, from a ``torch.Generator`` or handed in as
+``jitter``; the inverse-depth sampler (``sample_ray_infinity``) has no
+caller in ``render_rays``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,9 +54,12 @@ def sample_ray(config: FieldConfig, rays_o, rays_d, *, gen=None,
     The draw is ``jitter`` [N, 1] when given, else ``torch.rand`` from
     ``gen``; ``is_train`` needs one of them.
 
+    Under the unisphere contraction sample i lies ``step_size`` x (i +
+    jitter) past the entry for i <= n and ``step_size_bg`` x (i + jitter)
+    past it beyond, as the JAX package samples it (n + ``n_samples_bg``
+    samples in all).
+
     Returns (xyz [N, S, 3], z_vals [N, S], valid [N, S])."""
-    if config.contraction_type == "unisphere":
-        raise NotImplementedError("unisphere sampling is not ported")
     n = n_samples if n_samples > 0 else config.n_samples
     near, far = config.near_far
     aabb = _aabb(config, rays_o)
@@ -70,7 +75,18 @@ def sample_ray(config: FieldConfig, rays_o, rays_d, *, gen=None,
             jitter = torch.rand((rays_o.shape[0], 1), generator=gen,
                                 device=gen.device)
         rng = rng + jitter.to(device=rays_o.device, dtype=rays_o.dtype)
-    z_vals = t_min[:, None] + config.step_size * rng
+    if config.contraction_type == "unisphere":
+        steps = torch.cat([
+            torch.full((n + 1,), config.step_size, dtype=rays_o.dtype,
+                       device=rays_o.device),
+            torch.full((config.n_samples_bg,), config.step_size_bg,
+                       dtype=rays_o.dtype, device=rays_o.device)])[:total]
+        # one rounding, as the JAX package's compiled step gives it (XLA
+        # fuses the product and the sum): its background samples lie far
+        # enough out that a second rounding moves their dists by 2e-5
+        z_vals = torch.addcmul(t_min[:, None], steps[None, :], rng)
+    else:
+        z_vals = t_min[:, None] + config.step_size * rng
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     return xyz, z_vals, _in_aabb(aabb, xyz)
 
@@ -110,6 +126,35 @@ def sample_ray_ndc(config: FieldConfig, rays_o, rays_d, *, gen=None,
         interpx = interpx + jitter.to(device=rays_o.device,
                                       dtype=rays_o.dtype) * ((far - near) / n)
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
+    return xyz, interpx.expand(rays_o.shape[0], n), _in_aabb(aabb, xyz)
+
+
+def sample_ray_infinity(config: FieldConfig, rays_o, rays_d, *, gen=None,
+                        jitter=None, is_train: bool = True,
+                        n_samples: int = -1):
+    """Samples linear in inverse depth from 1 / near towards 0 (reference
+    tensorBase.py:473-492), jittered in training by one uniform draw a
+    sample over 1 / n and clipped to [1e-8, 1]: t = 1 / (1 - interpx).
+    The draw is ``jitter`` [N, n] when given, else ``torch.rand`` from
+    ``gen``; ``is_train`` needs one of them.
+
+    Returns (xyz [N, n, 3], interpx [N, n], valid [N, n])."""
+    n = n_samples if n_samples > 0 else config.n_samples
+    near, _ = config.near_far
+    aabb = _aabb(config, rays_o)
+    interpx = _linspace(1.0 / near, 1e-7, n, rays_o)[None, :]
+    if is_train:
+        if jitter is None:
+            if gen is None:
+                raise ValueError("training sampling needs a generator or a "
+                                 "jitter draw")
+            jitter = torch.rand((rays_o.shape[0], n), generator=gen,
+                                device=gen.device)
+        interpx = torch.clamp(
+            interpx + jitter.to(device=rays_o.device, dtype=rays_o.dtype) / n,
+            1e-8, 1.0)
+    t = 1.0 / (1.0 - interpx)
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
     return xyz, interpx.expand(rays_o.shape[0], n), _in_aabb(aabb, xyz)
 
 

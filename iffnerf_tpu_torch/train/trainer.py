@@ -463,9 +463,6 @@ def reconstruction(args, seed: int = 20211202, log_fn=print, device=None):
     from iffnerf_tpu_torch.data import dataset_dict
 
     dev = resolve_device(device)
-    if args.dataset_name not in dataset_dict:
-        raise NotImplementedError(f"the {args.dataset_name} loader is not "
-                                  f"ported")
     loader = dataset_dict[args.dataset_name]
     train_dataset = loader(args.datadir, split="train",
                            downsample=args.downsample_train, is_stack=False)

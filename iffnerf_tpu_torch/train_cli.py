@@ -6,11 +6,14 @@ train.py:126-521) read through the port's ``config.py``.
         --render_only 1 --render_test 1 --ckpt <ckpt.npz>
 
     python -m iffnerf_tpu_torch.train_cli --config configs/flower.txt
+    python -m iffnerf_tpu_torch.train_cli --config configs/co3d.txt \
+        --export_mesh 1 --ckpt <ckpt.npz>
 
-It trains on the CUDA card unless ``--device cpu`` is given. The Blender,
-Tanks-and-Temples, LLFF (NDC rays, ``--render_path``'s spiral), Mip-NeRF
-360, NSVF and your-own loaders are ported; the Repair and CO3D loaders
-and ``--export_mesh`` are not, and raise.
+It trains on the CUDA card unless ``--device cpu`` is given, with every
+loader of the JAX package's registry. ``--export_mesh 1`` writes
+``<ckpt stem>.ply``, the marching-cubes surface of the checkpoint's dense
+alpha at its grid (``utils/mesh.py``), then renders when ``--render_only``
+asks for it, and trains only when neither is asked for.
 """
 
 from __future__ import annotations
@@ -33,10 +36,21 @@ def parse_args(argv=None):
     return config_parser(argv, extra_parser_hook=add_device_arg)
 
 
+def load_checkpoint(path: str, device):
+    """A field checkpoint, ``.npz`` or a reference ``.th`` -> (config,
+    params, mask) on ``device``."""
+    if path.endswith(".th"):
+        from iffnerf_tpu_torch.checkpoint import load_torch_checkpoint
+
+        return load_torch_checkpoint(path, device=device)
+    from iffnerf_tpu_torch.checkpoint import load_field
+
+    return load_field(path, device=device)
+
+
 def render_test(args, log_fn=print) -> dict:
     """Evaluation of a checkpoint (reference train.py:53-123) -> {split:
     mean PSNR}, or {} when the checkpoint does not exist."""
-    from iffnerf_tpu_torch.checkpoint import load_field
     from iffnerf_tpu_torch.data import dataset_dict
     from iffnerf_tpu_torch.train.trainer import final_renders
 
@@ -44,12 +58,7 @@ def render_test(args, log_fn=print) -> dict:
     if args.ckpt is None or not os.path.exists(args.ckpt):
         log_fn("the ckpt path does not exist!")
         return {}
-    if args.ckpt.endswith(".th"):
-        from iffnerf_tpu_torch.checkpoint import load_torch_checkpoint
-
-        config, params, mask = load_torch_checkpoint(args.ckpt, device=dev)
-    else:
-        config, params, mask = load_field(args.ckpt, device=dev)
+    config, params, mask = load_checkpoint(args.ckpt, dev)
     test_dataset = dataset_dict[args.dataset_name](
         args.datadir, split="test", downsample=args.downsample_train,
         is_stack=True)
@@ -58,14 +67,28 @@ def render_test(args, log_fn=print) -> dict:
                          log_fn=log_fn, device=dev)
 
 
+def export_mesh(args) -> str:
+    """Marching-cubes PLY of a checkpoint's dense alpha at its grid
+    (reference train.py:39-49) -> the PLY's path, ``<ckpt stem>.ply``."""
+    from iffnerf_tpu_torch.utils.mesh import export_mesh_from_field
+
+    config, params, mask = load_checkpoint(args.ckpt,
+                                           resolve_device(args.device))
+    path = args.ckpt.rsplit(".", 1)[0] + ".ply"
+    export_mesh_from_field(config, params, mask, path)
+    return path
+
+
 def main(argv=None):
     np.random.seed(20211202)
     args = parse_args(argv)
     print(args)
     if args.export_mesh:
-        raise NotImplementedError("mesh export is not ported")
+        export_mesh(args)
     if args.render_only and (args.render_test or args.render_path):
         return render_test(args)
+    if args.export_mesh:
+        return None
     from iffnerf_tpu_torch.train.trainer import reconstruction
 
     return reconstruction(args, seed=20211202, device=args.device)

@@ -39,7 +39,10 @@ counts around its run and stage lengths (the last stage read from global
 memory) and an odd count, with dead samples inside runs, whole dead runs
 and samples whose density or appearance upstream alone is zero, density
 only and with appearance, at every field's ranks (flower's 16/4/4 and
-48/12/12 among them), in bit-equal repeats.
+48/12/12 among them), in bit-equal repeats. Repair's ranks 16/16/4 and
+48/48/12 on its 377x377x188 grid are among the fields; the three field
+kernels are also held at unisphere samples that reach beyond [-1, 1], and
+the density-only forward on chunks of a dense alpha lattice.
 """
 
 import dataclasses
@@ -487,10 +490,13 @@ def test_each_grid_sampler_launches_the_gather_once(dev):
 
 
 # flower's uneven ranks (configs/flower.txt) on a grid of its AABB's
-# proportions: per-pair widths of 16, 4 and 4 float4 words
+# proportions: per-pair widths of 16, 4 and 4 float4 words; Repair's
+# (configs/repair_27_RPf_00192b.txt) at its final 377x377x188 grid: 16, 16
+# and 4
 FIELDS = {"lego": ((300, 300, 300), (16, 16, 16), (48, 48, 48)),
           "non_cubic": ((160, 170, 180), (16, 12, 8), (48, 40, 24)),
           "flower": ((160, 178, 107), (16, 4, 4), (48, 12, 12)),
+          "repair": ((377, 377, 188), (16, 16, 4), (48, 48, 12)),
           "non_cubic_scalar": ((16, 17, 18), (2, 3, 4), (3, 4, 5))}
 
 
@@ -973,3 +979,80 @@ def test_field_features_autograd_both_gradients_on_rays(dev):
         atol=COORDS_GRAD_TOL * float(plain_xyz.grad.abs().max()))
     dead = (dsigma == 0) & (dapp == 0).all(-1)
     assert not leaf.grad[dead].any()
+
+
+def _unisphere_samples(config, n, dev):
+    """``n`` samples of ``sample_ray`` under the unisphere contraction
+    (training jitter, the background steps) on rays from a sphere of
+    radius 5 towards the centre of a box of half-extent 3, mapped by
+    ``normalize_coord``'s power contraction: the outer samples lie beyond
+    [-1, 1] (up to 5/3), in ray order."""
+    from iffnerf_tpu_torch.models.field import normalize_coord
+    from iffnerf_tpu_torch.models.render import sample_ray
+
+    cfg = config.replace(aabb=((-3.0,) * 3, (3.0,) * 3),
+                         contraction_type="unisphere", step_ratio=0.5,
+                         near_far=(0.5, 12.0))
+    g = torch.Generator().manual_seed(21)
+    per_ray = cfg.n_samples + cfg.n_samples_bg
+    rays = -(-n // per_ray)
+    o = torch.randn((rays, 3), generator=g)
+    o = 5.0 * o / o.norm(dim=-1, keepdim=True)
+    d = torch.rand((rays, 3), generator=g) * 1.6 - 0.8 - o
+    d = d / d.norm(dim=-1, keepdim=True)
+    xyz, _, _ = sample_ray(cfg, o, d, jitter=torch.rand((rays, 1),
+                                                        generator=g))
+    coords = normalize_coord(cfg, xyz).reshape(-1, 3)[:n]
+    return coords.contiguous().to(dev)
+
+
+@pytest.mark.parametrize("n", [1021, 204660])
+def test_field_kernels_match_plain_at_unisphere_samples(dev, vm_field, n):
+    """The forward (app products bit-equal), the backward and the
+    coordinate gradient at unisphere samples, some beyond [-1, 1] where
+    the plain version (the grid samplers' zero padding) reads nothing,
+    against their plain versions within their tolerances."""
+    config, params = vm_field
+    xyz = _unisphere_samples(config, n, dev)
+    assert float((xyz.abs() > 1).any(-1).float().mean()) > 0.05
+    assert float(xyz.abs().max()) < 5 / 3
+    _assert_forward_matches_plain(config, params, xyz, True)
+    g = torch.Generator().manual_seed(n)
+    dsigma = torch.randn(n, generator=g).to(dev)
+    dapp = torch.randn((n, sum(config.app_n_comp)), generator=g).to(dev)
+    got = field_features_backward(config, params, xyz, dsigma, dapp)
+    want = field_features_backward_plain(params, xyz, dsigma, dapp)
+    for name in want:
+        for i, (a, b) in enumerate(zip(got[name], want[name])):
+            torch.testing.assert_close(
+                a, b, rtol=0, atol=FIELD_GRAD_TOL * float(b.abs().max()),
+                msg=f"{name}[{i}]")
+    _assert_coords_grad_matches_plain(config, params, xyz, dsigma, dapp)
+
+
+@pytest.mark.parametrize("chunk", ["first", "last"])
+def test_field_forward_density_only_on_a_dense_lattice(dev, vm_field, chunk):
+    """The density-only forward on a chunk of the dense alpha's lattice
+    (``get_dense_alpha``: every texel of the field's grid, x slowest, in
+    chunks of DENSE_ALPHA_CHUNK points; the first chunk, or the ragged
+    last one), every point on a texel: within its tolerance of the plain
+    version."""
+    from iffnerf_tpu_torch.models.field import (
+        DENSE_ALPHA_CHUNK,
+        _lattice_axis,
+        normalize_coord,
+    )
+
+    config, params = vm_field
+    axes = [torch.as_tensor(_lattice_axis(gs), device=dev)
+            for gs in config.grid_size]
+    aabb = torch.as_tensor(config.aabb_np, device=dev)
+    lattice = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
+    flat = (aabb[0] * (1 - lattice) + aabb[1] * lattice).reshape(-1, 3)
+    n = flat.shape[0]
+    start = 0 if chunk == "first" else (n - 1) // DENSE_ALPHA_CHUNK * \
+        DENSE_ALPHA_CHUNK
+    xyz = normalize_coord(config, flat[start:start + DENSE_ALPHA_CHUNK])
+    del lattice, flat
+    _assert_forward_matches_plain(config, params, xyz.contiguous(), False)
+

@@ -231,12 +231,16 @@ def test_render_rays_match(vm, sample_mode):
 
 
 def test_render_rays_refuses_what_is_not_ported(vm):
-    """NDC sampling is ported (tests/test_torch_ndc.py); the unisphere
-    contraction and other samplers are not."""
+    """NDC sampling (tests/test_torch_ndc.py) and the unisphere contraction
+    (tests/test_torch_unisphere.py) are ported: a unisphere config renders
+    its n_samples + n_samples_bg samples a ray. Other sample modes are
+    not, and raise."""
     _, (tcfg, tp, tmask) = vm
-    with pytest.raises(NotImplementedError, match="unisphere"):
-        trender.render_rays(tcfg.replace(contraction_type="unisphere"), tp,
-                            tmask, torch.zeros((2, 6)))
+    ucfg = tcfg.replace(contraction_type="unisphere")
+    rays = torch.tensor([[4.0, 0.1, 0.2, -1.0, 0.0, 0.0]] * 2)
+    out = trender.render_rays(ucfg, tp, tmask, rays)
+    assert out[4].shape == (2, ucfg.n_samples + ucfg.n_samples_bg)
+    assert all(bool(torch.isfinite(a).all()) for a in out)
     with pytest.raises(NotImplementedError, match="infinity"):
         trender.render_rays(tcfg, tp, tmask, torch.zeros((2, 6)),
                             sample_mode="infinity")

@@ -1,13 +1,18 @@
-"""Port parity for the real-scene loaders (``iffnerf_tpu_torch/data``: the
-LLFF, Mip-NeRF 360, NSVF and your-own loaders, the COLMAP readers and the
-pose normalisation) against the JAX package's, on the scenes the JAX
-loader tests write: ``tests/test_loaders.py``'s NSVF and LLFF fixtures,
-``tests/test_mip360.py``'s COLMAP scene, and the your-own scene that
-``test_your_own_loader_contract`` writes inline. Both packages' loaders
-run the same numpy operations, so every array is held bit-equal. Then
-``train_cli`` takes two steps with each newly opened config
-(``configs/bicycle.txt``, ``wineholder.txt``, ``your_own_data.txt``) on
-its loader's scene; ``configs/flower.txt``'s run is in
+"""Port parity for the real-scene and object-capture loaders
+(``iffnerf_tpu_torch/data``: the LLFF, Mip-NeRF 360, NSVF, your-own,
+Repair, CO3D and CO3D-Metashape loaders, the COLMAP readers, the Metashape
+``cameras.xml`` parser, the spiral path and the pose normalisation)
+against the JAX package's, on the scenes the JAX loader tests write:
+``tests/test_loaders.py``'s NSVF and LLFF fixtures,
+``tests/test_mip360.py``'s COLMAP scene, the your-own scene that
+``test_your_own_loader_contract`` writes inline,
+``tests/test_metashape.py``'s Metashape scene, ``tests/test_co3d.py``'s
+CO3D sequence and ``tests/test_co3d_metashape.py``'s CO3D-Metashape
+sequence. Both packages' loaders run the same numpy operations, so every
+array is held bit-equal. Then ``train_cli`` takes two steps with each
+config of those loaders (``configs/bicycle.txt``, ``wineholder.txt``,
+``your_own_data.txt``, ``co3d.txt``, ``repair_27_RPf_00192b.txt``) on its
+loader's scene; ``configs/flower.txt``'s run is in
 ``tests/test_torch_ndc.py``.
 """
 
@@ -17,19 +22,28 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from iffnerf_tpu.data import dataset_dict as jdataset_dict
 from iffnerf_tpu.data import colmap as jcolmap
 from iffnerf_tpu.data import pose_utils as jpose_utils
 from iffnerf_tpu.data.llff import get_spiral as jget_spiral
+from iffnerf_tpu.data.metashape import load_cameras_xml as jload_cameras_xml
+from iffnerf_tpu.data.spiral import create_spiral as jcreate_spiral
 from iffnerf_tpu_torch.data import colmap as tcolmap
 from iffnerf_tpu_torch.data import dataset_dict
 from iffnerf_tpu_torch.data import pose_utils as tpose_utils
 from iffnerf_tpu_torch.data.llff import get_spiral
+from iffnerf_tpu_torch.data.metashape import load_cameras_xml
+from iffnerf_tpu_torch.data.spiral import create_spiral
 
 from tests.fixtures import make_blender_fixture
+from tests.test_co3d import co3d_scene  # noqa: F401
+from tests.test_co3d_metashape import co3d_metashape_scene  # noqa: F401
 from tests.test_loaders import llff_scene, nsvf_scene  # noqa: F401
+from tests.test_metashape import metashape_scene  # noqa: F401
 from tests.test_mip360 import colmap_scene  # noqa: F401
+from torch_parity import drawn_field
 
 FIELDS = ("all_rays", "all_rgbs", "poses", "K", "scene_bbox", "directions",
           "render_path")
@@ -49,11 +63,11 @@ def _assert_same(got, want):
 
 
 def test_registry_names():
-    """The JAX registry's names for every ported loader."""
+    """The JAX registry's nine names."""
     assert sorted(dataset_dict) == sorted(
-        ["blender", "tankstemple", "llff", "mip360", "nsvf", "own_data"])
-    for name in dataset_dict:
-        assert name in jdataset_dict
+        ["blender", "tankstemple", "llff", "mip360", "nsvf", "own_data",
+         "repair", "co3d", "co3d_metashape"])
+    assert sorted(dataset_dict) == sorted(jdataset_dict)
 
 
 @pytest.mark.parametrize("split", ["train", "test"])
@@ -237,10 +251,187 @@ def test_your_own_loader_matches(own_scene, split, is_stack):
     _assert_same(got, want)
 
 
+@pytest.mark.parametrize("img_dirname", ["undistorted_images", "images"])
+@pytest.mark.parametrize("downsample", [1.0, 2.0])
+def test_load_cameras_xml_matches(metashape_scene, downsample,  # noqa: F811
+                                  img_dirname, tmp_path):
+    """The Metashape parser: recentred and rescaled poses, each camera's K
+    (through cv2's undistortion-adjusted matrix where cv2 imports, as in
+    both packages), the file lists; labels without an extension completed
+    from the files there; a disabled camera skipped; a file with two
+    chunks ({}, None, None)."""
+    xml = os.path.join(metashape_scene, "cameras.xml")
+    for scene in (metashape_scene, str(tmp_path)):
+        got = load_cameras_xml(xml, scene, downsample, img_dirname)
+        want = jload_cameras_xml(xml, scene, downsample, img_dirname)
+        for a, b in zip(got[1:], want[1:]):
+            assert (a is None) == (b is None)
+            np.testing.assert_array_equal(a, b)
+        assert sorted(got[0]) == sorted(want[0])
+        for key, value in want[0].items():
+            if isinstance(value, np.ndarray):
+                np.testing.assert_array_equal(got[0][key], value, err_msg=key)
+                assert got[0][key].dtype == value.dtype, key
+            else:
+                assert got[0][key] == value, key
+    with open(xml) as f:
+        text = f.read()
+    edited = tmp_path / "edited.xml"
+    edited.write_text(text.replace('<camera id="3"', '<camera enabled="false"'
+                                   ' id="3"'))
+    got = load_cameras_xml(str(edited), metashape_scene)
+    want = jload_cameras_xml(str(edited), metashape_scene)
+    assert len(got[0]["filenames"]) == len(want[0]["filenames"]) == 11
+    np.testing.assert_array_equal(got[0]["cam2world"], want[0]["cam2world"])
+    edited.write_text(text.replace("</chunk>", "</chunk><chunk></chunk>"))
+    assert load_cameras_xml(str(edited), metashape_scene) == (
+        {}, None, None) == jload_cameras_xml(str(edited), metashape_scene)
+
+
+@pytest.mark.parametrize("invert_z", [False, True])
+def test_create_spiral_matches(invert_z):
+    rng = np.random.default_rng(5)
+    box = np.sort(rng.uniform(-2, 2, (2, 3)), axis=0).astype(np.float32)
+    for up in (rng.standard_normal(3), np.array([0.0, 0.0, 1.0])):
+        got = create_spiral(box, up, invert_z)
+        want = jcreate_spiral(box, up, invert_z)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype and got.shape == (100, 4, 4)
+
+
+@pytest.mark.parametrize("split", ["train", "test"])
+@pytest.mark.parametrize("is_stack", [False, True])
+def test_repair_loader_matches(metashape_scene, split, is_stack):  # noqa: F811
+    """Metashape poses, masks from masks/ ceiled, each camera's K, 7-channel
+    rays with mip radii, the spiral path; at the image size and at half."""
+    for downsample in (1.0, 2.0):
+        want = jdataset_dict["repair"](metashape_scene, split=split,
+                                       downsample=downsample,
+                                       is_stack=is_stack)
+        got = dataset_dict["repair"](metashape_scene, split=split,
+                                     downsample=downsample, is_stack=is_stack)
+        _assert_same(got, want)
+    assert got.all_rays.shape[-1] == 7 and got.render_path.shape == (100, 4, 4)
+
+
+@pytest.mark.parametrize("split", ["train", "test"])
+@pytest.mark.parametrize("is_stack", [False, True])
+def test_co3d_loader_matches(co3d_scene, split, is_stack):  # noqa: F811
+    """The PyTorch3D NDC cameras made OpenCV's, recentred and rescaled, the
+    K flip, masks from the annotations, 7-channel rays; at the image size
+    and at half; "val" reads the test frames."""
+    for downsample in (1.0, 2.0):
+        want = jdataset_dict["co3d"](co3d_scene, split=split,
+                                     downsample=downsample, is_stack=is_stack)
+        got = dataset_dict["co3d"](co3d_scene, split=split,
+                                   downsample=downsample, is_stack=is_stack)
+        _assert_same(got, want)
+    if split == "test":
+        _assert_same(dataset_dict["co3d"](co3d_scene, split="val"),
+                     jdataset_dict["co3d"](co3d_scene, split="val"))
+
+
+@pytest.mark.parametrize("split", ["train", "test"])
+@pytest.mark.parametrize("is_stack", [False, True])
+def test_co3d_metashape_loader_matches(co3d_metashape_scene,  # noqa: F811
+                                       split, is_stack):
+    """Split membership from the CO3D annotations, cameras from
+    cameras.xml, masks_metashape/ thresholded and ceiled, 6-channel rays
+    from integer pixels, stacked [N, H*W, 6] as the JAX loader stacks
+    them; "val" raises in both."""
+    for downsample in (1.0, 2.0):
+        want = jdataset_dict["co3d_metashape"](
+            co3d_metashape_scene, split=split, downsample=downsample,
+            is_stack=is_stack)
+        got = dataset_dict["co3d_metashape"](
+            co3d_metashape_scene, split=split, downsample=downsample,
+            is_stack=is_stack)
+        _assert_same(got, want)
+    w, h = got.img_wh
+    if is_stack:
+        assert got.all_rays.shape[1:] == (w * h, 6)
+    for loader in (dataset_dict, jdataset_dict):
+        with pytest.raises(ValueError):
+            loader["co3d_metashape"](co3d_metashape_scene, split="val")
+
+
+@pytest.fixture(scope="module")
+def co3d_field(tmp_path_factory):
+    """A 20^3 field over the CO3D AABB with configs/co3d.txt's head and
+    activation (MLP_Fea, softplus with density_shift -10, distance_scale
+    25, rm_weight_mask_thre 1e-2, alpha_mask_thre 1e-4), its factors drawn
+    by numpy (``torch_parity.drawn_field``: density N(0.45, 0.35), so that
+    the density feature spreads round the shift and the threshold cuts the
+    lattice) -> ((config, params, mask) of JAX, of the port); no mask."""
+    from iffnerf_tpu.models import field as jfield
+
+    cfg = jfield.FieldConfig(
+        aabb=((-1.0,) * 3, (1.0,) * 3), grid_size=(20, 20, 20),
+        density_n_comp=(4, 4, 4), app_n_comp=(8, 8, 8),
+        shading_mode="MLP_Fea", fea2dense_act="softplus",
+        density_shift=-10.0, distance_scale=25.0,
+        ray_march_weight_thres=1e-2, alpha_mask_thres=1e-4, view_pe=2,
+        fea_pe=2, near_far=(0.1, 0.8), step_ratio=0.5)
+    return drawn_field(tmp_path_factory.mktemp("co3d_field") / "field.npz",
+                       cfg, 9)
+
+
+def test_co3d_activation_mask_and_ray_filter_match_jax(co3d_field,
+                                                       co3d_scene):  # noqa: F811
+    """configs/co3d.txt's activation, the furthest shipped one from the
+    defaults: the alpha-mask update (occupancy volume equal, AABB within
+    1e-6), the ray filter on the CO3D fixture's train rays with that mask
+    (the same rows kept) and render_rays on them (rtol 1e-5 and atol
+    1e-5: exp and cumprod along the ray in another order; the appearance
+    cut at weight 1e-2) as the JAX package's."""
+    import jax
+    import jax.numpy as jnp
+
+    from iffnerf_tpu.models import field as jfield
+    from iffnerf_tpu.models import render as jrender
+    from iffnerf_tpu.train import trainer as jtrainer
+    from iffnerf_tpu_torch.models import field as tfield
+    from iffnerf_tpu_torch.models import render as trender
+    from iffnerf_tpu_torch.train import trainer as ttrainer
+
+    (jcfg, jp, _), (tcfg, tp, _) = co3d_field
+    jm, jaabb, jocc = jfield.update_alpha_mask(jcfg, jp, None, (24, 22, 20))
+    tm, taabb, tocc = tfield.update_alpha_mask(tcfg, tp, None, (24, 22, 20))
+    np.testing.assert_array_equal(tm.volume.numpy(), np.asarray(jm.volume))
+    np.testing.assert_allclose(taabb, jaabb, atol=1e-6)
+    assert tocc == pytest.approx(jocc, abs=0.0)
+    assert 0.05 < tocc < 0.95, f"the threshold must cut the field: {tocc}"
+
+    ds = dataset_dict["co3d"](co3d_scene, split="train")
+    rays, rgbs = ds.all_rays[::7], ds.all_rgbs[::7]
+    jr, jg = jtrainer.filtering_rays_host(jcfg, rays, rgbs, mask=jm,
+                                         chunk=4000)
+    tr, tg = ttrainer.filtering_rays_host(tcfg, rays, rgbs, mask=tm,
+                                          chunk=3000, device="cpu",
+                                          log_fn=lambda *a: None)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
+    assert 0 < len(jr) < len(rays)
+
+    batch = np.asarray(jr)[:256]
+    want = jax.jit(jrender.render_rays, static_argnames=(
+        "config", "is_train", "n_samples", "white_bg"))(
+            jcfg, jp, jm, jnp.asarray(batch), white_bg=True, n_samples=64)
+    got = trender.render_rays(tcfg, tp, tm, torch.as_tensor(batch),
+                              white_bg=True, n_samples=64)
+    for name, g, w in zip(("rgb", "depth", "acc", "alpha"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    weight_cut = (got[3].numpy() > 0).any(-1)
+    assert weight_cut.mean() > 0.1, "the rays must see the field"
+
+
 @pytest.mark.parametrize("config,scene,flags", [
     ("bicycle", "colmap_scene", []),
     ("wineholder", "nsvf_scene", ["--downsample_train", "8"]),
     ("your_own_data", "own_scene", []),
+    ("co3d", "co3d_scene", ["--downsample_train", "2"]),
+    ("repair_27_RPf_00192b", "metashape_scene", ["--downsample_train", "2"]),
 ])
 def test_train_cli_trains_each_config(config, scene, flags, request,
                                       tmp_path, monkeypatch):

@@ -291,7 +291,9 @@ def test_reconstruction_resumes_from_the_phase_checkpoint(scene, runs):
 def test_train_cli_renders_a_checkpoint(scene, runs, tmp_path, capsys):
     """``train_cli --render_only 1 --render_test 1 --ckpt`` on the CPU: the
     test images, their depth composites and mean.txt next to the
-    checkpoint, and the same PSNR as ``evaluation``."""
+    checkpoint, and the same PSNR as ``evaluation``; ``--export_mesh 1
+    --ckpt`` writes the checkpoint's mesh beside it
+    (``tests/test_torch_mesh.py`` holds the export to JAX's)."""
     ckpt = os.path.join(runs["logfolder"], "fx.npz")
     out = train_cli.main(["--datadir", scene, "--expname", "fx",
                           "--render_only", "1", "--render_test", "1",
@@ -305,8 +307,15 @@ def test_train_cli_renders_a_checkpoint(scene, runs, tmp_path, capsys):
     assert out["test"] == pytest.approx(np.mean(_psnr(scene, cfg, p, mask)),
                                         abs=1e-9)
     assert "test all psnr" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="mesh"):
-        train_cli.main(["--export_mesh", "1", "--ckpt", ckpt])
+    # --export_mesh 1 alone writes <ckpt stem>.ply and neither renders nor
+    # trains
+    assert train_cli.main(["--export_mesh", "1", "--ckpt", ckpt,
+                           "--device", "cpu"]) is None
+    with open(ckpt[:-4] + ".ply", "rb") as f:
+        header = f.read(400).split(b"end_header\n")[0].decode()
+    n_faces = int(header.split("element face ")[1].split()[0])
+    assert n_faces > 0 and "element vertex" in header
+    assert "test all psnr" not in capsys.readouterr().out
     assert train_cli.main(["--datadir", scene, "--render_only", "1",
                            "--render_test", "1", "--ckpt",
                            str(tmp_path / "none.npz"), "--device",

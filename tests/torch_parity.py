@@ -120,6 +120,37 @@ def field(tmp_path, model_name="TensorVMSplit", seed=0,
     return (cfg, params, mask), load_field(path, device="cpu")
 
 
+def drawn_field(path, cfg, seed, density=(0.45, 0.35), mask=None):
+    """A field of the JAX ``FieldConfig`` ``cfg`` whose leaves numpy draws
+    (the JAX package's eager ``init_field`` takes seconds on the CPU): the
+    density factors N(density), the appearance factors N(0, 0.3), weights
+    N(0, 1/fan_in), biases N(0, 0.3); written at ``path`` with the JAX
+    package's ``save_field`` and the alpha mask ``mask`` (JAX's, or None),
+    and read back by both packages' ``load_field`` -> ((config, params,
+    mask) of JAX, of the port)."""
+    from iffnerf_tpu.checkpoint import load_field as jload_field
+    from iffnerf_tpu.checkpoint import save_field
+    from iffnerf_tpu.models.field import init_field
+    from iffnerf_tpu_torch.checkpoint import load_field
+
+    rng = np.random.default_rng(seed)
+
+    def draw(key_path, leaf):
+        top, last = key_path[0].key, getattr(key_path[-1], "key", None)
+        if top.startswith("density"):
+            a = rng.normal(density[0], density[1], leaf.shape)
+        else:
+            scale = leaf.shape[0] ** -0.5 if last == "w" else 0.3
+            a = rng.normal(0.0, scale, leaf.shape)
+        return jax.numpy.asarray(a, np.float32)
+
+    shapes = jax.eval_shape(lambda k: init_field(k, cfg),
+                            jax.random.PRNGKey(0))
+    params = jax.tree_util.tree_map_with_path(draw, shapes)
+    save_field(str(path), cfg, params, mask)
+    return jload_field(str(path)), load_field(str(path), device="cpu")
+
+
 def near_mask_points(mask_volume, aabb, n, seed, spread=0.05):
     """[n, 3] float32 world points around occupied voxel centres of a
     [D, H, W] volume over ``aabb``, jittered by ``spread``."""
