@@ -33,7 +33,14 @@ mask updates to its 300^3-voxel grid, a test view and its mesh through
 ``export_mesh_from_field``; configs/repair_27_RPf_00192b.txt at its
 377x377x188 grid on a Metashape cameras.xml, a test view and a spiral-path
 frame; lego's widths under the unisphere contraction; the field kernels
-held to their plain versions at each), and the iNeRF refinement on a
+held to their plain versions at each), TensorCP fields (configs/lego.txt
+with TensoRF's CP block on the command line, ranks 96/288 trained from
+128^3 through its mask updates and upsamples to about 500^3; the CP
+forward, line-gradient and coordinate-gradient kernels and K3's backward
+held to their plain versions at the final step's samples and at a
+colour chunk and timed beside their bounds; a step through the samplers
+beside the kernels'; ``explore_field`` and 50 iNeRF iterations on the
+trained field), and the iNeRF refinement on a
 lego-width field with low-frequency appearance (``estimate_pose_inerf``:
 800 iterations of 1024 rays from the JAX test's perturbation of a frame
 rendered from the field, then ``test_pose_estimation`` with
@@ -108,12 +115,21 @@ from iffnerf_tpu_torch.models.render import (
 )
 from iffnerf_tpu_torch.ops import _build
 from iffnerf_tpu_torch.ops import banked_attention as banked_attention_module
+from iffnerf_tpu_torch.ops import cp_features as cp_features_module
 from iffnerf_tpu_torch.ops import field_features as field_features_module
 from iffnerf_tpu_torch.ops import grid_sample as grid_sample_module
 from iffnerf_tpu_torch.ops.banked_attention import (
     PATCHES,
     banked_scores_fused,
     banked_scores_plain,
+)
+from iffnerf_tpu_torch.ops.cp_features import (
+    cp_features,
+    cp_features_backward,
+    cp_features_backward_plain,
+    cp_features_coords_grad,
+    cp_features_coords_grad_plain,
+    cp_features_plain,
 )
 from iffnerf_tpu_torch.ops.field_features import (
     MAT_MODE,
@@ -132,7 +148,12 @@ from iffnerf_tpu_torch.ops.fused_ray_attention import (
     fused_ray_scores_plain,
     scaled_queries,
 )
-from iffnerf_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from iffnerf_tpu_torch.ops.gather import (
+    gather_rows,
+    gather_rows_backward,
+    gather_rows_backward_plain,
+    gather_rows_plain,
+)
 from iffnerf_tpu_torch.ops.grid_sample import corners_1d, corners_2d, corners_3d
 from iffnerf_tpu_torch.ops.ide import ide_output_dim
 from iffnerf_tpu_torch.ops.topk import exact_topk
@@ -338,6 +359,28 @@ OC_CO3D_ITERS, OC_CO3D_UPSAMPLES, OC_CO3D_MASKS = 10, (2, 3, 5, 6, 7), (2, 4)
 OC_REPAIR_CAMERAS, OC_REPAIR_WH, OC_REPAIR_FOCAL = 60, (2000, 1500), 1800.0
 OC_REPAIR_STEPS, OC_DOWNSAMPLE, OC_RIG_TILT = 3, 5.0, 10.0
 OC_UNI_STEPS, OC_UNI_FRAMES = 3, 10
+# TensorCP fields. TensoRF's CP setting (upstream configs/lego.txt, its
+# commented "TensorCP" block: model_name TensorCP, n_lamb_sigma [96],
+# n_lamb_sh [288], N_voxel_final 500^3, L1 weight 1e-5 throughout) given
+# on the command line over configs/lego.txt, trained on the field_train
+# phase's pool and schedule (FT_ITERS iterations, mask updates and
+# upsamples at FT_EVENTS) from a 128^3 CP field whose density lines hold a
+# blob. The CP line gradient against its plain version within CP_GRAD_TOL
+# of each line's largest |grad|: float32 sums of about N / L = 14 000
+# terms a texel at the final step, merged in registers and shared memory
+# and added by atomics in another order than autograd's index_add (n x
+# 6e-8 of the terms' magnitudes at worst); K3's backward against
+# index_add_ under the same rule. The samplers' route under grad
+# (fused_eval "off": K3 and its backward) runs one step of CP_SAMPLER_RAYS
+# rays at the final grid beside the CP kernels' route on the same rays and
+# jitter: each leaf's gradient within POSE_GRAD_TOL of its largest (sigma's
+# rank sum runs in another order, which can move a sample across the 1e-4
+# appearance threshold). CP_INERF_ITERS iterations of estimate_pose_inerf
+# on the trained field.
+CP_FLAGS = ("--model_name", "TensorCP", "--n_lamb_sigma", "96",
+            "--n_lamb_sh", "288", "--N_voxel_final", "125000000",
+            "--L1_weight_inital", "1e-5", "--L1_weight_rest", "1e-5")
+CP_GRAD_TOL, CP_SAMPLER_RAYS, CP_INERF_ITERS = 1e-4, 256, 50
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 T_START = time.perf_counter()
 
@@ -624,10 +667,32 @@ def phase_banked_kernel(params, cfgs, img, mask, rays):
     return errs
 
 
+def _gather_rows_under_grad(table, idx):
+    """K3 under grad: one forward launch, one backward launch when the
+    result is differentiated, the table's gradient against index_add_
+    within CP_GRAD_TOL of its largest -> the share of the tolerance the
+    error takes."""
+    before = (gather_rows.launches, gather_rows_backward.launches)
+    out = gather_rows(table, idx)
+    up = torch.linspace(-1.0, 1.0, out.numel(), device=out.device).view_as(out)
+    (out * up).sum().backward()
+    torch.cuda.synchronize()
+    check((gather_rows.launches, gather_rows_backward.launches)
+          == (before[0] + 1, before[1] + 1),
+          "gather_rows under grad: one forward and one backward launch")
+    want = gather_rows_backward_plain(up, idx, table.shape[0])
+    share = float((table.grad - want).abs().max()) / (
+        CP_GRAD_TOL * float(want.abs().max()))
+    check(share <= 1.0, f"gather_rows' gradient under autograd: {share}")
+    return {"differentiable": True, "grad_share_of_tolerance": share}
+
+
 def phase_guards(params, cfg, img, mask, rays):
-    """What the wrappers refuse. K1, K2 and K3 raise under grad with an
-    input that requires it (they have no backward), before any launch, and
-    run under torch.no_grad(); field_features, which has a backward, runs
+    """What the wrappers refuse. K1 and K2 raise under grad with an input
+    that requires it (they have no backward), before any launch, and run
+    under torch.no_grad(); K3 runs under grad (one forward launch, one
+    backward launch on backward, the table's gradient within CP_GRAD_TOL
+    of index_add_'s); field_features, which has a backward, runs
     under grad (one forward launch, one backward launch on backward, the
     table's gradient within FIELD_GRAD_TOL of the plain version's; with xyz
     under grad too, one coordinate launch, its gradient within
@@ -659,11 +724,14 @@ def phase_guards(params, cfg, img, mask, rays):
         if name == "field_features":
             grad[name] = _field_features_under_grad(call, fcfg, field, xyz)
             continue
+        if name == "gather_rows":
+            grad[name] = _gather_rows_under_grad(table, idx)
+            continue
         try:
             call()
             raised = False
         except RuntimeError as err:
-            raised = "ROADMAP item 21" in str(err)
+            raised = "no backward on CUDA" in str(err)
         check(raised and wrapper.launches == before,
               f"{name} raises under grad before any launch")
         with torch.no_grad():
@@ -754,6 +822,10 @@ def _reset_counts():
     field_features.launches = 0
     field_features_backward.launches = 0
     field_features_coords_grad.launches = 0
+    gather_rows_backward.launches = 0
+    cp_features.launches = 0
+    cp_features_backward.launches = 0
+    cp_features_coords_grad.launches = 0
 
 
 def _counts():
@@ -762,7 +834,11 @@ def _counts():
             "gather_rows": gather_rows.launches,
             "field_features": field_features.launches,
             "field_features_backward": field_features_backward.launches,
-            "field_features_coords_grad": field_features_coords_grad.launches}
+            "field_features_coords_grad": field_features_coords_grad.launches,
+            "gather_rows_backward": gather_rows_backward.launches,
+            "cp_features": cp_features.launches,
+            "cp_features_backward": cp_features_backward.launches,
+            "cp_features_coords_grad": cp_features_coords_grad.launches}
 
 
 def _compare_routes(outs, refs, tag, min_overlap=K_TOP, c2w_tol=1e-4):
@@ -1044,11 +1120,14 @@ def plain_gathers():
 
 @contextlib.contextmanager
 def count_torch_lerps():
-    """Counts the calls of the 1-D and 2-D grid samplers of the field's
-    dense route (texel lerps in torch) while open -> {"n": calls}."""
+    """Counts the calls of the 1-D and 2-D grid samplers of the fields'
+    dense routes, VM and CP (texel lerps in torch), while open -> {"n":
+    calls}."""
     calls = {"n": 0}
-    names = ("grid_sample_1d", "grid_sample_2d")
-    saved = {name: getattr(field_features_module, name) for name in names}
+    names = [(field_features_module, "grid_sample_1d"),
+             (field_features_module, "grid_sample_2d"),
+             (cp_features_module, "grid_sample_1d")]
+    saved = [(module, name, getattr(module, name)) for module, name in names]
 
     def counted(fn):
         def run(*args):
@@ -1056,13 +1135,13 @@ def count_torch_lerps():
             return fn(*args)
         return run
 
-    for name, fn in saved.items():
-        setattr(field_features_module, name, counted(fn))
+    for module, name, fn in saved:
+        setattr(module, name, counted(fn))
     try:
         yield calls
     finally:
-        for name, fn in saved.items():
-            setattr(field_features_module, name, fn)
+        for module, name, fn in saved:
+            setattr(module, name, fn)
 
 
 def cluster_volume(grid, spread, dev):
@@ -1760,13 +1839,14 @@ def synthetic_ray_pool(dev, n, seed, stacked=False):
         scene_bbox=np.array([[-1.5] * 3, [1.5] * 3], np.float32))
 
 
-def config_args(name, iters, upsamples, mask_updates, ckpt=None):
+def config_args(name, iters, upsamples, mask_updates, ckpt=None, extra=()):
     """configs/<name>.txt through the port's parser, cut to ``iters``
-    iterations with the upsamples and mask updates at the given ones."""
+    iterations with the upsamples and mask updates at the given ones, with
+    the flags ``extra`` on the command line."""
     cmd = ["--config", str(Path(__file__).resolve().parent / "configs"
                            / f"{name}.txt"),
            "--n_iters", str(iters), "--N_vis", "0", "--ckpt_every", "0",
-           "--progress_refresh_rate", str(iters)]
+           "--progress_refresh_rate", str(iters), *extra]
     for it in upsamples:
         cmd += ["--upsamp_list", str(it)]
     for it in mask_updates:
@@ -2748,7 +2828,10 @@ def phase_inerf(id_params, id_cfg, rays, dev):
                      "gather_rows": INERF_ITERS,
                      "field_features": INERF_ITERS,
                      "field_features_backward": 0,
-                     "field_features_coords_grad": INERF_ITERS},
+                     "field_features_coords_grad": INERF_ITERS,
+                     "gather_rows_backward": 0, "cp_features": 0,
+                     "cp_features_backward": 0,
+                     "cp_features_coords_grad": 0},
           f"a refinement iteration launches field_features, its coordinate "
           f"kernel and the mask lookup once each: {counts}")
     # finite only: the exponential map of a w that is not a unit vector is
@@ -3344,7 +3427,8 @@ def repair_capture(dev, root):
 def object_density(params, aabb, feature=20.0, width=0.5):
     """Density factors that put a separable blob at the AABB's centre:
     each plane rank a(u)a(v) and each line rank a(w), a = c exp(-(x /
-    width)^2) with c^3 x (3 pairs x ranks) = ``feature``, so that the
+    width)^2) with c^3 x (3 pairs x ranks) = ``feature`` (a TensorCP
+    field: each rank's three lines, c^3 x ranks = ``feature``), so that the
     density feature is ``feature`` exp(-|x|^2 / width^2) (sigma =
     softplus(feature - 10) about 10 at the centre, which the first steps'
     pull towards the background leave well above the mask's threshold): a
@@ -3352,7 +3436,8 @@ def object_density(params, aabb, feature=20.0, width=0.5):
     with new density factors."""
     aabb = np.asarray(aabb, np.float32)
     ranks = params["density_line"][0].shape[1]
-    c = (feature / (3 * ranks)) ** (1 / 3)
+    pairs = 3 if "density_plane" in params else 1  # CP: one product a rank
+    c = (feature / (pairs * ranks)) ** (1 / 3)
     dev = params["density_line"][0].device
 
     def axis(n, i):
@@ -3361,10 +3446,11 @@ def object_density(params, aabb, feature=20.0, width=0.5):
         return c * torch.exp(-(x / width) ** 2)
 
     out = dict(params)
-    out["density_plane"] = tuple(
-        (axis(p.shape[0], m1)[:, None] * axis(p.shape[1], m0)[None, :]
-         )[..., None].expand(p.shape).contiguous()
-        for p, (m0, m1) in zip(params["density_plane"], MAT_MODE))
+    if "density_plane" in params:
+        out["density_plane"] = tuple(
+            (axis(p.shape[0], m1)[:, None] * axis(p.shape[1], m0)[None, :]
+             )[..., None].expand(p.shape).contiguous()
+            for p, (m0, m1) in zip(params["density_plane"], MAT_MODE))
     out["density_line"] = tuple(
         axis(l.shape[0], VEC_MODE[i])[:, None].expand(l.shape).contiguous()
         for i, l in enumerate(params["density_line"]))
@@ -3586,6 +3672,628 @@ def phase_object_captures(dev):
     return result
 
 
+# ---------------------------------------------------------------------------
+# TensorCP fields
+# ---------------------------------------------------------------------------
+
+
+def cp_args(ckpt=None):
+    """configs/lego.txt with the upstream CP block's flags (CP_FLAGS) on the
+    command line, cut to FT_ITERS iterations with the upsamples and mask
+    updates at FT_EVENTS."""
+    return config_args("lego", FT_ITERS, FT_EVENTS, FT_EVENTS, ckpt,
+                       extra=CP_FLAGS)
+
+
+@contextlib.contextmanager
+def captured_cp(name, keep):
+    """Keeps a copy of the inputs of the CP launcher ``name`` (``_launch_
+    forward``, ``_launch_backward`` or ``_launch_coords_grad``) at the
+    calls ``keep(dims, flat)`` accepts, the last such call's, while open
+    -> {"inputs": (params, xyz, dsigma, dapp)} (no upstream for the
+    forward)."""
+    out = {}
+    launch = getattr(cp_features_module, name)
+
+    def capture(lines, dims, flat, *rest):
+        if keep(dims, flat):
+            out.clear()
+            params = {"density_line": tuple(a.detach().clone()
+                                            for a in lines[:3]),
+                      "app_line": tuple(a.detach().clone()
+                                        for a in lines[3:]
+                                        if a is not None) or None}
+            ups = ([u if u is None else u.clone() for u in rest[:2]]
+                   if name != "_launch_forward" else [None, None])
+            out["inputs"] = (params, flat.clone(), *ups)
+        return launch(lines, dims, flat, *rest)
+
+    setattr(cp_features_module, name, capture)
+    try:
+        yield out
+    finally:
+        setattr(cp_features_module, name, launch)
+
+
+def first_call():
+    """A ``keep`` for ``captured_cp`` that accepts the first call only."""
+    seen = []
+
+    def keep(dims, flat):
+        seen.append(flat.shape[0])
+        return len(seen) == 1
+    return keep
+
+
+def cp_random_upstream(params, xyz, seed):
+    """dsigma [N] and dapp [N, R_app] for ``xyz``, normal, a third of the
+    samples without upstream (as masked samples), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n, ra = xyz.shape[0], params["app_line"][0].shape[1]
+    live = torch.as_tensor(rng.random(n) > 1 / 3, device=xyz.device)
+    dsigma = torch.as_tensor(rng.standard_normal(n, dtype=np.float32),
+                             device=xyz.device) * live
+    dapp = torch.as_tensor(rng.standard_normal((n, ra), dtype=np.float32),
+                           device=xyz.device) * live[:, None]
+    return dsigma, dapp
+
+
+def cp_chunked(fn, xyz, *ups, total=False):
+    """``fn(xyz_chunk, *ups_chunk)`` over chunks of FT_PLAIN_CHUNK samples
+    -> the outputs concatenated, or summed leaf by leaf with ``total``."""
+    outs = [fn(xyz[i:i + FT_PLAIN_CHUNK],
+               *(None if u is None else u[i:i + FT_PLAIN_CHUNK] for u in ups))
+            for i in range(0, xyz.shape[0], FT_PLAIN_CHUNK)]
+    if total:
+        return {k: tuple(sum(o[k][j] for o in outs) for j in range(3))
+                for k in outs[0]}
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def cp_library_lines(params):
+    """The lines as [1, R, L, 1], the layout F.grid_sample takes."""
+    return {k: [a.T[None, :, :, None].contiguous() for a in params[k]]
+            for k in ("density_line", "app_line")}
+
+
+def cp_library_features(lines, coords):
+    """cp_features' function from F.grid_sample on the three lines (a
+    timing yardstick; the port never calls it) -> (sigma [N], app [N, R])."""
+    zero = torch.zeros_like(coords[:, 0])
+
+    def products(kind):
+        prod = None
+        for i in range(3):
+            grid = torch.stack([zero, coords[:, VEC_MODE[i]]], -1)[None, :, None]
+            f = F.grid_sample(lines[kind][i], grid, align_corners=True)[0, :, :, 0]
+            prod = f if prod is None else prod * f
+        return prod
+
+    return products("density_line").sum(0), products("app_line").T
+
+
+def cp_rows(params, xyz, live=None):
+    """Rows of each line that the samples (those ``live``) touch: the
+    unique in-range corner rows of each axis -> [3] counts."""
+    pts = xyz if live is None else xyz[live]
+    out = []
+    for i, line in enumerate(params["density_line"]):
+        idx, valid, _ = corners_1d(line.shape[0], pts[:, VEC_MODE[i]])
+        out.append(torch.unique(idx[valid]).numel())
+    return out
+
+
+def cp_bounds(params, xyz, dsigma, dapp):
+    """Bytes of the three CP kernels at these inputs (each input read once,
+    each output written once; the rows the samples touch read once, a
+    gradient row written once) -> {kernel: (ms, bound_by)}."""
+    n = xyz.shape[0]
+    rd, ra = (params[k][0].shape[1] for k in ("density_line", "app_line"))
+    rows = sum(cp_rows(params, xyz))
+    live = (dsigma != 0) | (dapp != 0).any(-1)
+    live_rows = sum(cp_rows(params, xyz, live))
+    up = n * 4 + dapp.numel() * 4
+    return {"forward": bound(n * 12 + n * 4 + n * ra * 4 + rows * (rd + ra) * 4,
+                             0.0, torch.float32),
+            "backward": bound(n * 12 + up + 2 * live_rows * (rd + ra) * 4,
+                              0.0, torch.float32),
+            "coords_grad": bound(n * 12 + up + n * 12
+                                 + live_rows * (rd + ra) * 4, 0.0,
+                                 torch.float32)}
+
+
+def cp_kernel_holds(config, params, xyz, dsigma, dapp, label):
+    """The three CP kernels at ``xyz`` and its upstream against their plain
+    versions (chunked): app products bit-equal, sigma within FIELD_RTOL and
+    FIELD_ATOL x max|plain|, the line gradient within CP_GRAD_TOL of each
+    line's largest, the coordinate gradient within COORDS_GRAD_TOL of the
+    largest; then each timed (graph and eager) beside its bound, its plain
+    version and F.grid_sample (chunked at more than FT_PLAIN_CHUNK
+    samples) -> {kernel: row}."""
+    n = xyz.shape[0]
+    with torch.no_grad():
+        sigma, app = cp_features(config, params, xyz)
+        want = cp_chunked(lambda x: cp_features_plain(params, x, True,
+                                                      gather_rows_plain), xyz)
+        scale = float(want[0].abs().max())
+        fwd = {"n": n, "app_bit_equal": bool(torch.equal(app, want[1])),
+               "sigma_max_abs_err": float((sigma - want[0]).abs().max()),
+               "sigma_max_abs_plain": scale}
+        check(fwd["app_bit_equal"] and torch.allclose(
+            sigma, want[0], rtol=FIELD_RTOL, atol=FIELD_ATOL * scale),
+            f"cp_features vs plain at {label}: {fwd}")
+        fwd["max_abs_err"] = max(fwd["sigma_max_abs_err"],
+                                 float((app - want[1]).abs().max()))
+        del sigma, app, want
+    got = cp_features_backward(config, params, xyz, dsigma, dapp)
+    want = cp_chunked(lambda *a: cp_features_backward_plain(params, *a), xyz,
+                      dsigma, dapp, total=True)
+    worst, leaf, err_max = 0.0, "", 0.0
+    for name in want:
+        for i, (a, b) in enumerate(zip(got[name], want[name])):
+            err = float((a - b).abs().max())
+            share = err / (CP_GRAD_TOL * max(float(b.abs().max()), 1e-30))
+            err_max = max(err_max, err)
+            if share >= worst:
+                worst, leaf = share, f"{name}[{i}]"
+    bwd = {"n": n, "worst_share_of_tolerance": worst, "worst_leaf": leaf,
+           "max_abs_err": err_max,
+           "samples_with_grad": int(((dsigma != 0)
+                                     | (dapp != 0).any(-1)).sum())}
+    check(worst <= 1.0, f"cp_features backward vs plain at {label}: {bwd}")
+    del got, want
+    got = cp_features_coords_grad(config, params, xyz, dsigma, dapp)
+    want = cp_chunked(lambda *a: cp_features_coords_grad_plain(params, *a),
+                      xyz, dsigma, dapp)
+    cscale = float(want.abs().max())
+    coords = {"n": n, "max_abs_err": float((got - want).abs().max()),
+              "max_abs_plain": cscale}
+    coords["share_of_tolerance"] = coords["max_abs_err"] / (
+        COORDS_GRAD_TOL * max(cscale, 1e-30))
+    check(coords["share_of_tolerance"] <= 1.0,
+          f"cp_features coordinate gradient vs plain at {label}: {coords}")
+    del got, want
+    torch.cuda.empty_cache()
+
+    bounds = cp_bounds(params, xyz, dsigma, dapp)
+    lines = cp_library_lines(params)
+    chunked = n > FT_PLAIN_CHUNK
+    lib_lines = {k: [a.detach().clone().requires_grad_() for a in v]
+                 for k, v in lines.items()}
+
+    def lib_forward():
+        with torch.no_grad():
+            return cp_chunked(lambda x: cp_library_features(lines, x), xyz)
+
+    def lib_backward():
+        for i in range(0, n, FT_PLAIN_CHUNK):
+            s, a = cp_library_features(lib_lines, xyz[i:i + FT_PLAIN_CHUNK])
+            torch.autograd.grad((s, a), lib_lines["density_line"]
+                                + lib_lines["app_line"],
+                                (dsigma[i:i + FT_PLAIN_CHUNK],
+                                 dapp[i:i + FT_PLAIN_CHUNK]))
+
+    def lib_coords():
+        for i in range(0, n, FT_PLAIN_CHUNK):
+            x = xyz[i:i + FT_PLAIN_CHUNK].detach().requires_grad_()
+            s, a = cp_library_features(lines, x)
+            torch.autograd.grad((s, a), x,
+                                (dsigma[i:i + FT_PLAIN_CHUNK],
+                                 dapp[i:i + FT_PLAIN_CHUNK]))
+
+    calls = {
+        "forward": (lambda: cp_features(config, params, xyz),
+                    lambda: cp_chunked(lambda x: cp_features_plain(
+                        params, x, True, gather_rows_plain), xyz),
+                    lib_forward, fwd),
+        "backward": (lambda: cp_features_backward(config, params, xyz, dsigma,
+                                                  dapp),
+                     lambda: cp_chunked(lambda *a: cp_features_backward_plain(
+                         params, *a), xyz, dsigma, dapp, total=True),
+                     lib_backward, bwd),
+        "coords_grad": (lambda: cp_features_coords_grad(config, params, xyz,
+                                                        dsigma, dapp),
+                        lambda: cp_chunked(lambda *a: (
+                            cp_features_coords_grad_plain(params, *a)),
+                            xyz, dsigma, dapp),
+                        lib_coords, coords)}
+    rows = {}
+    for kernel, (call, plain, lib, checks) in calls.items():
+        with torch.no_grad():
+            ms = time_ms(call, reps=FT_REPS, graph=True)
+            eager = time_ms(call, reps=FT_REPS)
+        rows[kernel] = dict(
+            checks, ms=ms, eager_ms=eager,
+            plain_ms=time_ms(plain, reps=3), library_ms=time_ms(lib, reps=3),
+            library_chunked=chunked, bound_ms=bounds[kernel][0],
+            bound_by=bounds[kernel][1])
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k3_backward_holds(table_rows, idx, up, label):
+    """K3's backward at ``idx`` [N] int32 and ``up`` [N, C] into a table of
+    ``table_rows`` rows against index_add_ (gather_rows_backward_plain)
+    within CP_GRAD_TOL of its largest; timed (graph and eager) beside its
+    bound (the upstream and indices read once, each touched row read and
+    written once), its plain version and one index_add_ -> the row."""
+    got = gather_rows_backward(up, idx, table_rows)
+    want = gather_rows_backward_plain(up, idx, table_rows)
+    err = float((got - want).abs().max())
+    share = err / (CP_GRAD_TOL * max(float(want.abs().max()), 1e-30))
+    check(share <= 1.0, f"K3 backward vs index_add_ at {label}: {share}")
+    del got, want
+    touched = torch.unique(idx).numel()
+    c = up.shape[1]
+    ms, by = bound(up.numel() * 4 + idx.numel() * 4 + 2 * touched * c * 4,
+                   0.0, torch.float32)
+    long_idx = idx.long()
+
+    def library():
+        return torch.zeros((table_rows, c), device=up.device).index_add_(
+            0, long_idx, up)
+
+    return {"table": [table_rows, c], "n": idx.shape[0], "max_abs_err": err,
+            "share_of_tolerance": share,
+            "ms": time_ms(lambda: gather_rows_backward(up, idx, table_rows),
+                          reps=FT_REPS, graph=True),
+            "eager_ms": time_ms(lambda: gather_rows_backward(
+                up, idx, table_rows), reps=FT_REPS),
+            "plain_ms": time_ms(lambda: gather_rows_backward_plain(
+                up, idx, table_rows), reps=3),
+            "library_ms": time_ms(library, reps=3),
+            "bound_ms": ms, "bound_by": by}
+
+
+def cp_sampler_route(config, params, mask, pool, n_samples, dev):
+    """One step's loss and gradients of CP_SAMPLER_RAYS rays at the final
+    grid through the CP kernels and through the samplers (fused_eval "off":
+    K3 and its backward), the same rays and jitter: the loss within 1e-5
+    and each leaf's gradient within POSE_GRAD_TOL of its largest; launch
+    counts of each route set to 0 just before it and read just after ->
+    (the samplers' counts, the comparison)."""
+    rng = np.random.default_rng(SEED + 60)
+    rows = torch.as_tensor(rng.integers(0, pool.all_rays.shape[0],
+                                        CP_SAMPLER_RAYS), device=dev)
+    jitter = torch.as_tensor(rng.random((CP_SAMPLER_RAYS, 1),
+                                        dtype=np.float32), device=dev)
+    bg = torch.ones(3, device=dev)
+    out, counts = {}, {}
+    for route, cfg in (("cp_kernel", config),
+                       ("samplers", config.replace(fused_eval="off"))):
+        p = trainable(params, dev)
+        _reset_counts()
+        total, _ = field_trainer.field_loss(
+            cfg, p, mask, pool.all_rays[rows], pool.all_rgbs[rows], bg,
+            {"l1": 1e-5, "tv_d": 0.0, "tv_a": 0.0}, n_samples=n_samples,
+            jitter=jitter, use_l1=True)
+        total.backward()
+        torch.cuda.synchronize()
+        counts[route] = _counts()
+        out[route] = (float(total.detach()), [a.grad for a in leaves(p)])
+    check(counts["cp_kernel"]["cp_features_backward"] == 1
+          and counts["cp_kernel"]["gather_rows_backward"] == 0,
+          f"the CP route's launches {counts['cp_kernel']}")
+    check(counts["samplers"]["cp_features"] == 0
+          and counts["samplers"]["gather_rows_backward"] > 0,
+          f"the samplers' route launched K3's backward: {counts['samplers']}")
+    loss_diff = abs(out["cp_kernel"][0] - out["samplers"][0])
+    pairs = list(zip(out["cp_kernel"][1], out["samplers"][1]))
+    check(all((a is None) == (b is None) for a, b in pairs),
+          "both routes reach the same leaves")
+    worst = max(float((a - b).abs().max()) / (
+        POSE_GRAD_TOL * max(float(b.abs().max()), 1e-30))
+        for a, b in pairs if b is not None)
+    check(loss_diff <= 1e-5 * abs(out["samplers"][0]) and worst <= 1.0,
+          f"CP kernels' and samplers' step agree ({loss_diff}, {worst})")
+    return counts["samplers"], {
+        "rays": CP_SAMPLER_RAYS, "n_samples": n_samples,
+        "loss_abs_diff": loss_diff, "worst_grad_share_of_tolerance": worst}
+
+
+def train_cp(dev):
+    """TensoRF training through ``train_field`` at TensoRF's CP setting
+    (``cp_args``) on the field_train phase's pool (100 synthetic 800x800
+    frames made on the card), from a 128^3 CP field with a density blob
+    (``object_density``) saved and loaded back; launch counts set to 0
+    just before the run and read just after; each step timed, the inputs
+    of the last grid's first backward kept -> a namespace."""
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    pool = synthetic_ray_pool(dev, FT_POOL, SEED + 20)
+    test = synthetic_ray_pool(dev, 1, SEED + 21, stacked=True)
+    pool_s = _sync_s(t0)
+    args = cp_args(WORK_DIR / "lego_cp_128.npz")
+    config = field_config_from_args(args, pool.scene_bbox,
+                                    (FT_GRID_INIT,) * 3, pool.near_far)
+    check(config.model_name == "TensorCP"
+          and config.density_n_comp == (96,) * 3
+          and config.app_n_comp == (288,) * 3
+          and args.N_voxel_final == 500 ** 3
+          and args.L1_weight_inital == args.L1_weight_rest == 1e-5,
+          f"the CP block's setting: {config}")
+    params = object_density(init_field(torch.Generator(device=dev)
+                                       .manual_seed(SEED), config),
+                            config.aabb)
+    save_field(str(args.ckpt), config, params)
+    del params
+    config, params, mask = load_field(args.ckpt, device=dev)
+    check(config.model_name == "TensorCP" and mask is None,
+          "the CP field round-trips")
+    events = []
+    last = {}
+
+    def keep(dims, flat):  # the first backward at each new grid
+        key = tuple(dims[:3])
+        fresh = last.get("key") != key
+        last["key"] = key
+        return fresh
+
+    torch.cuda.synchronize()
+    with timed_field_steps() as steps, \
+            captured_cp("_launch_backward", keep) as caught, \
+            count_torch_lerps() as torch_lerps:
+        _reset_counts()
+        t0 = time.perf_counter()
+        config, params, mask = train_field(
+            args, config, params, mask, pool, test,
+            str(WORK_DIR / "tensor_cp"), log_fn=lambda *a: None, device=dev,
+            events=events,
+            reso_cur=N_to_reso(args.N_voxel_init, pool.scene_bbox))
+        run_s = _sync_s(t0)
+        counts = _counts()
+    return types.SimpleNamespace(
+        args=args, config=config, params=params, mask=mask, pool=pool,
+        steps=steps, events=events, counts=counts,
+        torch_lerps=torch_lerps["n"], caught=caught["inputs"], run_s=run_s,
+        pool_s=pool_s)
+
+
+def phase_tensor_cp(dev):
+    """TensorCP fields on the card: ``train_cp`` (its checks: the CP kernels
+    and K3's mask lookup every step, no texel lerp in torch, no VM kernel,
+    the events, a final grid of about 500^3, finite and changing losses);
+    the three CP kernels held to their plain versions and timed at the
+    final step's samples and at a colour chunk of ``explore_field``, K3's
+    backward at the mask's and the lines' shapes; a step's split and
+    profile; the samplers' route under grad beside the kernels'
+    (``cp_sampler_route``); ``explore_field`` on the trained field (launch
+    counts, no texel lerp in torch); CP_INERF_ITERS iterations of
+    ``estimate_pose_inerf`` from the JAX test's perturbation of an 800x800
+    frame rendered from the field, the coordinate kernel held to its plain
+    version at an iteration's inputs -> {kernel: the kernels line's
+    entry}."""
+    t_phase = time.perf_counter()
+    run = train_cp(dev)
+    args, config, params, mask = run.args, run.config, run.params, run.mask
+    steps, counts = run.steps, run.counts
+    check(len(steps) == FT_ITERS, f"{len(steps)} steps")
+    check(counts["cp_features"] > 0
+          and counts["cp_features_backward"] == FT_ITERS
+          and counts["gather_rows"] > 0,
+          f"the run launched cp_features, its backward and K3: {counts}")
+    check(counts["field_features"] == 0 and counts["banked_scores"] == 0
+          and counts["fused_ray_scores"] == 0
+          and counts["gather_rows_backward"] == 0,
+          f"a CP run launches no VM, scoring or K3-backward kernel: {counts}")
+    check(run.torch_lerps == 0, f"{run.torch_lerps} texel lerps in torch")
+    kinds = [e["event"] for e in run.events]
+    check(kinds == ["alpha-mask update + shrink", "upsample",
+                    "alpha-mask update + ray filtering", "upsample"],
+          f"the phase events {kinds}")
+    grid = tuple(config.grid_size)
+    check(math.prod(grid) > 0.9 * args.N_voxel_final, f"final grid {grid}")
+    mses = [st["mse"] for st in steps]
+    check(all(math.isfinite(x) for x in mses), f"finite losses {mses}")
+    check(all(a != b for a, b in zip(mses, mses[1:])),
+          f"the loss changes from step to step {mses}")
+    check(all(bool(torch.isfinite(a).all()) for a in leaves(params)),
+          "finite trained parameters")
+    n_final = cal_n_samples(config.grid_size, args.step_ratio)
+
+    # the kernels at the final step's samples
+    p, xyz, dsigma, dapp = run.caught
+    run.caught = None
+    check(xyz.shape[0] == FT_BATCH * n_final,
+          f"the final step's samples ({xyz.shape[0]})")
+    at_step = cp_kernel_holds(config, p, xyz, dsigma, dapp, "the final step")
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    vol = mask.volume
+    mask_idx = corners_3d(*vol.shape, xyz)[0].reshape(-1).contiguous()
+    k3_step = k3_backward_holds(
+        vol.numel(), mask_idx,
+        torch.randn((mask_idx.shape[0], 1), generator=g, device=dev),
+        "the mask's shape at the final step")
+    del mask_idx
+    line_idx = corners_1d(grid[2], xyz[:, VEC_MODE[0]])[0].reshape(-1)
+    k3_line = k3_backward_holds(
+        grid[2], line_idx.contiguous(),
+        torch.randn((line_idx.shape[0], 96), generator=g, device=dev),
+        "a density line at the final step")
+    del p, xyz, dsigma, dapp, line_idx
+    torch.cuda.empty_cache()
+
+    split = step_split_field(config, params, mask, run.pool, n_final, dev,
+                             weights={"l1": 1e-5, "tv_d": 0.0, "tv_a": 0.0})
+    sampler_counts, sampler_route = cp_sampler_route(
+        config, params, mask, run.pool, n_final, dev)
+    del run.pool
+    torch.cuda.empty_cache()
+
+    # explore_field on the trained CP field
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    with count_torch_lerps() as torch_lerps, captured_cp(
+            "_launch_forward", lambda dims, flat: dims[4] > 0
+            and flat.shape[0] == CHUNK_SAMPLES) as chunk:
+        _reset_counts()
+        t0 = time.perf_counter()
+        ori, dirs, rgb = explore_field(
+            gen, config, params, mask, gen_points=GEN_POINTS,
+            n_iteration=N_EPOCHS, max_resampling_iterations=MAX_RESAMPLING)
+        explore_s = _sync_s(t0)
+        explore_counts = _counts()
+    explore_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = GEN_POINTS * N_ISOCELL
+    for name, a in (("ori", ori), ("dirs", dirs), ("rgb", rgb)):
+        check(a.shape == (n, 3) and bool(torch.isfinite(a).all()),
+              f"explore_field {name} on the CP field")
+    check(explore_counts["cp_features"] > 0
+          and explore_counts["field_features"] == 0
+          and torch_lerps["n"] == 0,
+          f"explore_field on the CP field: {explore_counts}, "
+          f"{torch_lerps['n']} torch lerps")
+    del ori, dirs, rgb
+    cp, cxyz, _, _ = chunk["inputs"]
+    at_chunk = cp_kernel_holds(config, cp, cxyz,
+                               *cp_random_upstream(cp, cxyz, SEED + 62),
+                               "a colour chunk")
+    line_idx = corners_1d(grid[2], cxyz[:, VEC_MODE[0]])[0].reshape(-1)
+    k3_chunk = k3_backward_holds(
+        grid[2], line_idx.contiguous(),
+        torch.randn((line_idx.shape[0], 288), generator=g, device=dev),
+        "an appearance line at a colour chunk")
+    del cp, cxyz, line_idx
+
+    # iNeRF on the CP field
+    cam_k = lego_camera()
+    gt = _look_at_c2w(4.0 * np.array([math.cos(0.6) * math.cos(0.5),
+                                      math.sin(0.6) * math.cos(0.5),
+                                      math.sin(0.5)]))
+    t0 = time.perf_counter()
+    obs = render_rgba(config, params, mask, gt, cam_k, dev)
+    render_s = _sync_s(t0)
+    check(bool(torch.isfinite(obs).all()), "finite CP frame")
+    coverage = float((obs[..., 3] > 0.5).float().mean())
+    start = perturbed(gt)
+    with count_torch_lerps() as torch_lerps, captured_cp(
+            "_launch_coords_grad", first_call()) as caught:
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, refined, _ = estimate_pose_inerf(
+            start, obs, cam_k, config, params, mask,
+            sampling_strategy="random", lrate=INERF_LRATE,
+            batch_size=INERF_BATCH, color_bkgd_aug="random",
+            n_iters=CP_INERF_ITERS, dice_loss=True, seed=SEED, device=dev)
+        inerf_s = _sync_s(t0)
+        inerf_counts = _counts()
+    inerf_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(inerf_counts["cp_features"] == CP_INERF_ITERS
+          and inerf_counts["cp_features_coords_grad"] == CP_INERF_ITERS
+          and inerf_counts["cp_features_backward"] == 0
+          and torch_lerps["n"] == 0,
+          f"an iNeRF iteration on the CP field: one forward and one "
+          f"coordinate launch, no line backward: {inerf_counts}")
+    check(math.isfinite(float(loss)) and bool(np.isfinite(refined).all()),
+          f"finite iNeRF result {loss}")
+    ip, ixyz, ids, ida = caught["inputs"]
+    got = cp_features_coords_grad(config, ip, ixyz, ids, ida)
+    want = cp_chunked(lambda *a: cp_features_coords_grad_plain(ip, *a), ixyz,
+                      ids, ida)
+    scale = float(want.abs().max())
+    it_coords = {"n": ixyz.shape[0], "max_abs_err": float((got - want)
+                                                          .abs().max()),
+                 "max_abs_plain": scale,
+                 "samples_with_upstream": int(((ids != 0)
+                                               | (ida != 0).any(-1)).sum())}
+    it_coords["share_of_tolerance"] = it_coords["max_abs_err"] / (
+        COORDS_GRAD_TOL * max(scale, 1e-30))
+    check(it_coords["share_of_tolerance"] <= 1.0,
+          f"the CP coordinate kernel at an iNeRF iteration: {it_coords}")
+    it_coords["ms"] = time_ms(lambda: cp_features_coords_grad(
+        config, ip, ixyz, ids, ida), reps=FT_REPS, graph=True)
+    del ip, ixyz, ids, ida, got, want
+
+    emit(phase="tensor_cp", flags=list(CP_FLAGS), iters=FT_ITERS,
+         events_at=FT_EVENTS, batch=FT_BATCH, pool_s=run.pool_s,
+         final_grid=list(grid), final_aabb=[list(a) for a in config.aabb],
+         n_samples=n_final, run_s=run.run_s,
+         step_s=[st["s"] for st in steps], mse=mses,
+         steps_by_grid=steps_by_grid(steps), phase_events=run.events,
+         split=split, peak_mem_gb=max(st["peak_mem_gb"] for st in steps),
+         launches=counts, kernels_at_step=at_step,
+         kernels_at_colour_chunk=at_chunk,
+         k3_backward={"mask_at_step": k3_step, "density_line_at_step": k3_line,
+                      "app_line_at_colour_chunk": k3_chunk},
+         grad_tolerance=CP_GRAD_TOL, sampler_route=sampler_route,
+         sampler_launches=sampler_counts,
+         explore={"s": explore_s, "launches": explore_counts,
+                  "torch_lerps": 0, "peak_mem_gb": explore_peak},
+         inerf={"iters": CP_INERF_ITERS, "s": inerf_s,
+                "ms_per_iteration": 1e3 * inerf_s / CP_INERF_ITERS,
+                "render_s": render_s, "coverage": coverage,
+                "loss": float(loss),
+                "errors_start": pose_errors(gt, start),
+                "errors_end": pose_errors(gt, refined),
+                "launches": inerf_counts, "peak_mem_gb": inerf_peak,
+                "coords_grad_at_iteration": it_coords},
+         phase_s=time.perf_counter() - t_phase)
+    by_path = {"tensor_cp_train": counts, "tensor_cp_explore": explore_counts,
+               "tensor_cp_inerf": inerf_counts,
+               "tensor_cp_samplers": sampler_counts}
+
+    def entry(name, kernel, path, design):
+        step, chunk_row = at_step[kernel], at_chunk[kernel]
+        return dict(
+            name=name, route="cuda",
+            source="iffnerf_tpu_torch/csrc/cp_features.cu",
+            replaces="iffnerf_tpu/models/field.py:383",
+            replaces_kind="no pallas_call: the CP field's texel fetches"
+                          " (pallas_gather's work, extra/pallas_gather_bench"
+                          ".py:46) and their lerps and products"
+                          " (iffnerf_tpu/models/field.py:383-389,484-489),"
+                          " differentiated by XLA",
+            design=design,
+            launches=by_path[path][name],
+            launches_by_path={k: c[name] for k, c in by_path.items()},
+            max_abs_err=step["max_abs_err"],
+            ms=step["ms"], eager_ms=step["eager_ms"],
+            plain_ms=step["plain_ms"], bound_ms=step["bound_ms"],
+            bound_by=step["bound_by"], library_ms=step["library_ms"],
+            library="F.grid_sample on the three lines"
+                    + (" (backward)" if kernel != "forward" else "")
+                    + ", in chunks of 2^20 samples",
+            at_colour_chunk=chunk_row, at_step=step)
+
+    k3 = dict(
+        name="gather_rows.backward", route="cuda",
+        source="iffnerf_tpu_torch/csrc/gather_rows.cu",
+        replaces="extra/pallas_gather_bench.py:46",
+        replaces_kind="the backward of pallas_gather's work (jnp.take's"
+                      " scatter-add, which XLA derives)",
+        design="a group of lanes a row of the upstream, float4 REDs into"
+               " the gradient table's row",
+        launches=sampler_counts["gather_rows_backward"],
+        launches_by_path={k: c["gather_rows_backward"]
+                          for k, c in by_path.items()},
+        max_abs_err=k3_step["max_abs_err"],
+        **{k: k3_step[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
+        library="torch.Tensor.index_add_",
+        at_density_line=k3_line, at_app_line_colour_chunk=k3_chunk)
+    return [
+        entry("cp_features", "forward", "tensor_cp_train",
+              "a group of lanes a sample walks runs of 8 consecutive"
+              " samples; a lane a float4 word of the density then appearance"
+              " ranks, its 6 corner words read through L1, lerped and"
+              " multiplied in registers, the products stored whole lines a"
+              " warp; sigma's lane sums meet by shuffles"),
+        entry("cp_features_backward", "backward", "tensor_cp_train",
+              "a block owns a slice of up to 32 ranks and a chunk of samples"
+              " and keeps that slice of all three lines' sums in shared"
+              " memory; a group of lanes (a rank each) walks its part of"
+              " the chunk in order, merges a row's terms in registers until"
+              " the row changes, skips zero upstream, and the block adds its"
+              " sums into the gradient lines with float REDs once"),
+        entry("cp_features_coords_grad", "coords_grad", "tensor_cp_inerf",
+              "the forward's mapping: a group of lanes a sample, each word's"
+              " derivative sums in registers, met by shuffles; no atomics"),
+        k3]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3655,6 +4363,12 @@ def main() -> int:
     rs_counts.update({f"object_captures_{name}": r[0]
                       for name, r in captures.items()})
     trained = {name: r for name, r in captures.items() if r[1] is not None}
+    torch.cuda.empty_cache()
+    # TensorCP: the CP kernels every step, K3's mask lookup after the first
+    # mask update, K3's backward on the samplers' route, the coordinate
+    # kernel every iNeRF iteration
+    cp_entries = phase_tensor_cp(dev)
+    torch.cuda.empty_cache()
     # iNeRF refinement: field_features, its coordinate kernel and K3's mask
     # lookup every iteration
     inerf_counts, coords_entry = phase_inerf(params, cfg16, rays, dev)
@@ -3763,6 +4477,7 @@ def main() -> int:
             coords_entry["launches_by_path"],
             **{k: c["field_features_coords_grad"]
                for k, c in rs_counts.items() if k.startswith("object_")})),
+        *cp_entries,
     ]
     emit(phase="latency", banked_ms_per_image=banked_ms,
          banked_float32_ms_per_image=banked32_ms, fused_ms_per_image=fused_ms,

@@ -1,4 +1,5 @@
-// Row gather out[n, :] = table[idx[n], :] for sm_90a.
+// Row gather out[n, :] = table[idx[n], :] for sm_90a, and its backward
+// (gather_rows_bwd_kernel, below).
 //
 // Replaces the Pallas TPU kernel pallas_gather of
 // extra/pallas_gather_bench.py:46. On the port's main path it serves the
@@ -254,7 +255,79 @@ cudaError_t launch_route(bool bucketed, const Gather& g) {
   return bucketed ? launch<V, kBucketedUnroll, true>(g) : launch<V, kDirectUnroll, false>(g);
 }
 
+// The backward: grad[idx[n], :] += g[n, :] with float REDs (an atomicAdd
+// whose result is unused; float4 where the rows are), under the forward's
+// rule: a wrapped index adds into its row, a NaN row (an index outside
+// [-R, R)) adds nothing, as XLA's scatter drops it. The same mapping as
+// the forward: a group of tpr threads a row of g. Bound on an H100 SXM:
+// bytes, g read once (N * C * 4) and the touched rows of grad read and
+// written once; REDs on one row serialise in L2, which the mask lookup's
+// corners and a line's rows (thousands of samples a row) meet. A simple
+// kernel first: the field's training runs TensorCP and the dense route
+// through their own kernels (cp_features.cu, field_features.cu); this one
+// serves the samplers under grad (fused_eval "off").
+template <typename V>
+__device__ __forceinline__ void red_add(V* p, V x);
+
+template <>
+__device__ __forceinline__ void red_add<float>(float* p, float x) {
+  atomicAdd(p, x);
+}
+
+template <>
+__device__ __forceinline__ void red_add<float4>(float4* p, float4 x) {
+  atomicAdd(p, x);
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kGatherThreads)
+    gather_rows_bwd_kernel(const V* __restrict__ g, const int* __restrict__ idx,
+                           V* __restrict__ grad, int R, int64_t N, int cv, int log_tpr) {
+  const int tpr = 1 << log_tpr;
+  const int lane = threadIdx.x & (tpr - 1);
+  const int64_t first = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> log_tpr;
+  const int64_t groups = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> log_tpr;
+  for (int64_t n = first; n < N; n += groups) {
+    const int r = wrap_row(__ldg(idx + n), R);
+    if (r == R) continue;
+    for (int c = lane; c < cv; c += tpr)
+      red_add<V>(grad + static_cast<int64_t>(r) * cv + c, __ldg(g + n * cv + c));
+  }
+}
+
+template <typename V>
+cudaError_t launch_bwd(const void* g, const int* idx, void* grad, int R, int64_t N, int cv,
+                       int max_blocks, cudaStream_t stream) {
+  int log_tpr = 0;
+  while ((1 << log_tpr) < cv && log_tpr < 5) ++log_tpr;
+  const int64_t rows_per_block = kGatherThreads >> log_tpr;
+  const int64_t want = (N + rows_per_block - 1) / rows_per_block;
+  const int blocks = static_cast<int>(want < max_blocks ? want : max_blocks);
+  gather_rows_bwd_kernel<V><<<blocks, kGatherThreads, 0, stream>>>(
+      static_cast<const V*>(g), idx, static_cast<V*>(grad), R, N, cv, log_tpr);
+  return cudaGetLastError();
+}
+
 }  // namespace iff
+
+// The backward of iff_gather_rows: g [N, C] float32 (the upstream of out),
+// idx [N] int32, grad [R, C] float32 zeroed by the caller, all contiguous
+// on the device; grad[idx[n]] += g[n] for each n whose index is in range
+// after jnp.take's wrap. vec != 0 takes float4 words (C % 4 == 0, g and
+// grad 16-byte aligned); sms is the card's SM count. Returns a
+// cudaError_t; N == 0 launches nothing.
+extern "C" int iff_gather_rows_bwd(const void* g, const void* idx, void* grad, int R,
+                                   long long N, int C, int vec, int sms, void* stream) {
+  if (R <= 0 || C <= 0 || N < 0 || sms <= 0 || (vec && C % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return 0;
+  const int max_blocks = sms * iff::kDirectBlocksPerSm;
+  auto* ix = static_cast<const int*>(idx);
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = vec ? iff::launch_bwd<float4>(g, ix, grad, R, N, C / 4, max_blocks, s)
+                              : iff::launch_bwd<float>(g, ix, grad, R, N, C, max_blocks, s);
+  return static_cast<int>(err);
+}
 
 // table [R, C] float32, idx [N] int32, out [N, C] float32, all contiguous on
 // the device. vec != 0 takes float4 words (C % 4 == 0, 16-byte aligned);

@@ -23,3 +23,9 @@ dataset_dict = {
     "co3d_metashape": load_co3d_metashape,
     "own_data": load_your_own,
 }
+
+
+def register_dataset(name: str, loader) -> None:
+    """Adds ``loader`` to the registry under ``name`` (the JAX package's
+    ``register_dataset``)."""
+    dataset_dict[name] = loader

@@ -13,9 +13,11 @@ y=xyz[m1]) and line ``i`` by xyz[vec].
 Features are evaluated densely, by ``compute_features``: where
 ``use_fused_eval`` says so through ``compute_features_fused``, which runs a
 TensorVMSplit field's texel fetches and lerps in one kernel
-(``ops/field_features.py``), else through ``compute_densityfeature`` and
-``compute_appfeature`` and the grid samplers, whose texel fetches run on
-the row-gather kernel (``ops/gather.py``). The footprint packing, the
+(``ops/field_features.py``); where ``use_cp_kernel`` says so, a TensorCP
+field's in the CP kernel (``ops/cp_features.py``); else through
+``compute_densityfeature`` and ``compute_appfeature`` and the grid
+samplers, whose texel fetches run on the row-gather kernel
+(``ops/gather.py``). The footprint packing, the
 compaction ladder and the grouped bit-row mask gate of the JAX package work
 around the TPU's gather row rate and are not ported; their ``FieldConfig``
 fields are kept so that ``config_json`` round-trips.
@@ -37,6 +39,11 @@ import torch.nn.functional as F
 
 from iffnerf_tpu_torch.models.shading import init_shading
 from iffnerf_tpu_torch.nn import linear_apply, linear_init
+from iffnerf_tpu_torch.ops.cp_features import (
+    cp_app_products,
+    cp_density,
+    cp_features,
+)
 from iffnerf_tpu_torch.ops.field_features import (
     MAT_MODE,
     VEC_MODE,
@@ -44,7 +51,7 @@ from iffnerf_tpu_torch.ops.field_features import (
     vm_app_products,
     vm_density,
 )
-from iffnerf_tpu_torch.ops.grid_sample import grid_sample_1d, grid_sample_3d
+from iffnerf_tpu_torch.ops.grid_sample import grid_sample_3d
 from iffnerf_tpu_torch.ops.interpolate import resize_bilinear_ac, resize_linear_ac
 
 # lattice points a chunk of get_dense_alpha (bounds its device temporaries)
@@ -77,7 +84,8 @@ class FieldConfig:
     contraction_type: str = "aabb"
     step_size_bg: float = 0.1
     # "auto": the fused feature kernel for TensorVMSplit on CUDA tensors,
-    # the grid samplers elsewhere; "on"/"off" force either (use_fused_eval)
+    # the grid samplers elsewhere; "on"/"off" force either (use_fused_eval).
+    # TensorCP takes its own kernel on CUDA unless "off" (use_cp_kernel)
     fused_eval: str = "auto"
     # TPU evaluation settings of the JAX package, read by nothing here
     compact_ratio: float = 0.25
@@ -208,6 +216,16 @@ def use_fused_eval(config: FieldConfig, device) -> bool:
     return config.fused_eval == "on"
 
 
+def use_cp_kernel(config: FieldConfig, device) -> bool:
+    """Whether a TensorCP field's features at points on ``device`` go
+    through the CP kernel (``ops/cp_features.py``): on CUDA, unless
+    ``fused_eval`` is "off" (then the grid samplers on the row gather, as
+    the JAX package computes them); never for TensorVMSplit, whose kernel
+    ``use_fused_eval`` decides."""
+    return (config.model_name == "TensorCP" and config.fused_eval != "off"
+            and torch.device(device).type == "cuda")
+
+
 def compute_densityfeature(config: FieldConfig, params,
                            xyz: torch.Tensor) -> torch.Tensor:
     """sigma feature at normalized coords xyz [..., 3] -> [...]
@@ -215,12 +233,9 @@ def compute_densityfeature(config: FieldConfig, params,
     if config.model_name == "TensorVMSplit":
         return vm_density(params, xyz)
     # CP: elementwise product of the three line features, summed over rank
-    prod = None
-    for i in range(3):
-        line_feat = grid_sample_1d(params["density_line"][i],
-                                   xyz[..., VEC_MODE[i]])
-        prod = line_feat if prod is None else prod * line_feat
-    return torch.sum(prod, dim=-1)
+    if use_cp_kernel(config, xyz.device):
+        return cp_features(config, params, xyz, with_app=False)[0]
+    return cp_density(params, xyz)
 
 
 def compute_appfeature(config: FieldConfig, params,
@@ -229,12 +244,10 @@ def compute_appfeature(config: FieldConfig, params,
     (reference tensoRF.py:237-256 VM / :361-375 CP)."""
     if config.model_name == "TensorVMSplit":
         feat = vm_app_products(params, xyz)
+    elif use_cp_kernel(config, xyz.device):
+        feat = cp_features(config, params, xyz)[1]
     else:
-        feat = None
-        for i in range(3):
-            line_feat = grid_sample_1d(params["app_line"][i],
-                                       xyz[..., VEC_MODE[i]])
-            feat = line_feat if feat is None else feat * line_feat
+        feat = cp_app_products(params, xyz)
     return linear_apply(params["basis_mat"], feat)
 
 
@@ -256,11 +269,17 @@ def compute_features(config: FieldConfig, params, xyz: torch.Tensor,
                      with_density: bool = True, with_app: bool = True):
     """(sigma feature [...] or None, appearance feature [..., app_dim] or
     None) at normalized coords xyz [..., 3]: from ``compute_features_fused``
-    where ``use_fused_eval`` says so, else from ``compute_densityfeature``
-    and ``compute_appfeature``."""
+    where ``use_fused_eval`` says so, from one CP kernel pass where
+    ``use_cp_kernel`` does, else from ``compute_densityfeature`` and
+    ``compute_appfeature``."""
     if use_fused_eval(config, xyz.device):
         sigma, app = compute_features_fused(config, params, xyz, with_app)
         return sigma if with_density else None, app
+    if use_cp_kernel(config, xyz.device):
+        sigma, products = cp_features(config, params, xyz, with_app)
+        return (sigma if with_density else None,
+                None if products is None
+                else linear_apply(params["basis_mat"], products))
     return (compute_densityfeature(config, params, xyz) if with_density
             else None,
             compute_appfeature(config, params, xyz) if with_app else None)

@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("banked_attention", "fused_ray_attention", "gather_rows",
-           "field_features")
+           "field_features", "cp_features")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -118,13 +118,13 @@ def check(rc: int, what: str) -> None:
 
 def refuse_grad(what: str, tensors) -> None:
     """Raises before a launch when autograd would track one of ``tensors``:
-    the scoring kernels and the row gather have no backward (the row
-    gather's is ROADMAP item 21; ``field_features`` has one), and a result
-    that silently carries no gradient is worse than an error. Run under
+    the scoring kernels have no backward (the JAX package never
+    differentiates its Pallas scoring kernels), and a result that silently
+    carries no gradient is worse than an error. Run under
     ``torch.no_grad()``, or on the CPU, where the plain versions are
     differentiable."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{what} has no backward on CUDA yet (ROADMAP item 21): an "
-            f"input requires grad; call it under torch.no_grad()")
+            f"{what} has no backward on CUDA: an input requires grad; call "
+            f"it under torch.no_grad()")

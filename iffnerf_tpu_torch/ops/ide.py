@@ -25,6 +25,37 @@ def _ml_array(deg_view: int) -> np.ndarray:
     return np.array(ml, dtype=np.int32).T
 
 
+def _generalized_binomial_coeff(a: float, k: int) -> float:
+    return float(np.prod(a - np.arange(k))) / math.factorial(k)
+
+
+def _assoc_legendre_coeff(l: int, m: int, k: int) -> float:
+    return ((-1) ** m * 2 ** l * math.factorial(l) / math.factorial(k)
+            / math.factorial(l - k - m)
+            * _generalized_binomial_coeff(0.5 * (l + k + m - 1.0), l))
+
+
+def _sph_harm_coeff(l: int, m: int, k: int) -> float:
+    return (math.sqrt((2.0 * l + 1.0) * math.factorial(l - m)
+                      / (4.0 * math.pi * math.factorial(l + m)))
+            * _assoc_legendre_coeff(l, m, k))
+
+
+@lru_cache(maxsize=None)
+def integrated_dir_enc_coeffs(deg_view: int):
+    """The reference's static tables (ref_utils.py:23-60): (ml_array [2, M]
+    int32, mat [l_max + 1, M] float32), mat[k, i] the coefficient of z^k in
+    harmonic i's monomial expansion, computed in float64. The encoding
+    itself takes the recurrence above and does not read ``mat``."""
+    ml_array = _ml_array(deg_view)
+    l_max = 2 ** (deg_view - 1)
+    mat = np.zeros((l_max + 1, ml_array.shape[1]), dtype=np.float64)
+    for i, (m, l) in enumerate(ml_array.T):
+        for k in range(l - m + 1):
+            mat[k, i] = _sph_harm_coeff(int(l), int(m), k)
+    return ml_array, mat.astype(np.float32)
+
+
 def ide_output_dim(deg_view: int) -> int:
     return sum((2 ** i) + 1 for i in range(deg_view)) * 2
 

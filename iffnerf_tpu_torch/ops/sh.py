@@ -77,3 +77,10 @@ def eval_sh_bases(deg: int, dirs: torch.Tensor) -> torch.Tensor:
                         C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy)),
                     ]
     return torch.stack(comps, dim=-1)
+
+
+def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Linear combination of SH bases. sh [..., C, (deg+1)^2], dirs [..., 3]
+    -> [..., C]."""
+    bases = eval_sh_bases(deg, dirs)  # [..., B]
+    return torch.sum(sh * bases[..., None, :], dim=-1)

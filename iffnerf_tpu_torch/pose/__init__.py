@@ -4,7 +4,10 @@ bank."""
 
 from iffnerf_tpu_torch.pose.geometry import (
     compute_angular_error,
+    compute_line_intersection,
     compute_line_intersection_impl2,
+    compute_line_intersection_impl3,
+    compute_line_intersection_impl4,
     compute_translation_error,
     exclude_negatives,
     make_rotation_mat,

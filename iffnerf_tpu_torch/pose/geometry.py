@@ -35,6 +35,41 @@ def solve3(m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inv3(m) @ b
 
 
+def _cross_product_system(points, directions, weights=None):
+    """The A, b of the cross-product solvers (reference
+    pose_geometry.py:4-21,148-166): each consecutive ray pair gives the row
+    cross(d_i, d_i+1) with the right-hand side p_i+1 . row. Rows of a
+    parallel pair (|cross| < 1e-7) are zeroed, as the JAX package zeroes
+    them: zero rows leave the least-squares normal equations unchanged."""
+    cross = _cross(directions[:-1], directions[1:])
+    a_mat = cross
+    b = (points[1:] * cross).sum(dim=-1)
+    if weights is not None:
+        a_mat = a_mat * weights[1:, None]
+        b = b * weights[1:]
+    keep = ~torch.all(torch.abs(cross) < 1e-7, dim=-1)
+    return a_mat * keep[:, None], b * keep
+
+
+def _lstsq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The minimum-norm least-squares solution of a x = b, through the
+    pseudo-inverse with the cut-off of ``jnp.linalg.lstsq`` (singular
+    values below eps x max(m, n) of the largest dropped); on any device,
+    where ``torch.linalg.lstsq``'s CUDA driver takes full rank only."""
+    return torch.linalg.pinv(a) @ b
+
+
+def compute_line_intersection(points: torch.Tensor, directions: torch.Tensor,
+                              weights: torch.Tensor | None = None):
+    """Cross-product LSQ intersection (reference pose_geometry.py:4-39):
+    A = cross(d_i, d_i+1), b = p_i+1 . A_i, lstsq(A, b). A NaN solution
+    becomes ones, as in the reference."""
+    a_mat, b = _cross_product_system(points, directions, weights)
+    solution = _lstsq(a_mat, b)
+    return torch.where(torch.isnan(solution).any(), torch.ones_like(solution),
+                       solution)
+
+
 def compute_line_intersection_impl2(points: torch.Tensor,
                                     directions: torch.Tensor,
                                     weights: torch.Tensor | None = None):
@@ -50,6 +85,57 @@ def compute_line_intersection_impl2(points: torch.Tensor,
     solution = solve3(r_mat, q)[:, 0]
     singular = det3(r_mat) < 1e-7
     return torch.where(singular, torch.nan, solution)
+
+
+def compute_line_intersection_impl3(points: torch.Tensor,
+                                    directions: torch.Tensor,
+                                    weights: torch.Tensor | None = None):
+    """impl2's normal equations with the weights on both the projector sum
+    and the right-hand side, solved by least squares: a singular projector
+    sum gives the minimum-norm solution, not NaN (reference
+    pose_geometry.py:98-126)."""
+    eye = torch.eye(3, dtype=points.dtype, device=points.device)
+    projs = eye - directions[:, :, None] * directions[:, None, :]
+    b = projs @ points[:, :, None]
+    if weights is not None:
+        projs = projs * weights[:, None, None]
+        b = b * weights[:, None, None]
+    return _lstsq(projs.sum(dim=0), b.sum(dim=0))[:, 0]
+
+
+def _irls(y: torch.Tensor, x_mat: torch.Tensor, maxiter: int,
+          w_init: float = 1.0, d: float = 1e-4,
+          tolerance: float = 1e-3) -> torch.Tensor:
+    """Iteratively reweighted least squares with the L1 (1 / residual)
+    weight update (reference pose_geometry.py:129-145). The reference's
+    early exit (the JAX package's while-loop condition) is a flag: all
+    ``maxiter`` rounds run, and a round after the one whose change fell
+    below ``tolerance`` keeps the solution as it was, so that the loop
+    never waits on the host."""
+    def weighted_solve(w):
+        xtw = x_mat.T * w[None, :]
+        return _lstsq(xtw @ x_mat, xtw @ y)
+
+    beta = weighted_solve(torch.full((y.shape[0],), w_init,
+                                     dtype=x_mat.dtype, device=x_mat.device))
+    done = torch.zeros((), dtype=torch.bool, device=x_mat.device)
+    for _ in range(maxiter):
+        resid = torch.abs(y - x_mat @ beta)
+        new_beta = weighted_solve(1.0 / torch.clamp(resid, min=d))
+        tol = torch.abs(new_beta - beta).sum()
+        beta = torch.where(done, beta, new_beta)
+        done = done | (tol < tolerance)
+    return beta
+
+
+def compute_line_intersection_impl4(points: torch.Tensor,
+                                    directions: torch.Tensor,
+                                    weights: torch.Tensor | None = None):
+    """Robust (IRLS) variant of the cross-product solver (reference
+    pose_geometry.py:148-171): outlier rays weighted down by 1 / |residual|
+    over up to 100 rounds."""
+    a_mat, b = _cross_product_system(points, directions, weights)
+    return _irls(b, a_mat, maxiter=100)
 
 
 def make_rotation_mat(direction: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

@@ -117,3 +117,43 @@ def vit_forward_features(params, img: torch.Tensor,
 
     x = _layer_norm(params["norm"], x)
     return x[1:]
+
+
+def convert_torch_dinov2(state_dict, config: ViTConfig = ViTConfig()):
+    """Maps a torch-hub DINOv2 ``state_dict`` (facebookresearch/dinov2
+    naming) into this module's parameter dict, as the JAX package's
+    ``convert_torch_dinov2`` maps it into its pytree: linear weights
+    transposed to [in, out], the patch convolution [D, 3, p, p] to [p, p,
+    3, D], the tokens' batch axis dropped; float32 CPU tensors.
+    ``tools/convert_dinov2.py`` writes the result with
+    ``checkpoint.save_pytree``."""
+    sd = {k: torch.as_tensor(v).detach().to("cpu", torch.float32)
+          for k, v in state_dict.items()}
+
+    def lin(prefix):
+        return {"w": sd[f"{prefix}.weight"].T.contiguous(),
+                "b": sd[f"{prefix}.bias"]}
+
+    def norm(prefix):
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+    params = {
+        "patch_embed": {
+            "w": sd["patch_embed.proj.weight"].permute(2, 3, 1, 0).contiguous(),
+            "b": sd["patch_embed.proj.bias"],
+        },
+        "cls_token": sd["cls_token"][0],
+        "pos_embed": sd["pos_embed"][0],
+        "norm": norm("norm"),
+    }
+    params["blocks"] = tuple(
+        {"norm1": norm(f"blocks.{i}.norm1"),
+         "qkv": lin(f"blocks.{i}.attn.qkv"),
+         "proj": lin(f"blocks.{i}.attn.proj"),
+         "ls1": sd[f"blocks.{i}.ls1.gamma"],
+         "norm2": norm(f"blocks.{i}.norm2"),
+         "fc1": lin(f"blocks.{i}.mlp.fc1"),
+         "fc2": lin(f"blocks.{i}.mlp.fc2"),
+         "ls2": sd[f"blocks.{i}.ls2.gamma"]}
+        for i in range(config.depth))
+    return params

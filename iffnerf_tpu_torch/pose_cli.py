@@ -68,7 +68,8 @@ def add_pose_args(parser):
                              "sequence ids")
     parser.add_argument("--backbone_ckpt", type=str, default=None,
                         help="npz of converted DINOv2 ViT-S/14 weights "
-                             "(tools/convert_dinov2.py); random init if unset")
+                             "(python -m iffnerf_tpu_torch.tools."
+                             "convert_dinov2); random init if unset")
     parser.add_argument("--id_iters", type=int, default=1500)
     parser.add_argument("--id_backbone_depth", type=int, default=12)
     parser.add_argument("--gen_points", type=int, default=20000)

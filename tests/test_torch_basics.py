@@ -190,6 +190,8 @@ def test_port_imports_no_jax():
         import iffnerf_tpu_torch.data.tankstemple
         import iffnerf_tpu_torch.data.your_own
         import iffnerf_tpu_torch.device
+        import iffnerf_tpu_torch.geometry
+        import iffnerf_tpu_torch.geometry.rays
         import iffnerf_tpu_torch.inerf
         import iffnerf_tpu_torch.inerf.estimate
         import iffnerf_tpu_torch.models
@@ -200,6 +202,7 @@ def test_port_imports_no_jax():
         import iffnerf_tpu_torch.ops
         import iffnerf_tpu_torch.ops._build
         import iffnerf_tpu_torch.ops.banked_attention
+        import iffnerf_tpu_torch.ops.cp_features
         import iffnerf_tpu_torch.ops.encoding
         import iffnerf_tpu_torch.ops.field_features
         import iffnerf_tpu_torch.ops.fused_ray_attention
@@ -222,6 +225,7 @@ def test_port_imports_no_jax():
         import iffnerf_tpu_torch.pose.trainer
         import iffnerf_tpu_torch.pose.vit
         import iffnerf_tpu_torch.pose_cli
+        import iffnerf_tpu_torch.tools.convert_dinov2
         import iffnerf_tpu_torch.train
         import iffnerf_tpu_torch.train.trainer
         import chip_smoke

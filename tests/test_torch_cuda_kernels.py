@@ -13,11 +13,19 @@ for the shapes the kernel refuses. The fused ray scorer's float32 route
 covers one ray to the main path's 540 000 within rtol 1e-5 and a largest
 relative error of 5e-6, bit-equal repeats, an all-invalid mask and a
 width it refuses; its bf16 route bit-equal repeats, all-invalid masks,
-layer widths 128 and 512, a width it refuses and an x it cannot copy. The scoring kernels and the row
-gather raise under grad (they have no backward) and run under
-``torch.no_grad()``; ``field_features`` under grad launches its forward and
-its backward kernel, and its gradient is held to autograd's through the
-grid samplers. The row gather covers both its routes,
+layer widths 128 and 512, a width it refuses and an x it cannot copy. The scoring kernels raise under grad
+(they have no backward) and run under ``torch.no_grad()``; the row gather
+and ``field_features`` under grad launch their forward and their backward
+kernel, and their gradients are held to ``index_add_``'s and to autograd's
+through the grid samplers. The TensorCP kernels (``ops/cp_features.py``:
+forward, line gradient, coordinate gradient) are held to their plain
+versions at 0 to 1021 samples and at a lego CP step's 7.1 M (the plain
+version chunked), at ranks 1, 5, 47, 96 and 288, on uneven lines and on
+samples beyond [-1, 1] (products bit-equal, gradients within CP_GRAD_TOL
+and COORDS_GRAD_TOL), and refuse what they do not take before any launch;
+K3's backward is held to ``index_add_`` at the mask lookup's and the
+lines' shapes, and the samplers' route of a VM and a CP field under grad
+(``fused_eval="off"``) runs on it. The row gather covers both its routes,
 the field's row widths, ragged and empty index counts, the edge indices, a table whose
 rows are not 16-byte aligned and the mask lookup's stacked corners; the
 fused field kernel covers lego's widths and non-cubic grids with unequal
@@ -52,7 +60,11 @@ import numpy as np
 import pytest
 import torch
 
-from iffnerf_tpu_torch.models.field import FieldConfig
+from iffnerf_tpu_torch.models.field import (
+    FieldConfig,
+    compute_features,
+    init_field,
+)
 from iffnerf_tpu_torch.ops import grid_sample as grid_sample_module
 from iffnerf_tpu_torch.ops.banked_attention import (
     banked_scores_fused,
@@ -73,8 +85,15 @@ from iffnerf_tpu_torch.ops.field_features import (
     field_features_coords_grad_plain,
     field_features_plain,
 )
-from iffnerf_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from iffnerf_tpu_torch.ops import cp_features as cpf
+from iffnerf_tpu_torch.ops.gather import (
+    gather_rows,
+    gather_rows_backward,
+    gather_rows_backward_plain,
+    gather_rows_plain,
+)
 from iffnerf_tpu_torch.ops.grid_sample import (
+    corners_1d,
     corners_3d,
     grid_sample_1d,
     grid_sample_2d,
@@ -204,6 +223,7 @@ def _grad_cases(dev):
     field["app_line"][1].requires_grad_()
     xyz = (torch.rand((1021, 3), generator=g) * 2 - 1).to(dev)
     _grad_cases.field = (config, field, xyz)
+    _grad_cases.gather = (table, idx)
     return {"banked_scores_fused": lambda: banked_scores_fused(bank, q, _valid(dev)),
             "fused_ray_scores": lambda: fused_ray_scores(params, q, _valid(dev), x),
             "gather_rows": lambda: gather_rows(table, idx),
@@ -213,12 +233,12 @@ def _grad_cases(dev):
 @pytest.mark.parametrize("name", ["banked_scores_fused", "fused_ray_scores",
                                   "gather_rows", "field_features"])
 def test_kernel_wrappers_refuse_grad_and_run_without_it(dev, name):
-    """K1, K2 and K3 have no backward: under grad with an input that
-    requires it, each wrapper raises before any launch; under
-    torch.no_grad() it runs. field_features has one: under grad it
-    launches its forward once and, on backward, its backward kernel once,
-    and the table's gradient is autograd's through the grid samplers on
-    plain gathers within FIELD_GRAD_TOL of its largest."""
+    """K1 and K2 have no backward: under grad with an input that requires
+    it, each wrapper raises before any launch; under torch.no_grad() it
+    runs. K3 and field_features have one: under grad each launches its
+    forward once and, on backward, its backward kernel once, and the
+    table's gradient is index_add_'s (K3) or autograd's through the grid
+    samplers on plain gathers within FIELD_GRAD_TOL of its largest."""
     call = _grad_cases(dev)[name]
     counter = {"banked_scores_fused": banked_scores_fused,
                "fused_ray_scores": fused_ray_scores, "gather_rows": gather_rows,
@@ -242,7 +262,20 @@ def test_kernel_wrappers_refuse_grad_and_run_without_it(dev, name):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=FIELD_GRAD_TOL * float(want.abs().max()))
         return
-    with pytest.raises(RuntimeError, match="ROADMAP item 21"):
+    if name == "gather_rows":
+        back = gather_rows_backward.launches
+        out = call()
+        up = torch.linspace(-1, 1, out.numel(), device=dev).view_as(out)
+        (out * up).sum().backward()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert gather_rows_backward.launches == back + 1
+        table, idx = _grad_cases.gather
+        want = gather_rows_backward_plain(up, idx, table.shape[0])
+        torch.testing.assert_close(table.grad, want, rtol=0,
+                                   atol=CP_GRAD_TOL * float(want.abs().max()))
+        return
+    with pytest.raises(RuntimeError, match="no backward on CUDA"):
         call()
     assert counter.launches == before
     with torch.no_grad():
@@ -1056,3 +1089,261 @@ def test_field_forward_density_only_on_a_dense_lattice(dev, vm_field, chunk):
     del lattice, flat
     _assert_forward_matches_plain(config, params, xyz.contiguous(), False)
 
+
+# ---------------------------------------------------------------------------
+# TensorCP kernels and K3's backward
+# ---------------------------------------------------------------------------
+
+# the CP line gradient of each line's largest |grad|: float32 sums of up to
+# N / L terms a texel, merged in registers and shared memory and added by
+# atomics in another order than autograd's index_add (chip_smoke.py)
+CP_GRAD_TOL = 1e-4
+CP_FIELDS = {"r1": ((23, 19, 17), 1, 1), "r5": ((64, 60, 57), 5, 5),
+             "r47": ((130, 140, 150), 47, 5), "lego": ((500, 480, 520), 96, 288)}
+CP_CFG = FieldConfig(model_name="TensorCP")
+
+
+def _cp_lines(name, dev, seed=0):
+    (a, b, c), rd, ra = CP_FIELDS[name]
+    g = torch.Generator().manual_seed(seed)
+    return {k: tuple((0.5 * torch.randn((length, r), generator=g)).to(dev)
+                     for length in (c, b, a))
+            for k, r in (("density_line", rd), ("app_line", ra))}
+
+
+def _cp_samples(n, dev, seed=0, spread=1.2):
+    """Ray-ordered samples half a hundredth apart (consecutive samples in
+    one cell, as a step's), starting within ``spread`` of the centre."""
+    g = torch.Generator().manual_seed(seed)
+    per = 100
+    o = (torch.rand((max(-(-n // per), 1), 1, 3), generator=g) * 2 - 1) * spread
+    d = torch.nn.functional.normalize(torch.randn(o.shape, generator=g), dim=-1)
+    t = torch.arange(per, dtype=torch.float32)[None, :, None] * 0.005
+    return (o + d * t).reshape(-1, 3)[:n].contiguous().to(dev)
+
+
+def _cp_upstream(params, n, dev, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    live = torch.rand(n, generator=g) > 0.3
+    dsigma = torch.randn(n, generator=g) * live
+    dapp = torch.randn((n, params["app_line"][0].shape[1]), generator=g) * live[:, None]
+    return dsigma.to(dev), dapp.to(dev)
+
+
+def _cp_chunked(fn, xyz, *ups, chunk=1 << 20, total=False):
+    outs = [fn(xyz[i:i + chunk], *(u[i:i + chunk] for u in ups))
+            for i in range(0, max(xyz.shape[0], 1), chunk)]
+    if total:
+        return {k: tuple(sum(o[k][j] for o in outs) for j in range(3))
+                for k in outs[0]}
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*outs))
+    return torch.cat(outs)
+
+
+def _assert_cp_kernels_match_plain(params, xyz, dsigma, dapp):
+    sigma, app = cpf.cp_features(CP_CFG, params, xyz)
+    torch.cuda.synchronize()
+    want_s, want_a = _cp_chunked(lambda x: cpf.cp_features_plain(
+        params, x, True, gather_rows_plain), xyz)
+    assert torch.equal(app, want_a)
+    torch.testing.assert_close(sigma, want_s, rtol=1e-5, atol=1e-6 * float(
+        want_s.abs().max()) if want_s.numel() else 0.0)
+    only, none = cpf.cp_features(CP_CFG, params, xyz, with_app=False)
+    assert none is None
+    torch.testing.assert_close(only, want_s, rtol=1e-5, atol=1e-6 * float(
+        want_s.abs().max()) if want_s.numel() else 0.0)
+    got = cpf.cp_features_backward(CP_CFG, params, xyz, dsigma, dapp)
+    want = _cp_chunked(lambda *a: cpf.cp_features_backward_plain(params, *a),
+                       xyz, dsigma, dapp, total=True)
+    for k in want:
+        for a, b in zip(got[k], want[k]):
+            torch.testing.assert_close(a, b, rtol=0, atol=CP_GRAD_TOL * max(
+                float(b.abs().max()), 1e-30))
+    got = cpf.cp_features_coords_grad(CP_CFG, params, xyz, dsigma, dapp)
+    want = _cp_chunked(lambda *a: cpf.cp_features_coords_grad_plain(
+        params, *a), xyz, dsigma, dapp)
+    torch.testing.assert_close(got, want, rtol=0, atol=COORDS_GRAD_TOL * max(
+        float(want.abs().max()) if want.numel() else 0.0, 1e-30))
+    got = cpf.cp_features_coords_grad(CP_CFG, params, xyz, dsigma)
+    want = _cp_chunked(lambda *a: cpf.cp_features_coords_grad_plain(
+        params, *a), xyz, dsigma)
+    torch.testing.assert_close(got, want, rtol=0, atol=COORDS_GRAD_TOL * max(
+        float(want.abs().max()) if want.numel() else 0.0, 1e-30))
+
+
+@pytest.mark.parametrize("name", sorted(CP_FIELDS))
+@pytest.mark.parametrize("n", [0, 1, 63, 1021])
+@pytest.mark.parametrize("spread", [0.9, 1.3])
+def test_cp_kernels_match_plain(dev, name, n, spread):
+    params = _cp_lines(name, dev)
+    xyz = _cp_samples(n, dev, spread=spread)
+    _assert_cp_kernels_match_plain(params, xyz, *_cp_upstream(params, n, dev))
+
+
+def test_cp_kernels_match_plain_at_a_lego_cp_step(dev):
+    """TensoRF's CP ranks 96 / 288 on uneven lines at a 4 096-ray step's
+    7.1 M samples (1 731 a ray), the plain version in chunks."""
+    params = _cp_lines("lego", dev, seed=3)
+    n = 4096 * 1731
+    xyz = _cp_samples(n, dev, seed=3)
+    _assert_cp_kernels_match_plain(params, xyz, *_cp_upstream(params, n, dev))
+
+
+def test_cp_kernels_scalar_words_and_unaligned_coords(dev):
+    """Ranks not a multiple of 4 take 4-byte words; coordinates off the
+    16-byte grid take them too."""
+    params = _cp_lines("r47", dev)
+    buf = _cp_samples(1022 * 3, dev).reshape(-1)[:3067]
+    xyz = buf[1:].view(1022, 3)
+    _assert_cp_kernels_match_plain(params, xyz, *_cp_upstream(params, 1022, dev))
+
+
+def test_cp_autograd_launches_the_kernels(dev):
+    """Under grad: one forward, and on backward one line-gradient launch and,
+    with xyz requiring grad, one coordinate launch; the gradients are the
+    plain versions'."""
+    params = _cp_lines("r5", dev)
+    leaves = {k: tuple(a.clone().requires_grad_() for a in v)
+              for k, v in params.items()}
+    xyz = _cp_samples(1021, dev).requires_grad_()
+    before = (cpf.cp_features.launches, cpf.cp_features_backward.launches,
+              cpf.cp_features_coords_grad.launches)
+    sigma, app = cpf.cp_features(CP_CFG, leaves, xyz)
+    (sigma.sum() + app.square().sum()).backward()
+    torch.cuda.synchronize()
+    assert (cpf.cp_features.launches, cpf.cp_features_backward.launches,
+            cpf.cp_features_coords_grad.launches) == tuple(
+                b + 1 for b in before)
+    with torch.no_grad():
+        _, want_app = cpf.cp_features_plain(params, xyz, True,
+                                            gather_rows_plain)
+    ds = torch.ones(1021, device=dev)
+    want = cpf.cp_features_backward_plain(params, xyz, ds, 2 * want_app)
+    for k in want:
+        for leaf, w in zip(leaves[k], want[k]):
+            torch.testing.assert_close(leaf.grad, w, rtol=0, atol=CP_GRAD_TOL
+                                       * float(w.abs().max()))
+    w = cpf.cp_features_coords_grad_plain(params, xyz, ds, 2 * want_app)
+    torch.testing.assert_close(xyz.grad, w, rtol=0,
+                               atol=COORDS_GRAD_TOL * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("take", ["float64_xyz", "strided_line", "vm_field",
+                                  "long_lines_under_grad", "ranks_differ",
+                                  "upstream_shape"])
+def test_cp_wrappers_refuse_before_any_launch(dev, take):
+    params = _cp_lines("r5", dev)
+    xyz = _cp_samples(63, dev)
+    dsigma, dapp = _cp_upstream(params, 63, dev)
+    cfg = CP_CFG
+    call = "forward"
+    if take == "float64_xyz":
+        xyz = xyz.double()
+    elif take == "strided_line":
+        params["app_line"] = (params["app_line"][0][::2], *params["app_line"][1:])
+    elif take == "vm_field":
+        cfg = FieldConfig()
+    elif take == "long_lines_under_grad":
+        params = {k: tuple(torch.zeros((12000, 4), device=dev,
+                                       requires_grad=True) for _ in range(3))
+                  for k in params}
+        call = "grad"
+    elif take == "ranks_differ":
+        params["density_line"] = (params["density_line"][0][:, :3].contiguous(),
+                                  *params["density_line"][1:])
+    else:
+        dapp = dapp[:, :3]
+        call = "upstream"
+    counts = (cpf.cp_features.launches, cpf.cp_features_backward.launches,
+              cpf.cp_features_coords_grad.launches)
+    with pytest.raises(ValueError):
+        if call == "upstream":
+            cpf.cp_features_backward(cfg, params, xyz, dsigma, dapp)
+        else:
+            cpf.cp_features(cfg, params, xyz)
+    if call == "upstream":
+        with pytest.raises(ValueError):
+            cpf.cp_features_coords_grad(cfg, params, xyz, dsigma, dapp)
+    elif take != "long_lines_under_grad":
+        with pytest.raises(ValueError):
+            cpf.cp_features_backward(cfg, params, xyz, dsigma, dapp)
+        with pytest.raises(ValueError):
+            cpf.cp_features_coords_grad(cfg, params, xyz, dsigma, dapp)
+    assert (cpf.cp_features.launches, cpf.cp_features_backward.launches,
+            cpf.cp_features_coords_grad.launches) == counts
+
+
+@pytest.mark.parametrize("shape", ["mask", "density_line", "app_line",
+                                   "wrapped", "unaligned"])
+def test_gather_backward_kernel_matches_index_add(dev, shape):
+    """K3's backward against index_add_ (gather_rows_backward_plain): the
+    mask lookup's stacked corners into a [300^3, 1] volume, a CP step's
+    line corners into [500, 96] and [500, 288] lines, wrapped and
+    out-of-range indices (the latter add nothing), rows off the 16-byte
+    grid (4-byte words)."""
+    g = torch.Generator().manual_seed(5)
+    if shape == "mask":
+        rows, c = 300 ** 3, 1
+        coords = (torch.rand((204660, 3), generator=g) * 2.1 - 1.05).to(dev)
+        idx = corners_3d(300, 300, 300, coords)[0].reshape(-1)
+    else:
+        rows, c = 500, {"density_line": 96, "app_line": 288,
+                        "wrapped": 16, "unaligned": 16}[shape]
+        xyz = _cp_samples(204660, dev)
+        idx = corners_1d(rows, xyz[:, 2])[0].reshape(-1).contiguous()
+        if shape == "wrapped":
+            idx = torch.randint(-rows - 9, rows + 9, idx.shape, generator=g,
+                                dtype=torch.int32).to(dev)
+    up = torch.randn((idx.shape[0] * c + 1,), generator=g).to(dev)
+    # rows off the 16-byte grid: the kernel takes 4-byte words
+    up = (up[1:] if shape == "unaligned" else up[:-1]).view(idx.shape[0], c)
+    before = gather_rows_backward.launches
+    got = gather_rows_backward(up, idx, rows)
+    torch.cuda.synchronize()
+    assert gather_rows_backward.launches == before + 1
+    want = gather_rows_backward_plain(up, idx, rows)
+    torch.testing.assert_close(got, want, rtol=0, atol=CP_GRAD_TOL * float(
+        want.abs().max()))
+
+
+def test_gather_backward_refuses_before_any_launch(dev):
+    up = torch.zeros((5, 3), device=dev)
+    before = gather_rows_backward.launches
+    for args in ((up.double(), torch.zeros(5, dtype=torch.int32, device=dev), 4),
+                 (up, torch.zeros(5, dtype=torch.int64, device=dev), 4),
+                 (up, torch.zeros(5, dtype=torch.int32), 4),
+                 (up.t(), torch.zeros(3, dtype=torch.int32, device=dev), 4)):
+        with pytest.raises(ValueError):
+            gather_rows_backward(*args)
+    assert gather_rows_backward.launches == before
+
+
+@pytest.mark.parametrize("model", ["TensorVMSplit", "TensorCP"])
+def test_samplers_route_under_grad_runs_on_the_gather_backward(dev, model):
+    """fused_eval "off": the grid samplers on K3 under grad, its backward
+    launched on backward; the gradients are the CPU route's."""
+    cfg = FieldConfig(model_name=model, grid_size=(40, 36, 32),
+                      density_n_comp=(4, 4, 4), app_n_comp=(8, 8, 8),
+                      app_dim=12, fused_eval="off")
+    params = init_field(torch.Generator().manual_seed(0), cfg)
+    xyz = (torch.rand((2000, 3), generator=torch.Generator().manual_seed(1))
+           * 2.4 - 1.2)
+    grads = {}
+    for where in ("cpu", "cuda"):
+        leaves = {k: tuple(a.detach().to(where).clone().requires_grad_()
+                           for a in v)
+                  for k, v in params.items() if k.endswith(("_line", "_plane"))}
+        p = dict(params, **leaves, basis_mat={
+            "w": params["basis_mat"]["w"].to(where)})
+        before = gather_rows_backward.launches
+        sigma, app = compute_features(cfg, p, xyz.to(where))
+        (sigma.square().sum() + app.sum()).backward()
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert gather_rows_backward.launches > before
+        grads[where] = {k: [a.grad.cpu() for a in v] for k, v in leaves.items()}
+    for k, want in grads["cpu"].items():
+        for a, b in zip(grads["cuda"][k], want):
+            torch.testing.assert_close(a, b, rtol=0, atol=CP_GRAD_TOL * float(
+                b.abs().max()))

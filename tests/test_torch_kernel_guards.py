@@ -1,6 +1,6 @@
 """What the kernel wrappers refuse, and where their callers send what they
 refuse, on the CPU: the guard that keeps a CUDA launch from running under
-autograd (the kernels have no backward yet), and the shape predicates of
+autograd (the scoring kernels have no backward), and the shape predicates of
 the two scoring kernels, which send a shape the kernel does not take to
 the exact torch path, as the JAX package falls back to XLA. The card's
 side of both is in tests/test_torch_cuda_kernels.py.
@@ -24,7 +24,7 @@ from torch_parity import blob_mask, replace
 def test_refuse_grad_raises_only_when_autograd_would_track():
     w = torch.ones(3, requires_grad=True)
     plain = torch.ones(3)
-    with pytest.raises(RuntimeError, match="ROADMAP item 21"):
+    with pytest.raises(RuntimeError, match="no backward on CUDA"):
         _build.refuse_grad("k", (plain, w))
     _build.refuse_grad("k", (plain, None))
     with torch.no_grad():
