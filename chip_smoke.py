@@ -3774,6 +3774,17 @@ def cp_library_features(lines, coords):
     return products("density_line").sum(0), products("app_line").T
 
 
+def cp_library_coords(lines, xyz, dsigma, dapp):
+    """The coordinate gradient from F.grid_sample's backward on the three
+    lines (``cp_library_lines``), in chunks of FT_PLAIN_CHUNK samples (a
+    timing yardstick; the port never calls it)."""
+    for i in range(0, xyz.shape[0], FT_PLAIN_CHUNK):
+        x = xyz[i:i + FT_PLAIN_CHUNK].detach().requires_grad_()
+        s, a = cp_library_features(lines, x)
+        torch.autograd.grad((s, a), x, (dsigma[i:i + FT_PLAIN_CHUNK],
+                                        dapp[i:i + FT_PLAIN_CHUNK]))
+
+
 def cp_rows(params, xyz, live=None):
     """Rows of each line that the samples (those ``live``) touch: the
     unique in-range corner rows of each axis -> [3] counts."""
@@ -3876,12 +3887,7 @@ def cp_kernel_holds(config, params, xyz, dsigma, dapp, label):
                                  dapp[i:i + FT_PLAIN_CHUNK]))
 
     def lib_coords():
-        for i in range(0, n, FT_PLAIN_CHUNK):
-            x = xyz[i:i + FT_PLAIN_CHUNK].detach().requires_grad_()
-            s, a = cp_library_features(lines, x)
-            torch.autograd.grad((s, a), x,
-                                (dsigma[i:i + FT_PLAIN_CHUNK],
-                                 dapp[i:i + FT_PLAIN_CHUNK]))
+        cp_library_coords(lines, xyz, dsigma, dapp)
 
     calls = {
         "forward": (lambda: cp_features(config, params, xyz),
@@ -4205,7 +4211,15 @@ def phase_tensor_cp(dev):
           f"the CP coordinate kernel at an iNeRF iteration: {it_coords}")
     it_coords["ms"] = time_ms(lambda: cp_features_coords_grad(
         config, ip, ixyz, ids, ida), reps=FT_REPS, graph=True)
-    del ip, ixyz, ids, ida, got, want
+    it_coords["bound_ms"], it_coords["bound_by"] = cp_bounds(
+        ip, ixyz, ids, ida)["coords_grad"]
+    it_coords["plain_ms"] = time_ms(lambda: cp_chunked(
+        lambda *a: cp_features_coords_grad_plain(ip, *a), ixyz, ids, ida),
+        reps=3)
+    ilines = cp_library_lines(ip)
+    it_coords["library_ms"] = time_ms(
+        lambda: cp_library_coords(ilines, ixyz, ids, ida), reps=3)
+    del ip, ixyz, ids, ida, got, want, ilines
 
     emit(phase="tensor_cp", flags=list(CP_FLAGS), iters=FT_ITERS,
          events_at=FT_EVENTS, batch=FT_BATCH, pool_s=run.pool_s,
@@ -4282,12 +4296,16 @@ def phase_tensor_cp(dev):
               " multiplied in registers, the products stored whole lines a"
               " warp; sigma's lane sums meet by shuffles"),
         entry("cp_features_backward", "backward", "tensor_cp_train",
-              "a block owns a slice of up to 32 ranks and a chunk of samples"
-              " and keeps that slice of all three lines' sums in shared"
-              " memory; a group of lanes (a rank each) walks its part of"
-              " the chunk in order, merges a row's terms in registers until"
-              " the row changes, skips zero upstream, and the block adds its"
-              " sums into the gradient lines with float REDs once"),
+              "one block an SM owns a slice of up to 32 ranks and keeps that"
+              " slice of all three lines' sums in shared memory; each of its"
+              " 16 warps takes units of 1024 samples from the slice's queue,"
+              " its lane 0 bulk-copying each 8-sample stage's dapp box (TMA),"
+              " xyz and dsigma into the warp's 2-stage mbarrier ring; one vote"
+              " a sample (dead stages left at once), corners computed once"
+              " into the stage's box as rows by parity and weights, the line"
+              " words of a stage loaded at once, a slot's terms merged in"
+              " registers until its row changes; one float RED a row, rank"
+              " and block"),
         entry("cp_features_coords_grad", "coords_grad", "tensor_cp_inerf",
               "the forward's mapping: a group of lanes a sample, each word's"
               " derivative sums in registers, met by shuffles; no atomics"),

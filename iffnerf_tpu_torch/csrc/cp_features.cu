@@ -45,28 +45,68 @@
 //
 // Line gradient (cp_features_bwd_kernel, iff_cp_features_bwd): for each
 // sample, axis i and rank c, the upstream u (dsigma for a density rank,
-// dapp[c] for an appearance rank) times the other two axes' lerps, times
-// (1 - w) into row r0 and times w into row r1 of line i, where the corner
-// is in range. Each line row is hit about N / L times a step (14 000 at
-// 7.1 M samples and L = 500), so atomics into device memory alone would
-// serialise on a few hundred addresses. Design: a block owns a slice of cw
-// columns (ranks; density and appearance ranks side by side) and a chunk of
-// samples, and keeps its slice's accumulators of all three lines in shared
-// memory ([L_0 + L_1 + L_2][cw] floats, at most 112 KB so that two blocks
-// fit an SM). A group of cw lanes (a lane a column) walks a contiguous part
-// of the chunk in order, keeps each axis's two corner rows' values and
-// running sums in registers, and adds a sum to shared memory only when its
-// row changes (a straight ray changes row about once every two samples at
-// half a texel a step, an axis-aligned ray's other two axes never). A lane
-// whose upstream is zero (samples outside the mask or below the weight
-// threshold) skips the sample. At the end the block adds its non-zero
-// accumulators into the gradient lines with float REDs: a row and column
-// takes one RED a chunk. Bound on an H100 SXM: bytes, nearly all of them
-// the upstream read (dapp, 1 152 B a sample at 288 ranks). This first
-// design takes about 10 times that bound at a lego CP step (PERF.md): the
-// shared-memory adds and the per-lane walk, not the bytes, hold it. The
-// additions land in another order on every run: the gradient is not
-// bit-stable.
+// dapp[c] for an appearance rank) times the other two axes' lerps (in
+// autograd's order through ((l0 * l1) * l2)), times (1 - w) into row r0 and
+// times w into row r1 of line i, where the corner is in range. Bound on an
+// H100 SXM: bytes, nearly all of them the upstream read (dapp, 1 152 B a
+// sample at 288 ranks: 8.2 GB at a lego CP step's 7.09 M samples, 2.47 ms
+// at 3.35 TB/s), most of it zeros (62 % of a step's samples carry none),
+// each word read to know. Each line row takes about N / L = 14 000 terms a
+// step, so atomics into device memory alone would serialise on a few
+// hundred addresses. The first design (a lane a column walking a long
+// stretch of samples one after another: the upstream word, then the
+// coordinates, then the line words when the row changed) kept about one
+// load in flight a lane, recomputed every corner in every lane (384 times
+// a sample) and walked the dead samples lane by lane: 9.7 times the bound.
+// The design here:
+// - A block owns a slice of cw columns (ranks; density and appearance ranks
+//   side by side) and keeps the slice's sums of all three lines in shared
+//   memory ([L_0 + L_1 + L_2][cw] floats). One block an SM, kWarps warps;
+//   cw is 32 where the sums and the rings fit the SM's 227 KB (1 499 rows:
+//   192 KB of sums, 37 KB of rings), else 16, 8, ... (the host's plan).
+//   Each warp walks on its own: it takes units of kUnit consecutive samples
+//   from its slice's queue (an atomic counter a slice, so that units go to
+//   whichever warp is free and no warp that meets the live rays holds the
+//   launch) and walks a unit stage by stage, kRun samples a stage and group
+//   (a group is cw lanes, a lane a column; with cw = 16 a warp's two groups
+//   each walk their own half of the unit).
+// - Streaming the upstream, not chasing it: lane 0 of each warp produces
+//   its warp's ring of 2 to 4 stages in shared memory, each an mbarrier: the
+//   stage's [kRun x cw] box of dapp through a 2-D TMA tensor map under L2's
+//   evict-first policy (or its dsigma), and its xyz rows, bulk-copied; a
+//   stage is refilled as soon as the warp has read it. The walk reads the
+//   upstream and the coordinates from shared memory only. The stage a call
+//   ends in, and every stage when a pointer is not 16-byte aligned, a rank
+//   is not a multiple of 4 or a slice holds both kinds, is read from device
+//   memory instead (the producer arrives with no bytes).
+// - One vote a sample: a ballot on the stage's upstream words. A stage with
+//   no live sample is left at once, without corners or a walk; a live
+//   sample's zero word still adds nothing.
+// - Corners once a block: once a stage's words are in registers, the
+//   warp's lanes compute each live sample's three corners once (corner(),
+//   the forward's arithmetic) into the stage's box, as the walk takes them:
+//   the two corner rows in two slots by the parity of the lower corner's
+//   index (slot e the even corner, slot o the odd one) and their weights
+//   (1 - w or w, 0 where flagged out). The walking lanes read them as
+//   broadcasts.
+// - The walk: a lane first loads the line words of the rows its stage's
+//   live samples enter (a slot's word is kept while its row stays), then,
+//   sample by sample, lerps, multiplies and adds each term to a running sum
+//   a slot; only when a slot's row changes (with slots by parity a cell that
+//   moves by one row changes one slot) or its unit ends does it add the sum
+//   into shared memory, one add (a CAS loop on the card). At cw = 32 a warp
+//   is one group and a slice's line row is 128 bytes, so a warp's adds
+//   touch 32 banks and never conflict; at cw = 16 (longer lines) two groups
+//   share a warp and conflict two-way when their rows have the same parity.
+// - At the end the block adds its non-zero sums into the gradient lines
+//   with one float RED a row, column and block.
+// What holds it at a lego CP step (cut-out variants, tools/cp_time.py): the
+// stream with the vote and the corners takes about 2.3 times the bound, and
+// the walk adds as much again: each warp's stage is a chain of dependent
+// steps (the vote, the corners, the line words from L2, the walk's sums and
+// adds), and the sums and rings leave room for 16 warps an SM and two
+// stages each, too few to hide it. The additions land in another order on
+// every run: the gradient is not bit-stable.
 //
 // Coordinate gradient (cp_coords_grad_kernel, iff_cp_features_coords_grad),
 // for iNeRF on a CP field: for each sample and axis i, the sum over ranks
@@ -76,16 +116,19 @@
 // forward's mapping (a group of lanes a sample, its words in registers):
 // the group's partial sums meet by shuffles, no atomics. Bound: bytes, the
 // upstream read (dapp) and the coordinates.
+#include <climits>
 #include <cstdint>
+#include <cstring>
 
 #include <cuda_runtime.h>
+
+#include "tma_wgmma.cuh"
 
 namespace iff {
 namespace cp {
 
 constexpr int kThreads = 256;
 constexpr int kRun = 8;                  // consecutive samples a group walks (forward)
-constexpr int kMaxSmem = 112 * 1024;     // the backward's accumulators: two blocks an SM
 constexpr int kBlocksPerSm = 8;          // grid cap of the forward's grid-stride loop
 
 template <int VEC>
@@ -129,9 +172,11 @@ struct Lines {
   int rd, ra;
 };
 
-// One axis of one sample: clamped corner rows, their in-range flags as 1 or
-// 0, the upper corner's weight w and 1 - w (grid_sample_1d's arithmetic).
+// One axis of one sample: the lower corner's index, clamped corner rows,
+// their in-range flags as 1 or 0, the upper corner's weight w and 1 - w
+// (grid_sample_1d's arithmetic).
 struct Corner {
+  int i0;
   int r0, r1;
   float m0, m1;
   float w, omw;
@@ -142,6 +187,7 @@ __device__ __forceinline__ Corner corner(float g, int L) {
   const float p = __fmul_rn(__fmul_rn(__fadd_rn(g, 1.0f), 0.5f), static_cast<float>(L - 1));
   const int i0 = static_cast<int>(floorf(p));
   const int i1 = i0 + 1;
+  c.i0 = i0;
   c.w = __fsub_rn(p, static_cast<float>(i0));
   c.omw = __fsub_rn(1.0f, c.w);
   c.m0 = (i0 >= 0 && i0 <= L - 1) ? 1.0f : 0.0f;
@@ -291,83 +337,331 @@ struct Grads {
   float* app[3];
 };
 
-// Columns [col_lo, col_hi) of the concatenated ranks (density 0 .. rd - 1,
-// appearance rd .. rd + ra - 1); block (x, y) takes columns col_lo + x * cw
-// and samples [y * chunk, (y + 1) * chunk).
-__global__ void __launch_bounds__(kThreads)
-    cp_features_bwd_kernel(const float* __restrict__ xyz, Lines t, Grads gr,
-                           const float* __restrict__ dsigma, const float* __restrict__ dapp,
-                           int64_t N, int col_lo, int col_hi, int log_cw, int64_t chunk) {
-  extern __shared__ float acc[];
-  const int cw = 1 << log_cw;
-  const int rows = t.L[0] + t.L[1] + t.L[2];
-  const int total = rows * cw;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) acc[e] = 0.0f;
-  __syncthreads();
+namespace bwd {
 
-  const int lane = threadIdx.x & (cw - 1);
-  const int group = threadIdx.x >> log_cw;
-  const int groups = blockDim.x >> log_cw;
-  const int col = col_lo + blockIdx.x * cw + lane;
-  const int64_t n_lo = static_cast<int64_t>(blockIdx.y) * chunk;
-  const int64_t n_hi = n_lo + chunk < N ? n_lo + chunk : N;
-  const int64_t per = (n_hi - n_lo + groups - 1) / groups;
-  const int64_t s_lo = n_lo + group * per;
-  const int64_t s_hi = s_lo + per < n_hi ? s_lo + per : n_hi;
-  if (col < col_hi) {
-    const bool dens = col < t.rd;
-    const int stride = dens ? t.rd : t.ra;
-    const int c = dens ? col : col - t.rd;
-    const int off[3] = {0, t.L[0] * cw, (t.L[0] + t.L[1]) * cw};
-    int cur0[3] = {-1, -1, -1}, cur1[3] = {-1, -1, -1};
-    float v0[3] = {0.0f, 0.0f, 0.0f}, v1[3] = {0.0f, 0.0f, 0.0f};
-    float a0[3] = {0.0f, 0.0f, 0.0f}, a1[3] = {0.0f, 0.0f, 0.0f};
-    for (int64_t n = s_lo; n < s_hi; ++n) {
-      const float u = dens ? __ldg(dsigma + n) : __ldg(dapp + n * t.ra + c);
-      if (u == 0.0f) continue;
-      Corner k[3];
-      float l[3];
+constexpr int kWarps = 16;                // warps a block, each walking on its own
+constexpr int kThreads = 32 * kWarps;     // one block an SM
+constexpr int kRun = 8;                   // samples a group takes from each stage
+constexpr int kUnit = 1024;               // samples a warp takes from its slice's queue
+constexpr int kMaxGroups = 2;             // groups of cw lanes a warp (cw < 16 leaves lanes idle)
+constexpr int kBoxBytes = 32 * kRun * 4;  // a warp's upstream words of a stage
+constexpr int kRowBytes = kRun * 16;      // a group's xyz (12 B a sample), then its dsigma
+constexpr int kMinStages = 2, kMaxStages = 4;
+constexpr int kMaxSmem = 227 * 1024;
+constexpr uint32_t kNoRow = 0xffffu;
+static_assert(kRun % 4 == 0, "a stage's xyz and dsigma rows are whole 16-byte units");
+static_assert(kUnit % (kMaxGroups * kRun) == 0, "a group's part of a unit is whole stages");
+static_assert(kMaxGroups * kRun * 3 * 16 <= kBoxBytes,
+              "a stage's corner records fit its upstream box, read by then");
+
+// The host's split of the work.
+struct Plan {
+  int log_cw;  // columns a block: cw = 1 << log_cw
+  int groups;  // groups of cw lanes a warp
+  int stages;  // ring depth a warp
+  int col_lo, col_hi;
+  int rows;    // L_0 + L_1 + L_2
+  int tma;     // stages bulk-copied into the rings (else read from device memory)
+  int units;   // units of kUnit samples
+};
+
+// Shared memory of a block: each warp's ring (its stages' upstream boxes,
+// which take the stage's corner records once its words are read, then
+// their xyz and dsigma rows, then the barriers), then the sums. The host's
+// plan (ops/cp_features.py: backward_smem) counts the same.
+__host__ __device__ inline long long smem_bytes(int rows, int log_cw, int groups, int stages) {
+  return static_cast<long long>(kWarps) * stages * (kBoxBytes + groups * kRowBytes + 8) +
+         static_cast<long long>(rows) * (4 << log_cw);
+}
+
+// An L2 policy for data that streams through once (the upstream): evicted
+// first, so that the coordinates, which every slice reads, and the lines
+// stay longer
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+// box at (c0 innermost, c1) -> dst under an L2 policy; completes its bytes on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(hop::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(hop::smem_u32(bar)), "r"(c0), "r"(c1),
+      "l"(policy)
+      : "memory");
+}
+
+// A sample's corners on one axis as the walk takes them: x the rows by the
+// parity of the lower corner's index (low 16 bits slot e, the even corner;
+// high 16 bits slot o, the odd one), y and z their weights (1 - w and w, 0
+// where the corner is flagged out: the lerp's f * m * (1 - w) is f * 0
+// there, the same float)
+__device__ __forceinline__ uint4 slot_record(const Corner& c) {
+  const float w0 = c.m0 != 0.0f ? c.omw : 0.0f;
+  const float w1 = c.m1 != 0.0f ? c.w : 0.0f;
+  const bool even = (c.i0 & 1) == 0;
+  const uint32_t re = static_cast<uint32_t>(even ? c.r0 : c.r1);
+  const uint32_t ro = static_cast<uint32_t>(even ? c.r1 : c.r0);
+  return make_uint4(re | (ro << 16), __float_as_uint(even ? w0 : w1),
+                    __float_as_uint(even ? w1 : w0), 0u);
+}
+
+// A slot's running sum into the block's sums of its row (none: kNoRow)
+__device__ __forceinline__ void add_row(float* acc, int off, uint32_t row, int cw, float s) {
+  if (row != kNoRow && s != 0.0f) atomicAdd(acc + off + static_cast<int>(row) * cw, s);
+}
+
+// A lane's slot state for the three axes: the rows (as a record's x), the
+// running sums and the line words
+struct Slots {
+  uint32_t cur[3];
+  float se[3], so[3], ve[3], vo[3];
+};
+
+// The walk of a stage's live samples (bit k of live), with the line words
+// of the rows they enter in fresh and their records at rec: each term is
+// added to its slot's sum, which goes into shared memory when the slot's
+// row changes
+__device__ __forceinline__ void walk(Slots& st, const uint4* rec, unsigned live,
+                                     const float (&u)[kRun], const float (&fresh)[kRun][3][2],
+                                     float* acc, const int (&off)[3], int cw) {
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        k[i] = corner(__ldg(xyz + 3 * n + 2 - i), t.L[i]);
-        if (k[i].r0 != cur0[i] || k[i].r1 != cur1[i]) {
-          if (cur0[i] >= 0) {
-            atomicAdd(acc + off[i] + cur0[i] * cw + lane, a0[i]);
-            atomicAdd(acc + off[i] + cur1[i] * cw + lane, a1[i]);
-          }
-          a0[i] = a1[i] = 0.0f;
-          cur0[i] = k[i].r0;
-          cur1[i] = k[i].r1;
-          const float* line = dens ? t.density[i] : t.app[i];
-          v0[i] = __ldg(line + static_cast<int64_t>(cur0[i]) * stride + c);
-          v1[i] = __ldg(line + static_cast<int64_t>(cur1[i]) * stride + c);
-        }
-        l[i] = lerp(v0[i], v1[i], k[i]);
-      }
-      // autograd's order through ((l0 * l1) * l2)
-      const float u2 = u * l[2];
-      const float gi[3] = {u2 * l[1], u2 * l[0], u * (l[0] * l[1])};
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        a0[i] += gi[i] * k[i].omw * k[i].m0;
-        a1[i] += gi[i] * k[i].w * k[i].m1;
-      }
-    }
+  for (int k = 0; k < kRun; ++k) {
+    if (!((live >> k) & 1)) continue;
+    float l[3], we[3], wo[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      if (cur0[i] >= 0) {
-        atomicAdd(acc + off[i] + cur0[i] * cw + lane, a0[i]);
-        atomicAdd(acc + off[i] + cur1[i] * cw + lane, a1[i]);
+      const uint4 q = rec[3 * k + i];
+      const uint32_t d = q.x ^ st.cur[i];
+      if (d & 0xffffu) {
+        add_row(acc, off[i], st.cur[i] & 0xffffu, cw, st.se[i]);
+        st.se[i] = 0.0f;
+        st.ve[i] = fresh[k][i][0];
+      }
+      if (d >> 16) {
+        add_row(acc, off[i], st.cur[i] >> 16, cw, st.so[i]);
+        st.so[i] = 0.0f;
+        st.vo[i] = fresh[k][i][1];
+      }
+      st.cur[i] = q.x;
+      we[i] = __uint_as_float(q.y);
+      wo[i] = __uint_as_float(q.z);
+      l[i] = __fadd_rn(__fmul_rn(st.ve[i], we[i]), __fmul_rn(st.vo[i], wo[i]));
+    }
+    // autograd's order through ((l0 * l1) * l2)
+    const float u2 = u[k] * l[2];
+    const float gi[3] = {u2 * l[1], u2 * l[0], u[k] * (l[0] * l[1])};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      st.se[i] += gi[i] * we[i];
+      st.so[i] += gi[i] * wo[i];
+    }
+  }
+}
+
+// every slot's sum into shared memory, the slots emptied (a unit's end)
+__device__ __forceinline__ void flush(Slots& st, float* acc, const int (&off)[3], int cw) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    add_row(acc, off[i], st.cur[i] & 0xffffu, cw, st.se[i]);
+    add_row(acc, off[i], st.cur[i] >> 16, cw, st.so[i]);
+    st.cur[i] = kNoRow | kNoRow << 16;
+    st.se[i] = st.so[i] = 0.0f;
+  }
+}
+
+// Block (x, y) takes the columns col_lo + x * cw .. + cw - 1 and units of
+// its slice's queue (queue[x], zeroed by the host) until they run out.
+__global__ void __launch_bounds__(kThreads, 1)
+    cp_features_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ dsigma,
+                           const float* __restrict__ dapp, const __grid_constant__ CUtensorMap map,
+                           const __grid_constant__ Lines t, const __grid_constant__ Grads gr,
+                           const __grid_constant__ Plan p, int64_t N, int* __restrict__ queue) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int K = p.stages, G = p.groups, log_cw = p.log_cw, cw = 1 << log_cw;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned char* boxes = smem;                                       // [kWarps][K][kBoxBytes]
+  unsigned char* xd_rows = boxes + kWarps * K * kBoxBytes;           // [kWarps][K][G][kRowBytes]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xd_rows + kWarps * K * G * kRowBytes);
+  float* acc = reinterpret_cast<float*>(bars + kWarps * K);          // [rows][cw]
+  uint64_t* bar = bars + warp * K;
+  const int total = p.rows * cw;
+  for (int e = threadIdx.x; e < total; e += kThreads) acc[e] = 0.0f;
+  if (lane == 0) {
+    for (int s = 0; s < K; ++s) hop::mbar_init(bar + s, 1);
+    hop::fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int c0 = p.col_lo + static_cast<int>(blockIdx.x) * cw;
+  const bool slice_dens = c0 < t.rd;  // on the TMA route a slice holds one kind
+  const int grp = lane >> log_cw, glane = lane & (cw - 1);
+  const int gq = grp < G ? grp : 0;   // an idle lane's addresses stay in range
+  const int col = c0 + glane;
+  const bool on = grp < G && col < p.col_hi;
+  const bool dens = col < t.rd;
+  const int stride = dens ? t.rd : t.ra;
+  const int c = dens ? col : col - t.rd;
+  const float* lines[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) lines[i] = (dens ? t.density[i] : t.app[i]) + c;
+  const int off[3] = {glane, t.L[0] * cw + glane, (t.L[0] + t.L[1]) * cw + glane};
+  const unsigned cols = cw == 32 ? 0xffffffffu : (1u << cw) - 1;
+  const int part = kUnit / G, per_unit = part / kRun;
+  const uint32_t stage_tx = G * (kRun * 12 + (slice_dens ? kRun * 4 : kRun * cw * 4));
+  const uint64_t policy = evict_first();
+
+  auto grab = [&]() {  // the next unit of the slice's queue, or -1
+    int u = 0;
+    if (lane == 0) u = atomicAdd(queue + blockIdx.x, 1);
+    u = __shfl_sync(0xffffffffu, u, 0);
+    return u < p.units ? u : -1;
+  };
+  // the bulk copies of stage st of unit into slot s, by lane 0 (none when
+  // the stage is read from device memory)
+  auto issue = [&](int s, int unit, int st) {
+    if (lane != 0) return;
+    const int64_t base = static_cast<int64_t>(unit) * kUnit + st * kRun;
+    const bool staged = p.tma && base + static_cast<int64_t>(G - 1) * part + kRun <= N;
+    hop::mbar_arrive_expect_tx(bar + s, staged ? stage_tx : 0u);
+    if (!staged) return;
+    for (int g = 0; g < G; ++g) {
+      const int64_t n0 = base + static_cast<int64_t>(g) * part;
+      unsigned char* xd = xd_rows + ((warp * K + s) * G + g) * kRowBytes;
+      hop::bulk_load(xd, xyz + 3 * n0, kRun * 12, bar + s);
+      if (slice_dens)
+        hop::bulk_load(xd + kRun * 12, dsigma + n0, kRun * 4, bar + s);
+      else
+        tma_load_2d(boxes + (warp * K + s) * kBoxBytes + g * kRun * cw * 4, &map, bar + s,
+                    c0 - t.rd, static_cast<int>(n0), policy);
+    }
+  };
+
+  int cu = grab();  // the unit the walk is in
+  if (cu >= 0) {
+    int iu = cu, nu = -1, ist = 0, issued = 0;  // the unit and stage issued next
+    bool more = true;
+    auto advance = [&]() {
+      if (++ist == per_unit) {
+        ist = 0;
+        iu = nu = grab();
+        more = iu >= 0;
+      }
+    };
+    for (int s = 0; s < K && more; ++s, ++issued) {
+      issue(s, iu, ist);
+      advance();
+    }
+    Slots sl;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      sl.cur[i] = kNoRow | kNoRow << 16;
+      sl.se[i] = sl.so[i] = sl.ve[i] = sl.vo[i] = 0.0f;
+    }
+    int consumed = 0, cst = 0, s = 0;
+    uint32_t phase = 0;
+    while (consumed < issued) {
+      hop::mbar_wait(bar + s, phase);
+      const int64_t base = static_cast<int64_t>(cu) * kUnit + cst * kRun;
+      const bool staged = p.tma && base + static_cast<int64_t>(G - 1) * part + kRun <= N;
+      const int64_t n0 = base + static_cast<int64_t>(gq) * part;
+      const int64_t left = N - n0;
+      const int count = !on || left <= 0 ? 0 : left < kRun ? static_cast<int>(left) : kRun;
+      unsigned char* box = boxes + (warp * K + s) * kBoxBytes;
+      const unsigned char* xd = xd_rows + ((warp * K + s) * G + gq) * kRowBytes;
+      const float* su;
+      int ustride;
+      if (dens) {
+        su = staged ? reinterpret_cast<const float*>(xd + kRun * 12) : dsigma + n0;
+        ustride = 1;
+      } else {
+        su = staged ? reinterpret_cast<const float*>(box + gq * kRun * cw * 4) + glane
+                    : dapp + n0 * t.ra + c;
+        ustride = staged ? cw : t.ra;
+      }
+      // the vote: bit g * kRun + k of liveg (the same in every lane) when
+      // sample k of group g has a non-zero word
+      float u[kRun];
+      unsigned liveg = 0;
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        u[k] = k < count ? su[k * ustride] : 0.0f;
+        const unsigned vote = __ballot_sync(0xffffffffu, u[k] != 0.0f);
+#pragma unroll
+        for (int g = 0; g < kMaxGroups; ++g)
+          if (g < G && (vote >> (g * cw) & cols) != 0) liveg |= 1u << (g * kRun + k);
+      }
+      if (liveg != 0) {
+        // the words are in registers: the box takes the corners of the live
+        // samples, a lane a (group, sample, axis)
+        __syncwarp();
+        uint4* rec = reinterpret_cast<uint4*>(box);  // [G][kRun][3]
+        for (int r = lane; r < G * kRun * 3; r += 32) {
+          const int gk = r / 3, i = r - 3 * gk;
+          if (!((liveg >> gk) & 1)) continue;
+          const int g = gk / kRun, k = gk - g * kRun;
+          const float* gx = staged ? reinterpret_cast<const float*>(
+                                         xd_rows + ((warp * K + s) * G + g) * kRowBytes)
+                                   : xyz + 3 * (base + static_cast<int64_t>(g) * part);
+          rec[gk * 3 + i] = slot_record(corner(gx[3 * k + 2 - i], t.L[i]));
+        }
+        __syncwarp();
+        const unsigned live = on ? (liveg >> (gq * kRun)) & ((1u << kRun) - 1) : 0u;
+        if (live) {
+          const uint4* grec = rec + gq * kRun * 3;
+          // the line words of the rows the live samples' slots enter (rows
+          // other than the previous live sample's), loaded for the whole
+          // stage at once; a slot's word is kept while its row stays
+          float fresh[kRun][3][2];
+          uint32_t prev[3] = {sl.cur[0], sl.cur[1], sl.cur[2]};
+#pragma unroll
+          for (int k = 0; k < kRun; ++k) {
+            if (!((live >> k) & 1)) continue;
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+              const uint32_t rows = grec[3 * k + i].x;
+              const uint32_t d = rows ^ prev[i];
+              if (d & 0xffffu)
+                fresh[k][i][0] = __ldg(lines[i] + static_cast<int64_t>(rows & 0xffffu) * stride);
+              if (d >> 16)
+                fresh[k][i][1] = __ldg(lines[i] + static_cast<int64_t>(rows >> 16) * stride);
+              prev[i] = rows;
+            }
+          }
+          walk(sl, grec, live, u, fresh, acc, off, cw);
+        }
+        // the box was written through the generic proxy: order that before
+        // the bulk copy that refills it
+        hop::fence_proxy_async();
+      }
+      __syncwarp();  // the slot read: refill it
+      ++consumed;
+      if (++cst == per_unit) {  // the unit's end: its sums into the block's
+        cst = 0;
+        if (on) flush(sl, acc, off, cw);
+        cu = nu;
+      }
+      if (more) {
+        issue(s, iu, ist);
+        ++issued;
+        advance();
+      }
+      if (++s == K) {
+        s = 0;
+        phase ^= 1;
       }
     }
   }
   __syncthreads();
 
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+  for (int e = threadIdx.x; e < total; e += kThreads) {
     const float v = acc[e];
     if (v == 0.0f) continue;
-    const int cg = col_lo + blockIdx.x * cw + (e & (cw - 1));
-    if (cg >= col_hi) continue;
+    const int cg = c0 + (e & (cw - 1));
+    if (cg >= p.col_hi) continue;
     int r = e >> log_cw, i = 0;
     if (r >= t.L[0]) {
       r -= t.L[0];
@@ -377,13 +671,29 @@ __global__ void __launch_bounds__(kThreads)
         i = 2;
       }
     }
-    const bool dens = cg < t.rd;
-    float* grad = dens ? gr.density[i] : gr.app[i];
+    const bool dn = cg < t.rd;
+    float* grad = dn ? gr.density[i] : gr.app[i];
     if (grad == nullptr) continue;
-    const int stride = dens ? t.rd : t.ra;
-    atomicAdd(grad + static_cast<int64_t>(r) * stride + (dens ? cg : cg - t.rd), v);
+    atomicAdd(grad + static_cast<int64_t>(r) * (dn ? t.rd : t.ra) + (dn ? cg : cg - t.rd), v);
   }
 }
+
+// dapp [N, Ra] float32 read in boxes of kRun rows x cw columns, no
+// swizzle; rows past N and columns past Ra read as zeros
+bool upstream_map(CUtensorMap* map, const void* dapp, long long n, int ra, int cw) {
+  const hop::EncodeTiled encode = hop::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(ra), static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ra) * 4};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(cw), static_cast<cuuint32_t>(kRun)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(dapp), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace bwd
 
 bool make_lines(const long long* ptrs, const int* dims, Lines& t) {
   for (int i = 0; i < 3; ++i) {
@@ -444,44 +754,66 @@ extern "C" int iff_cp_features(const void* xyz, long long N, const long long* pt
 }
 
 // The gradient of sum(sigma * dsigma) + sum(app * dapp) with respect to the
-// lines. xyz, ptrs and dims as iff_cp_features takes them; gptrs: the
-// gradient lines in the same order (float32 [L_i, R], zeroed by the
-// caller; 0 for a line not wanted); dsigma [N] and dapp [N, Ra] float32
-// (either null when its kind is not wanted). Columns: the density ranks
-// when want_density, the appearance ranks when want_app. log_cw: log2 of
-// the columns a block owns (its shared memory (L_0 + L_1 + L_2) << log_cw
-// floats, at most 112 KB); chunks: sample chunks (grid y). Returns a
-// cudaError_t; N == 0 launches nothing.
+// lines. xyz, ptrs and dims as iff_cp_features takes them (each L_i below
+// 65 535); gptrs: the gradient lines in the same order (float32 [L_i, R],
+// zeroed by the caller; 0 for a line not wanted); dsigma [N] and dapp
+// [N, Ra] float32 (either null when its kind is not wanted). Columns: the
+// density ranks when want_density, the appearance ranks when want_app.
+// log_cw: log2 of the columns a block owns; stages: each warp's ring depth
+// (2 to 4; the block's shared memory, bwd::smem_bytes, at most 227 KB);
+// chunks: blocks a column slice (grid y); queue: an int32 a slice, zeroed.
+// Returns a cudaError_t; N == 0 launches nothing.
 extern "C" int iff_cp_features_bwd(const void* xyz, long long N, const long long* ptrs,
                                    const long long* gptrs, const int* dims,
                                    const void* dsigma, const void* dapp, int want_density,
-                                   int want_app, int log_cw, int chunks, void* stream) {
+                                   int want_app, int log_cw, int stages, int chunks, void* queue,
+                                   void* stream) {
   namespace c = iff::cp;
+  namespace b = iff::cp::bwd;
   c::Lines t;
-  if (N < 0 || !c::make_lines(ptrs, dims, t) || log_cw < 0 || log_cw > 5 || chunks <= 0 ||
-      chunks > 65535 || (want_density && !dsigma) || (want_app && (!dapp || t.ra == 0)))
+  if (N < 0 || !c::make_lines(ptrs, dims, t) || log_cw < 0 || log_cw > 5 ||
+      stages < b::kMinStages || stages > b::kMaxStages || chunks <= 0 || chunks > 65535 ||
+      queue == nullptr || (want_density && !dsigma) || (want_app && (!dapp || t.ra == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < 3; ++i)
+    if (t.L[i] >= static_cast<int>(b::kNoRow)) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0 || (!want_density && !want_app)) return 0;
   c::Grads gr;
   for (int i = 0; i < 3; ++i) {
     gr.density[i] = want_density ? reinterpret_cast<float*>(gptrs[i]) : nullptr;
     gr.app[i] = want_app ? reinterpret_cast<float*>(gptrs[3 + i]) : nullptr;
   }
-  const int col_lo = want_density ? 0 : t.rd;
-  const int col_hi = want_app ? t.rd + t.ra : t.rd;
+  b::Plan p;
   const int cw = 1 << log_cw;
-  const long long smem = static_cast<long long>(t.L[0] + t.L[1] + t.L[2]) * cw * 4;
-  if (smem > c::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const int slices = (col_hi - col_lo + cw - 1) / cw;
-  const int64_t chunk = (N + chunks - 1) / chunks;
+  p.log_cw = log_cw;
+  p.groups = (32 >> log_cw) < b::kMaxGroups ? (32 >> log_cw) : b::kMaxGroups;
+  p.stages = stages;
+  p.col_lo = want_density ? 0 : t.rd;
+  p.col_hi = want_app ? t.rd + t.ra : t.rd;
+  p.rows = t.L[0] + t.L[1] + t.L[2];
+  const long long units = (N + b::kUnit - 1) / b::kUnit;
+  const long long smem = b::smem_bytes(p.rows, log_cw, p.groups, stages);
+  if (units > INT_MAX || smem > b::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  p.units = static_cast<int>(units);
+  // the bulk copies take 16-byte aligned rows, whole 16-byte box rows, and
+  // slices of one kind
+  const auto aligned = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; };
+  CUtensorMap map;
+  std::memset(&map, 0, sizeof(map));
+  bool tma = cw >= 8 && N <= INT_MAX && aligned(xyz) && (!want_density || aligned(dsigma)) &&
+             !(want_density && want_app && t.rd % cw != 0);
+  if (tma && want_app)
+    tma = aligned(dapp) && t.ra % 4 == 0 && t.ra >= cw && b::upstream_map(&map, dapp, N, t.ra, cw);
+  p.tma = tma;
+  const int slices = (p.col_hi - p.col_lo + cw - 1) / cw;
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(c::cp_features_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(b::cp_features_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-  const dim3 grid(slices, static_cast<unsigned>((N + chunk - 1) / chunk));
-  c::cp_features_bwd_kernel<<<grid, c::kThreads, static_cast<size_t>(smem),
+  const dim3 grid(slices, chunks);
+  b::cp_features_bwd_kernel<<<grid, b::kThreads, static_cast<size_t>(smem),
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xyz), t, gr, static_cast<const float*>(dsigma),
-      static_cast<const float*>(dapp), N, col_lo, col_hi, log_cw, chunk);
+      static_cast<const float*>(xyz), static_cast<const float*>(dsigma),
+      static_cast<const float*>(dapp), map, t, gr, p, N, static_cast<int*>(queue));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,7 +24,9 @@ On CUDA the function is differentiable in the lines and in the
 coordinates: an ``autograd.Function`` saves the coordinates and the lines
 it was given. For the lines its backward launches ``iff_cp_features_bwd``
 (the wrapper ``cp_features_backward``: a block's column slice of all three
-lines accumulated in shared memory, added into the gradient lines once);
+lines accumulated in shared memory, each of its warps walking the upstream
+that its lane 0 bulk-copies into the warp's ring; ``backward_plan`` and
+``backward_chunks`` split the work);
 for the coordinates (iNeRF's pose gradient) ``iff_cp_features_coords_grad``
 (the wrapper ``cp_features_coords_grad``). Each launches only when its
 inputs require grad. The plain versions, ``cp_features_backward_plain`` and
@@ -53,13 +55,19 @@ _SIGNATURES = {
                         ctypes.c_int, _P],
     "iff_cp_features_bwd": [_P, ctypes.c_longlong, _LL, _LL, _I, _P, _P,
                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_int, _P],
+                            ctypes.c_int, ctypes.c_int, _P, _P],
     "iff_cp_features_coords_grad": [_P, ctypes.c_longlong, _LL, _I, _P, _P, _P,
                                     ctypes.c_int, ctypes.c_int, _P],
 }
-BWD_MAX_SMEM = 112 * 1024  # the backward's accumulators (two blocks an SM)
-BWD_MIN_CHUNK = 2048       # samples a backward block takes at least
-BWD_BLOCKS_PER_SM = 4      # backward blocks a launch, for each SM
+# The backward's split, as csrc/cp_features.cu (namespace bwd) lays out
+# its shared memory: one block an SM of BWD_WARPS warps, each with a ring
+# of 2 to 4 stages of BWD_RUN samples a group of lanes (a group is
+# 1 << log_cw lanes, min(32 >> log_cw, BWD_MAX_GROUPS) a warp), taking
+# units of BWD_UNIT samples from its column slice's queue.
+BWD_MAX_SMEM = 227 * 1024   # a block's shared memory
+BWD_MAX_ROWS = 28 * 1024    # L_0 + L_1 + L_2 at most (one column's sums in 112 KB)
+BWD_WARPS, BWD_RUN, BWD_UNIT, BWD_MAX_GROUPS = 16, 8, 1024, 2
+BWD_STAGES = (4, 3, 2)      # ring depths tried, deepest first
 
 
 def cp_products(lines, xyz: torch.Tensor, gather=None) -> torch.Tensor:
@@ -194,31 +202,46 @@ def _ptrs(tensors):
     return [0 if a is None else a.data_ptr() for a in tensors]
 
 
-def backward_columns(dims, want_density: bool, want_app: bool) -> int:
-    """log2 of the columns (ranks) a backward block owns: the widest power
-    of two up to 32 whose accumulators for the three lines, (L_0 + L_1 +
-    L_2) x columns floats, fit BWD_MAX_SMEM, and no wider than the columns
-    asked for. Raises ValueError when not even one column fits."""
+def backward_smem(rows: int, log_cw: int, stages: int) -> int:
+    """Shared memory of a backward block: each warp's ring of ``stages``
+    stages (a 32 x BWD_RUN-word upstream box, which also takes the stage's
+    corner records, each group's xyz and dsigma rows, and a barrier), and
+    the sums of ``rows`` line rows x (1 << log_cw) columns."""
+    groups = min(32 >> log_cw, BWD_MAX_GROUPS)
+    stage = 32 * BWD_RUN * 4 + groups * BWD_RUN * 16 + 8
+    return BWD_WARPS * stages * stage + rows * (4 << log_cw)
+
+
+def backward_plan(dims, want_density: bool, want_app: bool):
+    """(log2 of the columns a backward block owns, its ring depth): the
+    widest power of two up to 32, and no wider than the columns asked for,
+    at which the sums and a ring of BWD_STAGES' depths fit BWD_MAX_SMEM,
+    the deepest that fits. Lines of more than BWD_MAX_ROWS rows in all
+    raise ValueError; any fewer fit one column at the deepest ring."""
     rows = sum(dims[:3])
     cols = (dims[3] if want_density else 0) + (dims[4] if want_app else 0)
-    if rows * 4 > BWD_MAX_SMEM:
+    if rows > BWD_MAX_ROWS:
         raise ValueError(
             f"the CP backward keeps a column of all three lines in shared "
-            f"memory: {rows} rows need {rows * 4} B, more than {BWD_MAX_SMEM}")
-    log_cw = 0
-    while (log_cw < 5 and (1 << log_cw) < cols
-           and rows * 4 << (log_cw + 1) <= BWD_MAX_SMEM):
-        log_cw += 1
-    return log_cw
+            f"memory: {rows} rows need {rows * 4} B, more than "
+            f"{BWD_MAX_ROWS * 4}")
+    widest = 0
+    while widest < 5 and (1 << widest) < cols:
+        widest += 1
+    for log_cw in range(widest, -1, -1):
+        for stages in BWD_STAGES:
+            if backward_smem(rows, log_cw, stages) <= BWD_MAX_SMEM:
+                return log_cw, stages
+    raise AssertionError(f"no backward plan for {rows} rows")
 
 
 def backward_chunks(n: int, slices: int, sms: int) -> int:
-    """Sample chunks (the grid's y) of the backward for ``n`` samples and
-    ``slices`` column slices on a card of ``sms`` SMs: BWD_BLOCKS_PER_SM
-    blocks an SM (two of them resident at BWD_MAX_SMEM, so a launch runs
-    in two waves), no chunk under BWD_MIN_CHUNK samples, at least one."""
-    want = -(-BWD_BLOCKS_PER_SM * sms // slices)
-    return max(1, min(want, -(-n // BWD_MIN_CHUNK), 65535))
+    """Blocks a column slice (the grid's y) of the backward for ``n``
+    samples and ``slices`` slices on a card of ``sms`` SMs: as many as fill
+    one wave of one block an SM, and no more than give each warp a unit of
+    BWD_UNIT samples; at least one."""
+    units = -(-n // BWD_UNIT)
+    return max(1, min(sms // slices, -(-units // BWD_WARPS), 65535))
 
 
 def _launch_forward(lines, dims, flat, with_app):
@@ -253,18 +276,19 @@ def _launch_backward(lines, dims, flat, dsigma, dapp, wanted):
             for j, a in enumerate(lines)]
     n = flat.shape[0]
     if n > 0 and (want_d or want_a):
-        log_cw = backward_columns(dims, want_d, want_a)
+        log_cw, stages = backward_plan(dims, want_d, want_a)
         lib = _build.load("cp_features", _SIGNATURES)
         cols = (dims[3] if want_d else 0) + (dims[4] if want_a else 0)
-        chunks = backward_chunks(n, -(-cols >> log_cw),
-                                 _build.sm_count(flat.device))
+        slices = -(-cols >> log_cw)
+        chunks = backward_chunks(n, slices, _build.sm_count(flat.device))
+        queue = torch.zeros(slices, dtype=torch.int32, device=flat.device)
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         rc = lib.iff_cp_features_bwd(
             flat.data_ptr(), n, (ctypes.c_longlong * 6)(*_ptrs(lines)),
             (ctypes.c_longlong * 6)(*_ptrs(full)), (ctypes.c_int * 5)(*dims),
             dsigma.data_ptr() if want_d else 0,
             dapp.data_ptr() if want_a else 0, int(want_d), int(want_a),
-            log_cw, chunks, stream)
+            log_cw, stages, chunks, queue.data_ptr(), stream)
         _build.check(rc, "cp_features backward kernel launch")
         cp_features_backward.launches += 1
     return [g if want else None for g, want in zip(full, wanted)]
@@ -334,7 +358,7 @@ def cp_features(config, params, xyz: torch.Tensor, with_app: bool = True):
                                        for a in lines):
         # the backward's refusal before the forward's launch, so that no
         # call under grad fails only at its backward
-        backward_columns(dims, True, with_app)
+        backward_plan(dims, True, with_app)
     shape = xyz.shape[:-1]
     flat = xyz.reshape(-1, 3).contiguous()
     out = _CPFeatures.apply(dims, with_app, flat, *lines)
@@ -375,7 +399,7 @@ def cp_features_backward(config, params, xyz: torch.Tensor,
     if xyz.device.type != "cuda":
         raise ValueError(f"no CP feature kernel for {xyz.device}")
     lines, dims = kernel_layout(params, with_app)
-    backward_columns(dims, True, with_app)
+    backward_plan(dims, True, with_app)
     flat, dsigma, dapp = _flat_upstream(xyz, dims, dsigma, dapp)
     grads = _launch_backward(lines, dims, flat, dsigma, dapp,
                              [a is not None for a in lines])

@@ -14,6 +14,8 @@ float32 operations); the gradients within 1e-5 of the largest (float32
 sums of up to a few hundred terms in another order).
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,7 @@ from iffnerf_tpu_torch.ops.gather import (
     gather_rows_backward,
     gather_rows_backward_plain,
 )
+from iffnerf_tpu_torch.tools import cp_time
 
 FIELDS = {"cubic": ((20, 20, 20), 3, 5), "uneven": ((16, 17, 18), 4, 12)}
 GRAD_TOL = 1e-5
@@ -215,33 +218,71 @@ def test_cp_features_refuses_before_any_launch(take):
     assert cpf.cp_features.launches == before
 
 
-@pytest.mark.parametrize("dims,want_d,want_a,log_cw", [
-    ((20, 20, 20, 3, 5), True, True, 3),          # 8 columns cover 8 ranks
-    ((500, 480, 520, 96, 288), True, True, 4),    # lego's CP: 16 columns
-    ((500, 480, 520, 96, 288), True, False, 4),
-    ((130, 140, 150, 1, 1), True, False, 0),
-    ((100, 100, 100, 47, 5), False, True, 3),
+@pytest.mark.parametrize("dims,want_d,want_a,log_cw,stages", [
+    ((20, 20, 20, 3, 5), True, True, 3, 4),          # 8 columns cover 8 ranks
+    ((412, 412, 412, 96, 288), True, True, 5, 4),    # 1 236 rows: 4 stages
+    ((413, 412, 412, 96, 288), True, True, 5, 3),    # 1 237: 3 stages
+    ((505, 505, 489, 96, 288), True, True, 5, 2),    # lego's CP step
+    ((500, 480, 520, 96, 288), True, True, 5, 2),
+    ((509, 509, 508, 96, 288), True, True, 5, 2),    # 1 526: the last at 32 columns
+    ((509, 509, 509, 96, 288), True, True, 4, 4),    # 1 527: 16 columns
+    ((500, 480, 520, 96, 288), True, False, 5, 2),
+    ((130, 140, 150, 1, 1), True, False, 0, 4),
+    ((100, 100, 100, 47, 5), False, True, 3, 4),
+    ((9000, 9000, 9000, 96, 288), True, True, 0, 4),
+    ((4000, 4000, 4000, 96, 288), True, True, 1, 4),
+    ((28672, 0, 0, 96, 288), True, True, 0, 4),      # the longest lines taken
 ])
-def test_cp_backward_columns(dims, want_d, want_a, log_cw):
-    """A block's column slice: the widest power of two up to 32 whose
-    accumulators of the three lines fit BWD_MAX_SMEM, no wider than the
-    columns asked for."""
-    got = cpf.backward_columns(dims, want_d, want_a)
-    assert got == log_cw
-    assert sum(dims[:3]) * 4 << got <= cpf.BWD_MAX_SMEM
+def test_cp_backward_columns(dims, want_d, want_a, log_cw, stages):
+    """A block's column slice and its warps' ring depth: the widest power
+    of two up to 32, no wider than the columns asked for, whose sums of the
+    three lines and rings fit BWD_MAX_SMEM, at the deepest ring that fits."""
+    got = cpf.backward_plan(dims, want_d, want_a)
+    assert got == (log_cw, stages)
+    assert cpf.backward_smem(sum(dims[:3]), *got) <= cpf.BWD_MAX_SMEM
 
 
 def test_cp_backward_refuses_lines_too_long_for_shared_memory():
     with pytest.raises(ValueError, match="shared"):
-        cpf.backward_columns((10000, 10000, 10000, 4, 4), True, True)
+        cpf.backward_plan((10000, 10000, 10000, 4, 4), True, True)
+
+
+def _parent_accepts(dims):
+    """The first design's rule: one column of the three lines' sums in
+    112 KB (two blocks an SM)."""
+    return sum(dims[:3]) * 4 <= 112 * 1024
+
+
+@pytest.mark.parametrize("ranks", [(1, 1), (5, 5), (47, 5), (96, 288),
+                                   (400, 400)])
+def test_cp_backward_plan_takes_what_the_first_design_took(ranks):
+    """Every line length the first design's plan took is still taken, for
+    each kind asked for, and the plan's sums and rings fit a block's 227
+    KB; one row more than the first design took is refused."""
+    rows = sorted({1, 3, 64, 500, 1236, 1237, 1499, 1526, 1527, 3000, 6000,
+                   12000, 20000, 28000, 28671, 28672})
+    for total in rows:
+        dims = (total - total // 2, total // 2, 0) + ranks
+        assert _parent_accepts(dims)
+        for want_d, want_a in ((True, True), (True, False), (False, True)):
+            log_cw, stages = cpf.backward_plan(dims, want_d, want_a)
+            cols = (ranks[0] if want_d else 0) + (ranks[1] if want_a else 0)
+            assert 0 <= log_cw <= 5 and (log_cw == 0 or 1 << (log_cw - 1) < cols)
+            assert stages in cpf.BWD_STAGES
+            assert cpf.backward_smem(total, log_cw, stages) <= cpf.BWD_MAX_SMEM
+    too_long = (28673, 0, 0) + ranks
+    assert not _parent_accepts(too_long)
+    with pytest.raises(ValueError):
+        cpf.backward_plan(too_long, True, True)
 
 
 @pytest.mark.parametrize("n,slices,sms,want", [
-    (7_090_176, 24, 132, 22), (1021, 1, 132, 1), (0, 3, 132, 1),
-    (100_000, 1, 132, 49), (10 ** 9, 1, 132, 528)])
+    (7_090_176, 12, 132, 11), (7_090_176, 24, 132, 5), (1021, 1, 132, 1),
+    (0, 3, 132, 1), (100_000, 1, 132, 7), (10 ** 9, 1, 132, 132),
+    (204_660, 12, 132, 11), (10 ** 9, 400, 132, 1)])
 def test_cp_backward_chunks(n, slices, sms, want):
-    """Four blocks an SM in all (two waves at lego's 96 KB of accumulators),
-    no chunk under 2 048 samples, at least one."""
+    """One wave of one block an SM (whole slices' worth), no more blocks
+    than give each warp a unit of samples, at least one."""
     assert cpf.backward_chunks(n, slices, sms) == want
 
 
@@ -285,3 +326,22 @@ def test_gather_rows_backward_refuses(take):
         rows = 0
     with pytest.raises(ValueError):
         gather_rows_backward(up, idx, rows)
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, v in cp_time.VARIANTS.items() if v[0] == "source"))
+def test_cp_time_variants_edit_the_source(name):
+    """Each text edit of ``tools/cp_time.py``'s variants of this checkout's
+    line-gradient kernel finds its text exactly once."""
+    src = (Path(cpf.__file__).resolve().parents[1] / "csrc"
+           / "cp_features.cu").read_text()
+    text = cp_time.variant_source(name, src, None)
+    assert (text == src) == (not cp_time.VARIANTS[name][1])
+
+
+def test_cp_time_parent_plan_is_the_first_designs():
+    """The first design's plan at a lego CP step: 16 columns a block, 22
+    chunks (four blocks an SM in all over 24 slices)."""
+    assert cp_time.parent_plan([505, 505, 489, 96, 288], 384, 7_090_176,
+                               132) == (4, 22)
+    assert cp_time.parent_plan([20, 20, 20, 3, 5], 8, 1021, 132) == (3, 1)

@@ -23,6 +23,10 @@ versions at 0 to 1021 samples and at a lego CP step's 7.1 M (the plain
 version chunked), at ranks 1, 5, 47, 96 and 288, on uneven lines and on
 samples beyond [-1, 1] (products bit-equal, gradients within CP_GRAD_TOL
 and COORDS_GRAD_TOL), and refuse what they do not take before any launch;
+the line gradient also at counts around its stage and unit lengths, with
+dead stages and units, ranks that are not multiples of 4 and slices that
+hold both kinds, density-only and appearance-only, and at the lines'
+length where its plan narrows the columns a block;
 K3's backward is held to ``index_add_`` at the mask lookup's and the
 lines' shapes, and the samplers' route of a VM and a CP field under grad
 (``fused_eval="off"``) runs on it. The row gather covers both its routes,
@@ -1272,6 +1276,118 @@ def test_cp_wrappers_refuse_before_any_launch(dev, take):
             cpf.cp_features_coords_grad(cfg, params, xyz, dsigma, dapp)
     assert (cpf.cp_features.launches, cpf.cp_features_backward.launches,
             cpf.cp_features_coords_grad.launches) == counts
+
+
+def _assert_cp_backward_matches_plain(params, xyz, dsigma, dapp=None):
+    """The line-gradient kernel against cp_features_backward_plain (chunked)
+    within CP_GRAD_TOL of each line's largest, one launch."""
+    before = cpf.cp_features_backward.launches
+    got = cpf.cp_features_backward(CP_CFG, params, xyz, dsigma, dapp)
+    torch.cuda.synchronize()
+    assert cpf.cp_features_backward.launches == before + (xyz.shape[0] > 0)
+    ups = (dsigma,) if dapp is None else (dsigma, dapp)
+    want = _cp_chunked(lambda x, *u: cpf.cp_features_backward_plain(
+        params, x, *u), xyz, *ups, total=True)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        for a, b in zip(got[k], want[k]):
+            torch.testing.assert_close(a, b, rtol=0, atol=CP_GRAD_TOL * max(
+                float(b.abs().max()), 1e-30))
+
+
+# the backward's edges: a call shorter than one stage (kRun samples a
+# group), counts that end inside a stage and inside a unit (BWD_UNIT), and
+# a unit and a half
+@pytest.mark.parametrize("n", [0, 3, 5, 4097, 1537 + 4 * 1024])
+@pytest.mark.parametrize("name", ["r5", "lego"])
+def test_cp_backward_kernel_stage_edges(dev, name, n):
+    params = _cp_lines(name, dev, seed=4)
+    xyz = _cp_samples(n, dev, seed=4)
+    _assert_cp_backward_matches_plain(params, xyz, *_cp_upstream(params, n, dev))
+
+
+def test_cp_backward_kernel_dead_stages(dev):
+    """Whole stages and units without upstream (the walk leaves them at
+    once), a live sample whose words are zero but one, and a sample whose
+    density upstream alone is not zero."""
+    params = _cp_lines("lego", dev, seed=5)
+    n = 6 * 1024 + 20
+    xyz = _cp_samples(n, dev, seed=5)
+    dsigma, dapp = _cp_upstream(params, n, dev, seed=5)
+    for lo, hi in ((0, 1024), (1030, 1050), (2048, 4096), (5000, 5004)):
+        dsigma[lo:hi] = 0
+        dapp[lo:hi] = 0
+    dsigma[4100] = 0
+    dapp[4100] = 0
+    dapp[4100, 7] = 1.5
+    dapp[4101] = 0
+    _assert_cp_backward_matches_plain(params, xyz, dsigma, dapp)
+
+
+@pytest.mark.parametrize("lengths,rd,ra", [
+    ((129, 64, 37), 7, 13),    # ranks not multiples of 4: read from memory
+    ((300, 17, 90), 33, 31),   # a slice that holds both kinds
+    ((61, 250, 9), 96, 288),   # uneven lines at lego's ranks
+])
+def test_cp_backward_kernel_uneven_lines_and_ranks(dev, lengths, rd, ra):
+    g = torch.Generator().manual_seed(6)
+    params = {k: tuple((0.5 * torch.randn((length, r), generator=g)).to(dev)
+                       for length in lengths)
+              for k, r in (("density_line", rd), ("app_line", ra))}
+    xyz = _cp_samples(9000, dev, seed=6)
+    _assert_cp_backward_matches_plain(params, xyz, *_cp_upstream(params, 9000, dev))
+
+
+@pytest.mark.parametrize("kind", ["density", "app"])
+def test_cp_backward_kernel_one_kind(dev, kind):
+    """A density-only request (no dapp) through the wrapper, and an
+    appearance-only one through autograd (the density lines frozen): one
+    launch, the wanted lines' gradients the plain version's."""
+    params = _cp_lines("lego", dev, seed=7)
+    n = 20000
+    xyz = _cp_samples(n, dev, seed=7)
+    dsigma, dapp = _cp_upstream(params, n, dev, seed=7)
+    if kind == "density":
+        _assert_cp_backward_matches_plain(params, xyz, dsigma)
+        return
+    leaves = {"density_line": params["density_line"],
+              "app_line": tuple(a.clone().requires_grad_()
+                                for a in params["app_line"])}
+    before = cpf.cp_features_backward.launches
+    _, app = cpf.cp_features(CP_CFG, leaves, xyz)
+    (app * dapp).sum().backward()
+    torch.cuda.synchronize()
+    assert cpf.cp_features_backward.launches == before + 1
+    want = cpf.cp_features_backward_plain(params, xyz, torch.zeros_like(dsigma),
+                                          dapp)["app_line"]
+    for leaf, w in zip(leaves["app_line"], want):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=CP_GRAD_TOL * float(
+            w.abs().max()))
+
+
+def _switch_rows():
+    """The lines' sum of rows where the backward's plan at lego's ranks
+    first takes fewer than 32 columns a block."""
+    rows = 1000
+    while cpf.backward_plan((rows, 0, 0, 96, 288), True, True)[0] == 5:
+        rows += 1
+    return rows
+
+
+@pytest.mark.parametrize("side", [-1, 0])
+def test_cp_backward_kernel_at_the_column_width_switch(dev, side):
+    """Lines whose rows sum to the last count at 32 columns a block and to
+    the first at 16."""
+    rows = _switch_rows() + side
+    assert cpf.backward_plan((rows, 0, 0, 96, 288), True, True)[0] == (
+        5 if side < 0 else 4)
+    lengths = (rows // 3, rows // 3, rows - 2 * (rows // 3))
+    g = torch.Generator().manual_seed(8)
+    params = {k: tuple((0.5 * torch.randn((length, r), generator=g)).to(dev)
+                       for length in lengths)
+              for k, r in (("density_line", 96), ("app_line", 288))}
+    xyz = _cp_samples(30000, dev, seed=8)
+    _assert_cp_backward_matches_plain(params, xyz, *_cp_upstream(params, 30000, dev))
 
 
 @pytest.mark.parametrize("shape", ["mask", "density_line", "app_line",
