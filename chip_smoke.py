@@ -40,7 +40,8 @@ forward, line-gradient and coordinate-gradient kernels and K3's backward
 held to their plain versions at the final step's samples and at a
 colour chunk and timed beside their bounds; a step through the samplers
 beside the kernels'; ``explore_field`` and 50 iNeRF iterations on the
-trained field), and the iNeRF refinement on a
+trained field, the forward and the coordinate gradient held to their
+plain versions at an iteration's samples), and the iNeRF refinement on a
 lego-width field with low-frequency appearance (``estimate_pose_inerf``:
 800 iterations of 1024 rays from the JAX test's perturbation of a frame
 rendered from the field, then ``test_pose_estimation`` with
@@ -824,6 +825,7 @@ def _reset_counts():
     field_features_coords_grad.launches = 0
     gather_rows_backward.launches = 0
     cp_features.launches = 0
+    cp_features.launches_by_route = dict.fromkeys(cp_features.launches_by_route, 0)
     cp_features_backward.launches = 0
     cp_features_coords_grad.launches = 0
 
@@ -837,6 +839,8 @@ def _counts():
             "field_features_coords_grad": field_features_coords_grad.launches,
             "gather_rows_backward": gather_rows_backward.launches,
             "cp_features": cp_features.launches,
+            **{f"cp_features_{route}": n
+               for route, n in cp_features.launches_by_route.items()},
             "cp_features_backward": cp_features_backward.launches,
             "cp_features_coords_grad": cp_features_coords_grad.launches}
 
@@ -2830,6 +2834,7 @@ def phase_inerf(id_params, id_cfg, rays, dev):
                      "field_features_backward": 0,
                      "field_features_coords_grad": INERF_ITERS,
                      "gather_rows_backward": 0, "cp_features": 0,
+                     "cp_features_shared": 0, "cp_features_l1": 0,
                      "cp_features_backward": 0,
                      "cp_features_coords_grad": 0},
           f"a refinement iteration launches field_features, its coordinate "
@@ -3796,18 +3801,27 @@ def cp_rows(params, xyz, live=None):
     return out
 
 
+def cp_forward_bound(params, xyz):
+    """Bytes of the CP forward at ``xyz`` (the coordinates read, sigma and
+    the products written once, the rows the samples touch read once) ->
+    (ms, bound_by)."""
+    n = xyz.shape[0]
+    rd, ra = (params[k][0].shape[1] for k in ("density_line", "app_line"))
+    rows = sum(cp_rows(params, xyz))
+    return bound(n * 12 + n * 4 + n * ra * 4 + rows * (rd + ra) * 4, 0.0,
+                 torch.float32)
+
+
 def cp_bounds(params, xyz, dsigma, dapp):
     """Bytes of the three CP kernels at these inputs (each input read once,
     each output written once; the rows the samples touch read once, a
     gradient row written once) -> {kernel: (ms, bound_by)}."""
     n = xyz.shape[0]
     rd, ra = (params[k][0].shape[1] for k in ("density_line", "app_line"))
-    rows = sum(cp_rows(params, xyz))
     live = (dsigma != 0) | (dapp != 0).any(-1)
     live_rows = sum(cp_rows(params, xyz, live))
     up = n * 4 + dapp.numel() * 4
-    return {"forward": bound(n * 12 + n * 4 + n * ra * 4 + rows * (rd + ra) * 4,
-                             0.0, torch.float32),
+    return {"forward": cp_forward_bound(params, xyz),
             "backward": bound(n * 12 + up + 2 * live_rows * (rd + ra) * 4,
                               0.0, torch.float32),
             "coords_grad": bound(n * 12 + up + n * 12
@@ -3815,29 +3829,58 @@ def cp_bounds(params, xyz, dsigma, dapp):
                                  torch.float32)}
 
 
-def cp_kernel_holds(config, params, xyz, dsigma, dapp, label):
-    """The three CP kernels at ``xyz`` and its upstream against their plain
-    versions (chunked): app products bit-equal, sigma within FIELD_RTOL and
-    FIELD_ATOL x max|plain|, the line gradient within CP_GRAD_TOL of each
-    line's largest, the coordinate gradient within COORDS_GRAD_TOL of the
-    largest; then each timed (graph and eager) beside its bound, its plain
-    version and F.grid_sample (chunked at more than FT_PLAIN_CHUNK
-    samples) -> {kernel: row}."""
+def cp_forward_holds(config, params, xyz, label):
+    """The CP forward at ``xyz`` against its plain version (chunked): app
+    products bit-equal, sigma within FIELD_RTOL and FIELD_ATOL x
+    max|plain|, a second call bit-equal; then timed (graph and eager)
+    beside its bound, its plain version and F.grid_sample on the three
+    lines (chunked at more than FT_PLAIN_CHUNK samples) -> the row."""
     n = xyz.shape[0]
     with torch.no_grad():
         sigma, app = cp_features(config, params, xyz)
+        again = cp_features(config, params, xyz)
         want = cp_chunked(lambda x: cp_features_plain(params, x, True,
                                                       gather_rows_plain), xyz)
         scale = float(want[0].abs().max())
-        fwd = {"n": n, "app_bit_equal": bool(torch.equal(app, want[1])),
+        row = {"n": n, "app_bit_equal": bool(torch.equal(app, want[1])),
+               "repeat_bit_equal": bool(torch.equal(sigma, again[0])
+                                        and torch.equal(app, again[1])),
                "sigma_max_abs_err": float((sigma - want[0]).abs().max()),
                "sigma_max_abs_plain": scale}
-        check(fwd["app_bit_equal"] and torch.allclose(
-            sigma, want[0], rtol=FIELD_RTOL, atol=FIELD_ATOL * scale),
-            f"cp_features vs plain at {label}: {fwd}")
-        fwd["max_abs_err"] = max(fwd["sigma_max_abs_err"],
+        check(row["app_bit_equal"] and row["repeat_bit_equal"]
+              and torch.allclose(sigma, want[0], rtol=FIELD_RTOL,
+                                 atol=FIELD_ATOL * scale),
+              f"cp_features vs plain at {label}: {row}")
+        row["max_abs_err"] = max(row["sigma_max_abs_err"],
                                  float((app - want[1]).abs().max()))
-        del sigma, app, want
+        del sigma, app, again, want
+        torch.cuda.empty_cache()
+        lines = cp_library_lines(params)
+        row["bound_ms"], row["bound_by"] = cp_forward_bound(params, xyz)
+        row.update(
+            ms=time_ms(lambda: cp_features(config, params, xyz), reps=FT_REPS,
+                       graph=True),
+            eager_ms=time_ms(lambda: cp_features(config, params, xyz),
+                             reps=FT_REPS),
+            plain_ms=time_ms(lambda: cp_chunked(lambda x: cp_features_plain(
+                params, x, True, gather_rows_plain), xyz), reps=3),
+            library_ms=time_ms(lambda: cp_chunked(
+                lambda x: cp_library_features(lines, x), xyz), reps=3),
+            library_chunked=n > FT_PLAIN_CHUNK)
+    torch.cuda.empty_cache()
+    return row
+
+
+def cp_kernel_holds(config, params, xyz, dsigma, dapp, label):
+    """The three CP kernels at ``xyz`` and its upstream against their plain
+    versions (chunked): the forward as ``cp_forward_holds`` holds it, the
+    line gradient within CP_GRAD_TOL of each line's largest, the
+    coordinate gradient within COORDS_GRAD_TOL of the largest; then each
+    timed (graph and eager) beside its bound, its plain version and
+    F.grid_sample (chunked at more than FT_PLAIN_CHUNK samples) ->
+    {kernel: row}."""
+    n = xyz.shape[0]
+    rows = {"forward": cp_forward_holds(config, params, xyz, label)}
     got = cp_features_backward(config, params, xyz, dsigma, dapp)
     want = cp_chunked(lambda *a: cp_features_backward_plain(params, *a), xyz,
                       dsigma, dapp, total=True)
@@ -3874,10 +3917,6 @@ def cp_kernel_holds(config, params, xyz, dsigma, dapp, label):
     lib_lines = {k: [a.detach().clone().requires_grad_() for a in v]
                  for k, v in lines.items()}
 
-    def lib_forward():
-        with torch.no_grad():
-            return cp_chunked(lambda x: cp_library_features(lines, x), xyz)
-
     def lib_backward():
         for i in range(0, n, FT_PLAIN_CHUNK):
             s, a = cp_library_features(lib_lines, xyz[i:i + FT_PLAIN_CHUNK])
@@ -3890,10 +3929,6 @@ def cp_kernel_holds(config, params, xyz, dsigma, dapp, label):
         cp_library_coords(lines, xyz, dsigma, dapp)
 
     calls = {
-        "forward": (lambda: cp_features(config, params, xyz),
-                    lambda: cp_chunked(lambda x: cp_features_plain(
-                        params, x, True, gather_rows_plain), xyz),
-                    lib_forward, fwd),
         "backward": (lambda: cp_features_backward(config, params, xyz, dsigma,
                                                   dapp),
                      lambda: cp_chunked(lambda *a: cp_features_backward_plain(
@@ -3905,7 +3940,6 @@ def cp_kernel_holds(config, params, xyz, dsigma, dapp, label):
                             cp_features_coords_grad_plain(params, *a)),
                             xyz, dsigma, dapp),
                         lib_coords, coords)}
-    rows = {}
     for kernel, (call, plain, lib, checks) in calls.items():
         with torch.no_grad():
             ms = time_ms(call, reps=FT_REPS, graph=True)
@@ -4059,8 +4093,9 @@ def train_cp(dev):
 
 def phase_tensor_cp(dev):
     """TensorCP fields on the card: ``train_cp`` (its checks: the CP kernels
-    and K3's mask lookup every step, no texel lerp in torch, no VM kernel,
-    the events, a final grid of about 500^3, finite and changing losses);
+    and K3's mask lookup every step, every forward on the shared-memory
+    route, no texel lerp in torch, no VM kernel, the events, a final grid
+    of about 500^3, finite and changing losses);
     the three CP kernels held to their plain versions and timed at the
     final step's samples and at a colour chunk of ``explore_field``, K3's
     backward at the mask's and the lines' shapes; a step's split and
@@ -4068,9 +4103,9 @@ def phase_tensor_cp(dev):
     (``cp_sampler_route``); ``explore_field`` on the trained field (launch
     counts, no texel lerp in torch); CP_INERF_ITERS iterations of
     ``estimate_pose_inerf`` from the JAX test's perturbation of an 800x800
-    frame rendered from the field, the coordinate kernel held to its plain
-    version at an iteration's inputs -> {kernel: the kernels line's
-    entry}."""
+    frame rendered from the field, the coordinate kernel and the forward
+    held to their plain versions at an iteration's inputs -> {kernel: the
+    kernels line's entry}."""
     t_phase = time.perf_counter()
     run = train_cp(dev)
     args, config, params, mask = run.args, run.config, run.params, run.mask
@@ -4085,6 +4120,9 @@ def phase_tensor_cp(dev):
           and counts["gather_rows_backward"] == 0,
           f"a CP run launches no VM, scoring or K3-backward kernel: {counts}")
     check(run.torch_lerps == 0, f"{run.torch_lerps} texel lerps in torch")
+    check(counts["cp_features_shared"] == counts["cp_features"]
+          and counts["cp_features_l1"] == 0,
+          f"the CP training's forwards take the shared-memory route: {counts}")
     kinds = [e["event"] for e in run.events]
     check(kinds == ["alpha-mask update + shrink", "upsample",
                     "alpha-mask update + ray filtering", "upsample"],
@@ -4147,6 +4185,7 @@ def phase_tensor_cp(dev):
         check(a.shape == (n, 3) and bool(torch.isfinite(a).all()),
               f"explore_field {name} on the CP field")
     check(explore_counts["cp_features"] > 0
+          and explore_counts["cp_features_shared"] == explore_counts["cp_features"]
           and explore_counts["field_features"] == 0
           and torch_lerps["n"] == 0,
           f"explore_field on the CP field: {explore_counts}, "
@@ -4175,7 +4214,8 @@ def phase_tensor_cp(dev):
     coverage = float((obs[..., 3] > 0.5).float().mean())
     start = perturbed(gt)
     with count_torch_lerps() as torch_lerps, captured_cp(
-            "_launch_coords_grad", first_call()) as caught:
+            "_launch_coords_grad", first_call()) as caught, captured_cp(
+            "_launch_forward", first_call()) as fcaught:
         _reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -4188,6 +4228,7 @@ def phase_tensor_cp(dev):
         inerf_counts = _counts()
     inerf_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(inerf_counts["cp_features"] == CP_INERF_ITERS
+          and inerf_counts["cp_features_shared"] == CP_INERF_ITERS
           and inerf_counts["cp_features_coords_grad"] == CP_INERF_ITERS
           and inerf_counts["cp_features_backward"] == 0
           and torch_lerps["n"] == 0,
@@ -4220,6 +4261,9 @@ def phase_tensor_cp(dev):
     it_coords["library_ms"] = time_ms(
         lambda: cp_library_coords(ilines, ixyz, ids, ida), reps=3)
     del ip, ixyz, ids, ida, got, want, ilines
+    fp, fxyz, _, _ = fcaught["inputs"]
+    it_forward = cp_forward_holds(config, fp, fxyz, "an iNeRF iteration")
+    del fp, fxyz
 
     emit(phase="tensor_cp", flags=list(CP_FLAGS), iters=FT_ITERS,
          events_at=FT_EVENTS, batch=FT_BATCH, pool_s=run.pool_s,
@@ -4243,13 +4287,14 @@ def phase_tensor_cp(dev):
                 "errors_start": pose_errors(gt, start),
                 "errors_end": pose_errors(gt, refined),
                 "launches": inerf_counts, "peak_mem_gb": inerf_peak,
-                "coords_grad_at_iteration": it_coords},
+                "coords_grad_at_iteration": it_coords,
+                "forward_at_iteration": it_forward},
          phase_s=time.perf_counter() - t_phase)
     by_path = {"tensor_cp_train": counts, "tensor_cp_explore": explore_counts,
                "tensor_cp_inerf": inerf_counts,
                "tensor_cp_samplers": sampler_counts}
 
-    def entry(name, kernel, path, design):
+    def entry(name, kernel, path, design, **extra):
         step, chunk_row = at_step[kernel], at_chunk[kernel]
         return dict(
             name=name, route="cuda",
@@ -4270,7 +4315,7 @@ def phase_tensor_cp(dev):
             library="F.grid_sample on the three lines"
                     + (" (backward)" if kernel != "forward" else "")
                     + ", in chunks of 2^20 samples",
-            at_colour_chunk=chunk_row, at_step=step)
+            at_colour_chunk=chunk_row, at_step=step, **extra)
 
     k3 = dict(
         name="gather_rows.backward", route="cuda",
@@ -4290,11 +4335,24 @@ def phase_tensor_cp(dev):
         at_density_line=k3_line, at_app_line_colour_chunk=k3_chunk)
     return [
         entry("cp_features", "forward", "tensor_cp_train",
-              "a group of lanes a sample walks runs of 8 consecutive"
-              " samples; a lane a float4 word of the density then appearance"
-              " ranks, its 6 corner words read through L1, lerped and"
-              " multiplied in registers, the products stored whole lines a"
-              " warp; sigma's lane sums meet by shuffles"),
+              "shared route: one block an SM holds a slice of 32 ranks of"
+              " the three lines in shared memory; its 16 warps walk 32-sample"
+              " units in turn with every slice's, each lane computing one"
+              " sample's corners into the warp's records (rows by slot"
+              " parity, flagged weights), then groups of 4 lanes of 8 ranks"
+              " each walk their samples, reading a slot's words from the"
+              " slice only when its row changes, and store whole sectors"
+              " evict-first; the density slices' sums added in slice order"
+              " by a second kernel. Lines past the slice's room take the"
+              " first design (a group of lanes a sample, rows through L1)",
+              launches_by_route={
+                  route: counts[f"cp_features_{route}"]
+                  for route in cp_features.launches_by_route},
+              launches_by_route_by_path={
+                  k: {route: c[f"cp_features_{route}"]
+                      for route in cp_features.launches_by_route}
+                  for k, c in by_path.items()},
+              at_inerf_iteration=it_forward),
         entry("cp_features_backward", "backward", "tensor_cp_train",
               "one block an SM owns a slice of up to 32 ranks and keeps that"
               " slice of all three lines' sums in shared memory; each of its"

@@ -27,21 +27,59 @@
 // the appearance products equal the plain route's bit for bit; only
 // sigma's sum over ranks runs in another order.
 //
-// Forward (cp_features_kernel, iff_cp_features). Bound on an H100 SXM:
-// bytes. Device memory sees the coordinates (12 B a sample), sigma (4 B)
-// and the appearance products (4 B a rank) once each; at ranks 96 / 288
-// that is 1 168 B a sample, 8.3 GB at 7.1 M samples, 2.5 ms at 3.35 TB/s.
-// The lines are at most 3 x 500 x 384 x 4 B = 2.3 MB and stay in L2.
-// Mapping: a group of g lanes owns a sample (g the power of two that covers
-// the density + appearance words of a row, capped at 32: a word is a float4
-// when every rank is a multiple of 4 and every pointer 16-byte aligned,
-// else a float); lanes take neighbouring words, density first, read their
-// word of the 6 corner rows through the read-only path (L1), lerp and
-// multiply in registers, and store their appearance word: a warp's stores
-// are whole 512-byte lines. A group walks a run of kRun consecutive
-// samples; a training step's samples are ray-major at half a texel a step,
-// so a run's samples mostly read the same rows, which L1 keeps. The lane
-// sums of sigma meet by shuffles within the group.
+// Forward (namespace fwd: cp_features_fwd_kernel and cp_sigma_sum_kernel,
+// iff_cp_features). Bound on an H100 SXM: bytes. Device memory sees the
+// coordinates (12 B a sample), sigma (4 B) and the appearance products
+// (4 B a rank) once each; at ranks 96 / 288 that is 1 168 B a sample, 8.3
+// GB at 7.1 M samples, 2.5 ms at 3.35 TB/s. The lines are at most 3 x 500
+// x 384 x 4 B = 2.3 MB. The first design (cp_features_kernel, kept as
+// iff_cp_features_l1 for lines longer than a column slice holds: a group
+// of lanes a sample, each lane reading its word of the 6 corner rows
+// through L1) was held by those reads, 9.2 KB a sample through L1 at 24
+// warps an SM (tools/cp_time.py: its stores alone took 55 % of it, its
+// reads and lerps without the stores 87 %, its reads from L2 alone twice
+// as long). The design here:
+// - Lines in shared memory by column slice: block (x, y) owns the cw
+//   columns x * cw .. (density ranks, then appearance ranks, as the line
+//   gradient lays them out) and loads that slice of all three lines once,
+//   by cp.async ([L_0 + L_1 + L_2][cw] floats: 192 KB at 1 499 rows and 32
+//   columns; the host's plan narrows cw for longer lines). One block an
+//   SM; the grid's y is the blocks a slice.
+// - Units in step: warp w of block (x, y) walks units of kUnit samples
+//   y * kWarps + w, then every gridDim.y * kWarps-th after it. Every slice
+//   walks the same stretch of samples at the same time, so that the
+//   coordinates' repeats come from L2 and the lines of an output row are
+//   written close together. (A queue a slice, as the line gradient takes,
+//   cost an atomic's round trip a unit; larger units spread the rows' writes
+//   over more of L2: both were slower, PERF.md.)
+// - Corners once a block: a stage is 32 samples a warp; each lane fetches
+//   one sample's coordinates a stage ahead (three coalesced loads a warp,
+//   not a bulk-copy ring: with no coordinate read after a warp's first
+//   unit the kernel is 0.7 % faster, tools/cp_time.py) and writes its three corners
+//   into the warp's records: the byte offsets of its two rows in the slice
+//   by slot parity (as the line gradient's slot_record orders them) and
+//   their weights with the in-range flag folded in (f * (m * a) for
+//   (f * m) * a: the same float, m being 0 or 1 and a >= 0).
+// - The walk: a sample's group is cw / VEC lanes of VEC columns (8 where
+//   the ranks and pointers allow: two float4 words a half slice apart, so
+//   that each store fills whole 32-byte sectors; else 1); a warp's
+//   groups each walk their own consecutive samples, reading the records
+//   as broadcasts. A lane keeps each axis's two slot words in registers
+//   and reads a slot from the slice only when its row changes; it lerps
+//   (two products and a sum, no FMA contraction), multiplies the axes in
+//   the order 0, 1, 2, and stores its appearance words through
+//   st.global.cs (evicted from L2 first, so that the coordinates stay).
+// - sigma: each density slice sums its columns in a fixed tree (a lane's
+//   columns in order, then shuffles); with more than one density slice the
+//   sums go to a [slices, N] scratch that cp_sigma_sum_kernel adds in slice
+//   order. No atomics: two calls give the same bits.
+// What holds it at a lego CP step (tools/cp_time.py, 1.32 times the
+// bound): its store stream alone (products a constant, no corner or slice
+// read) takes longer than the whole kernel, and its walk without the
+// stores as long as the whole: the two overlap almost wholly. The stream
+// writes each output row's nine 128-byte lines from nine SMs; the walk
+// issues about 150 instructions a step of 8 samples, 88 of them the lerps
+// and products, at 16 warps an SM.
 //
 // Line gradient (cp_features_bwd_kernel, iff_cp_features_bwd): for each
 // sample, axis i and rank c, the upstream u (dsigma for a density rank,
@@ -130,6 +168,7 @@ namespace cp {
 constexpr int kThreads = 256;
 constexpr int kRun = 8;                  // consecutive samples a group walks (forward)
 constexpr int kBlocksPerSm = 8;          // grid cap of the forward's grid-stride loop
+constexpr int kMaxSmem = 227 * 1024;     // a block's shared memory, at most
 
 template <int VEC>
 struct Vec {
@@ -347,7 +386,6 @@ constexpr int kMaxGroups = 2;             // groups of cw lanes a warp (cw < 16 
 constexpr int kBoxBytes = 32 * kRun * 4;  // a warp's upstream words of a stage
 constexpr int kRowBytes = kRun * 16;      // a group's xyz (12 B a sample), then its dsigma
 constexpr int kMinStages = 2, kMaxStages = 4;
-constexpr int kMaxSmem = 227 * 1024;
 constexpr uint32_t kNoRow = 0xffffu;
 static_assert(kRun % 4 == 0, "a stage's xyz and dsigma rows are whole 16-byte units");
 static_assert(kUnit % (kMaxGroups * kRun) == 0, "a group's part of a unit is whole stages");
@@ -695,6 +733,268 @@ bool upstream_map(CUtensorMap* map, const void* dapp, long long n, int ra, int c
 
 }  // namespace bwd
 
+namespace fwd {
+
+constexpr int kWarps = 16;                   // warps a block, one block an SM
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStage = 32;                   // samples of a warp's stage: one a lane's corners
+constexpr int kUnit = 32;                    // samples a warp walks before it moves on
+constexpr int kStages = kUnit / kStage;      // stages a unit
+constexpr int kRecordBytes = 3 * 16;         // a sample's corner records, one an axis
+static_assert(kUnit % kStage == 0, "a unit is whole stages");
+
+// The host's split of the work.
+struct Plan {
+  int log_cw;  // columns a block: cw = 1 << log_cw
+  int rows;    // L_0 + L_1 + L_2, below 65 535 (a record's rows are 16-bit)
+  int units;   // units of kUnit samples
+};
+
+// Shared memory of a block: each warp's corner records of a stage, then
+// the slice of the three lines. The host's plan (ops/cp_features.py:
+// forward_smem) counts the same.
+__host__ __device__ inline long long smem_bytes(int rows, int log_cw) {
+  return static_cast<long long>(kWarps) * kStage * kRecordBytes +
+         static_cast<long long>(rows) * (4 << log_cw);
+}
+
+// W floats src -> dst through cp.async (complete at copy_wait)
+template <int W>
+__device__ __forceinline__ void copy_async(float* dst, const float* src);
+
+template <>
+__device__ __forceinline__ void copy_async<1>(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(hop::smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+template <>
+__device__ __forceinline__ void copy_async<4>(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(hop::smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// A sample's corners on axis i as the walk takes them: the byte offsets in
+// the block's slice of its two rows by slot parity (slot e, the even
+// corner's, then slot o; the slice's rows of axis i start at row off),
+// then their flagged weights
+__device__ __forceinline__ uint4 walk_record(const Corner& c, uint32_t off, int log_row_bytes) {
+  const uint4 r = bwd::slot_record(c);
+  return make_uint4((off + (r.x & 0xffffu)) << log_row_bytes, (off + (r.x >> 16)) << log_row_bytes,
+                    r.y, r.z);
+}
+
+// A lane's words of a row of the slice: VEC floats, as VEC / 4 float4
+// words kHalf columns apart (16-byte aligned) or one float
+template <int VEC, int kHalf>
+__device__ __forceinline__ Vec<VEC> load_shared(const unsigned char* p) {
+  Vec<VEC> x;
+  if (VEC == 1) {
+    x.v[0] = *reinterpret_cast<const float*>(p);
+  } else {
+#pragma unroll
+    for (int h = 0; h < VEC / 4; ++h) {
+      const float4 q = *reinterpret_cast<const float4*>(p + h * kHalf * 4);
+      x.v[4 * h] = q.x;
+      x.v[4 * h + 1] = q.y;
+      x.v[4 * h + 2] = q.z;
+      x.v[4 * h + 3] = q.w;
+    }
+  }
+  return x;
+}
+
+// Word h of a lane's products to p + h * kHalf where app_word[h], through
+// st.global.cs: no one reads them back here, so L2 evicts them first and
+// keeps the coordinates, which every slice reads
+template <int VEC, int kHalf>
+__device__ __forceinline__ void store_stream(float* p, const Vec<VEC>& x, const bool* app_word) {
+  if (VEC == 1) {
+    if (app_word[0]) __stcs(p, x.v[0]);
+  } else {
+#pragma unroll
+    for (int h = 0; h < VEC / 4; ++h)
+      if (app_word[h])
+        __stcs(reinterpret_cast<float4*>(p + h * kHalf),
+               make_float4(x.v[4 * h], x.v[4 * h + 1], x.v[4 * h + 2], x.v[4 * h + 3]));
+  }
+}
+
+// Block (x, y) owns the columns x * cw .. + cw - 1 (density ranks, then
+// appearance ranks); its warp w walks units y * kWarps + w, then every
+// gridDim.y * kWarps-th after it, so that all slices walk the same
+// stretch of samples at the same time. A sample's group is R = 1 << LW lanes,
+// VEC columns each (one float, or float4 words: with two, a group's first
+// words are the slice's first half, so that each store fills whole 32-byte
+// sectors); a warp holds G = 32 / R groups. Each unit splits into G parts
+// of consecutive samples, one a group, walked R samples a stage. part: the
+// density slices' sums of their columns [slices with a density column][N]
+// (sigma itself when there is one such slice).
+template <int VEC, int LW>
+__global__ void __launch_bounds__(kThreads, 1)
+    cp_features_fwd_kernel(const float* __restrict__ xyz, const __grid_constant__ Lines t,
+                           const __grid_constant__ Plan p, float* __restrict__ part,
+                           float* __restrict__ app, int64_t N) {
+  constexpr int R = 1 << LW;        // lanes a sample, samples a group walks a stage
+  constexpr int G = 32 >> LW;       // groups a warp
+  constexpr int kPart = kUnit / G;  // a group's part of a unit
+  constexpr int W = VEC == 1 ? 1 : 4;  // floats a word
+  constexpr int kHalf = (VEC << LW) / (VEC / W);  // columns between a lane's words
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int log_cw = p.log_cw;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint4* rec = reinterpret_cast<uint4*>(smem) + warp * kStage * 3;  // [R][3][G]
+  float* lines = reinterpret_cast<float*>(smem + kWarps * kStage * kRecordBytes);  // [rows][cw]
+  const int c0 = static_cast<int>(blockIdx.x) << log_cw;
+  const int ncols = t.rd + t.ra;
+
+  // the slice of the three lines, loaded once (zeros past the last column)
+  const int log_words = log_cw - (W == 4 ? 2 : 0);
+  for (int e = threadIdx.x; e < p.rows << log_words; e += kThreads) {
+    int row = e >> log_words, i = 0;
+    const int col = c0 + (e & ((1 << log_words) - 1)) * W;
+    if (row >= t.L[0]) {
+      row -= t.L[0];
+      i = 1;
+      if (row >= t.L[1]) {
+        row -= t.L[1];
+        i = 2;
+      }
+    }
+    float* dst = lines + e * W;
+    if (col >= ncols) {
+#pragma unroll
+      for (int v = 0; v < W; ++v) dst[v] = 0.0f;
+    } else if (col < t.rd) {
+      copy_async<W>(dst, t.density[i] + static_cast<int64_t>(row) * t.rd + col);
+    } else {
+      copy_async<W>(dst, t.app[i] + static_cast<int64_t>(row) * t.ra + (col - t.rd));
+    }
+  }
+  copy_wait();
+  __syncthreads();
+
+  const int grp = lane >> LW, glane = lane & (R - 1);
+  const int col = c0 + glane * W;  // the lane's first column; word h at col + h * kHalf
+  bool dens[VEC / W], app_word[VEC / W];
+#pragma unroll
+  for (int h = 0; h < VEC / W; ++h) {
+    dens[h] = col + h * kHalf < t.rd;
+    app_word[h] = !dens[h] && col + h * kHalf < ncols;
+  }
+  const bool slice_dens = c0 < t.rd;
+  const bool stores = app_word[0] || app_word[VEC / W - 1];
+  const unsigned char* mine = reinterpret_cast<const unsigned char*>(lines + glane * W);
+  const uint32_t off[3] = {0u, static_cast<uint32_t>(t.L[0]),
+                           static_cast<uint32_t>(t.L[0] + t.L[1])};
+
+  const int step = static_cast<int>(gridDim.y) * kWarps;  // units between a warp's
+  // the coordinates of the sample whose corners this lane computes at
+  // stage st of unit u: sample glane of group grp's stage (zeros past N)
+  auto fetch = [&](int64_t u, int st, float (&x)[3]) {
+    const int64_t n = u * kUnit + grp * kPart + st * R + glane;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x[c] = 0.0f;
+    if (n < N) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) x[c] = __ldg(xyz + 3 * n + c);
+    }
+  };
+
+  // a lane's slots: for each axis the rows (as a record's offsets) and
+  // their words, kept while the rows hold
+  uint32_t ce[3] = {0xffffffffu, 0xffffffffu, 0xffffffffu};
+  uint32_t co[3] = {0xffffffffu, 0xffffffffu, 0xffffffffu};
+  Vec<VEC> ve[3], vo[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) ve[i].v[e] = vo[i].v[e] = 0.0f;
+
+  int64_t u = static_cast<int64_t>(blockIdx.y) * kWarps + warp;
+  float x[3];
+  fetch(u, 0, x);
+  for (; u < p.units; u += step) {
+    const int64_t nu = u + step;
+    for (int st = 0; st < kStages; ++st) {
+      const float g[3] = {x[0], x[1], x[2]};
+      if (st + 1 < kStages)
+        fetch(u, st + 1, x);
+      else
+        fetch(nu, 0, x);
+      // corners once a block: each lane's sample's three, as the walk
+      // takes them (rows into the slice by slot parity, flagged weights)
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        rec[(glane * 3 + i) * G + grp] = walk_record(corner(g[2 - i], t.L[i]), off[i], log_cw + 2);
+      __syncwarp();
+      // the walk: sample by sample, a slot's words loaded from the slice
+      // only when its row changes
+      const int64_t n0 = u * kUnit + grp * kPart + st * R;
+      const int live = N - n0 < R ? static_cast<int>(N - n0) : R;  // samples before N
+      float* o = stores ? app + n0 * t.ra + (col - t.rd) : nullptr;
+      float* ps = part + static_cast<int64_t>(blockIdx.x) * N + n0;
+#pragma unroll 8
+      for (int k = 0; k < R; ++k) {
+        Vec<VEC> prod;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const uint4 q = rec[(k * 3 + i) * G + grp];
+          if (q.x != ce[i]) ve[i] = load_shared<VEC, kHalf>(mine + q.x);
+          if (q.y != co[i]) vo[i] = load_shared<VEC, kHalf>(mine + q.y);
+          ce[i] = q.x;
+          co[i] = q.y;
+          const float we = __uint_as_float(q.z), wo = __uint_as_float(q.w);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float l = __fadd_rn(__fmul_rn(ve[i].v[e], we), __fmul_rn(vo[i].v[e], wo));
+            prod.v[e] = i == 0 ? l : __fmul_rn(prod.v[e], l);
+          }
+        }
+        if (slice_dens) {  // the group's density columns summed in a fixed tree
+          float s = 0.0f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            if (dens[e / W]) s = __fadd_rn(s, prod.v[e]);
+#pragma unroll
+          for (int h = R >> 1; h > 0; h >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, h));
+          if (glane == 0 && k < live) __stcs(ps + k, s);
+        }
+        if (o != nullptr && k < live) store_stream<VEC, kHalf>(o, prod, app_word);
+        if (o != nullptr) o += t.ra;
+      }
+    }
+  }
+}
+
+// sigma[n]: the density slices' sums of sample n, added in slice order
+__global__ void __launch_bounds__(256)
+    cp_sigma_sum_kernel(const float* __restrict__ part, float* __restrict__ sigma, int slices,
+                        int64_t N) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t n = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; n < N;
+       n += step) {
+    float s = part[n];
+    for (int j = 1; j < slices; ++j) s = __fadd_rn(s, part[j * N + n]);
+    sigma[n] = s;
+  }
+}
+
+template <int VEC, int LW>
+cudaError_t launch(dim3 grid, int smem, cudaStream_t s, const float* xyz, const Lines& t,
+                   const Plan& p, float* part, float* app, int64_t N) {
+  auto* kernel = cp_features_fwd_kernel<VEC, LW>;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<grid, kThreads, static_cast<size_t>(smem), s>>>(xyz, t, p, part, app, N);
+  return cudaGetLastError();
+}
+
+}  // namespace fwd
+
 bool make_lines(const long long* ptrs, const int* dims, Lines& t) {
   for (int i = 0; i < 3; ++i) {
     t.density[i] = reinterpret_cast<const float*>(ptrs[i]);
@@ -723,16 +1023,74 @@ int grid_of(int64_t N, int log_g, int sms) {
 }  // namespace cp
 }  // namespace iff
 
-// xyz [N, 3] float32 normalized coords; ptrs: the density lines then the
-// app lines of the 3 axes as device addresses (float32, contiguous [L_i,
-// R]; the app ones 0 for density only); dims: (L_0, L_1, L_2, Rd, Ra),
-// Rd or Ra 0 for a kind not computed. sigma [N] float32 or null (Rd 0);
-// app [N, Ra] float32 or null (Ra 0). vec != 0 takes float4 words (Rd and
-// Ra multiples of 4, every pointer 16-byte aligned). sms is the card's SM
-// count. Returns a cudaError_t; N == 0 launches nothing.
+// The forward: xyz [N, 3] float32 normalized coords; ptrs: the density
+// lines then the app lines of the 3 axes as device addresses (float32,
+// contiguous [L_i, R]; the app ones 0 for density only); dims: (L_0, L_1,
+// L_2, Rd, Ra), Rd or Ra 0 for a kind not computed. sigma [N] float32 or
+// null (Rd 0); app [N, Ra] float32 or null (Ra 0). vec: the columns a lane
+// takes, 1 or 8 (8: Rd and Ra multiples of 8, every pointer 16-byte
+// aligned, two float4 words; at most 1 << log_cw). log_cw: log2 of the
+// columns a block owns (the records and the slice of the three lines,
+// fwd::smem_bytes, at most 227 KB; L_0 + L_1 + L_2 below 65 535); chunks:
+// blocks a column slice (grid y); part: a [ceil(Rd / cw), N] float32
+// scratch of the density slices' sums when Rd > cw (else unused: the one
+// density slice writes sigma), added into sigma in slice order by a second
+// kernel; sms the card's SM count. Returns a cudaError_t; N == 0 launches
+// nothing.
 extern "C" int iff_cp_features(const void* xyz, long long N, const long long* ptrs,
-                               const int* dims, void* sigma, void* app, int vec, int sms,
-                               void* stream) {
+                               const int* dims, void* sigma, void* app, int vec, int log_cw,
+                               int chunks, void* part, int sms, void* stream) {
+  namespace c = iff::cp;
+  namespace f = iff::cp::fwd;
+  c::Lines t;
+  if (N < 0 || sms <= 0 || !c::make_lines(ptrs, dims, t) || (vec != 1 && vec != 8) ||
+      t.rd % vec || t.ra % vec || (t.rd > 0) != (sigma != nullptr) ||
+      (t.ra > 0) != (app != nullptr) || log_cw < 0 || log_cw > 5 || (1 << log_cw) < vec ||
+      chunks <= 0 || chunks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  f::Plan p;
+  p.log_cw = log_cw;
+  p.rows = t.L[0] + t.L[1] + t.L[2];
+  const int cw = 1 << log_cw;
+  const int slices = (t.rd + t.ra + cw - 1) / cw, dens_slices = (t.rd + cw - 1) / cw;
+  const long long units = (N + f::kUnit - 1) / f::kUnit;
+  const long long smem = f::smem_bytes(p.rows, log_cw);
+  if (p.rows >= 0xffff || units > INT_MAX || smem > c::kMaxSmem ||
+      (dens_slices > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return 0;
+  p.units = static_cast<int>(units);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* x = static_cast<const float*>(xyz);
+  float* sums = dens_slices > 1 ? static_cast<float*>(part) : static_cast<float*>(sigma);
+  auto* a = static_cast<float*>(app);
+  const dim3 grid(slices, chunks);
+  const int sm = static_cast<int>(smem);
+  cudaError_t rc;
+  switch (vec * 8 + log_cw) {
+    case 64 + 3: rc = f::launch<8, 0>(grid, sm, s, x, t, p, sums, a, N); break;
+    case 64 + 4: rc = f::launch<8, 1>(grid, sm, s, x, t, p, sums, a, N); break;
+    case 64 + 5: rc = f::launch<8, 2>(grid, sm, s, x, t, p, sums, a, N); break;
+    case 8 + 0: rc = f::launch<1, 0>(grid, sm, s, x, t, p, sums, a, N); break;
+    case 8 + 1: rc = f::launch<1, 1>(grid, sm, s, x, t, p, sums, a, N); break;
+    case 8 + 2: rc = f::launch<1, 2>(grid, sm, s, x, t, p, sums, a, N); break;
+    case 8 + 3: rc = f::launch<1, 3>(grid, sm, s, x, t, p, sums, a, N); break;
+    case 8 + 4: rc = f::launch<1, 4>(grid, sm, s, x, t, p, sums, a, N); break;
+    default: rc = f::launch<1, 5>(grid, sm, s, x, t, p, sums, a, N); break;
+  }
+  if (rc != cudaSuccess || dens_slices <= 1) return static_cast<int>(rc);
+  const long long want = (N + 255) / 256, cap = static_cast<long long>(sms) * 8;
+  f::cp_sigma_sum_kernel<<<static_cast<int>(want < cap ? want : cap), 256, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(sigma), dens_slices, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's first design, for lines too long for a column slice in
+// shared memory: arguments as iff_cp_features takes them, without the
+// plan. Returns a cudaError_t; N == 0 launches nothing.
+extern "C" int iff_cp_features_l1(const void* xyz, long long N, const long long* ptrs,
+                                  const int* dims, void* sigma, void* app, int vec, int sms,
+                                  void* stream) {
   namespace c = iff::cp;
   c::Lines t;
   if (N < 0 || sms <= 0 || !c::make_lines(ptrs, dims, t) || (vec && (t.rd % 4 || t.ra % 4)) ||
@@ -793,7 +1151,7 @@ extern "C" int iff_cp_features_bwd(const void* xyz, long long N, const long long
   p.rows = t.L[0] + t.L[1] + t.L[2];
   const long long units = (N + b::kUnit - 1) / b::kUnit;
   const long long smem = b::smem_bytes(p.rows, log_cw, p.groups, stages);
-  if (units > INT_MAX || smem > b::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (units > INT_MAX || smem > c::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   p.units = static_cast<int>(units);
   // the bulk copies take 16-byte aligned rows, whole 16-byte box rows, and
   // slices of one kind

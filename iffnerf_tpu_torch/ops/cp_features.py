@@ -9,10 +9,23 @@ products (before ``basis_mat``, which stays a ``torch.matmul`` in
 (``iffnerf_tpu/models/field.py:383-389,484-489``), whose texel fetches are
 the work of the Pallas kernel ``pallas_gather``
 (``extra/pallas_gather_bench.py:46``; XLA gathers there) and whose
-gradients XLA derives. On Hopper the kernel ``csrc/cp_features.cu`` reads
-the corner texels into registers and lerps them there: only sigma and the
-[N, R_app] products reach device memory (the samplers' corner rows at
-TensoRF's CP setting would be 16 GB an appearance axis).
+gradients XLA derives. On Hopper the kernel ``csrc/cp_features.cu`` lerps
+the corner texels in registers: only sigma and the [N, R_app] products
+reach device memory (the samplers' corner rows at TensoRF's CP setting
+would be 16 GB an appearance axis). Its forward ("shared" route,
+``iff_cp_features``) gives each block a column slice of the three lines
+in shared memory (``forward_plan``: 32 columns where the slice fits, else
+16, 8, ..., 1; ``forward_words``: 8 or 1 columns a lane): the warps
+walk units of samples in step with every other slice's, compute each
+sample's corners once into shared records, read a slot's words from the
+slice only when its row changes and store the products evict-first; the
+density slices' sums meet in a scratch, added in slice order by a second
+kernel (no atomics: repeats are bit-equal). What holds it at a lego CP
+step is its store stream (a row's lines come from nine SMs) and, nearly
+as much, the walk's lerps. Lines longer than FWD_MAX_ROWS rows in all
+take the first design ("l1" route, ``iff_cp_features_l1``: a group of
+lanes a sample, its corner words read through L1); the launches are
+counted in all and by route (``cp_features.launches_by_route``).
 
 ``cp_features`` launches the kernel for CUDA tensors and takes
 ``cp_features_plain`` (the grid samplers of ``ops/grid_sample.py``) for
@@ -26,7 +39,7 @@ it was given. For the lines its backward launches ``iff_cp_features_bwd``
 (the wrapper ``cp_features_backward``: a block's column slice of all three
 lines accumulated in shared memory, each of its warps walking the upstream
 that its lane 0 bulk-copies into the warp's ring; ``backward_plan`` and
-``backward_chunks`` split the work);
+``chunks`` split the work);
 for the coordinates (iNeRF's pose gradient) ``iff_cp_features_coords_grad``
 (the wrapper ``cp_features_coords_grad``). Each launches only when its
 inputs require grad. The plain versions, ``cp_features_backward_plain`` and
@@ -52,22 +65,31 @@ _LL = ctypes.POINTER(ctypes.c_longlong)
 _I = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "iff_cp_features": [_P, ctypes.c_longlong, _LL, _I, _P, _P, ctypes.c_int,
-                        ctypes.c_int, _P],
+                        ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P],
+    "iff_cp_features_l1": [_P, ctypes.c_longlong, _LL, _I, _P, _P, ctypes.c_int,
+                           ctypes.c_int, _P],
     "iff_cp_features_bwd": [_P, ctypes.c_longlong, _LL, _LL, _I, _P, _P,
                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, _P, _P],
     "iff_cp_features_coords_grad": [_P, ctypes.c_longlong, _LL, _I, _P, _P, _P,
                                     ctypes.c_int, ctypes.c_int, _P],
 }
+MAX_SMEM = 227 * 1024       # a block's shared memory
 # The backward's split, as csrc/cp_features.cu (namespace bwd) lays out
 # its shared memory: one block an SM of BWD_WARPS warps, each with a ring
 # of 2 to 4 stages of BWD_RUN samples a group of lanes (a group is
 # 1 << log_cw lanes, min(32 >> log_cw, BWD_MAX_GROUPS) a warp), taking
 # units of BWD_UNIT samples from its column slice's queue.
-BWD_MAX_SMEM = 227 * 1024   # a block's shared memory
 BWD_MAX_ROWS = 28 * 1024    # L_0 + L_1 + L_2 at most (one column's sums in 112 KB)
 BWD_WARPS, BWD_RUN, BWD_UNIT, BWD_MAX_GROUPS = 16, 8, 1024, 2
 BWD_STAGES = (4, 3, 2)      # ring depths tried, deepest first
+# The forward's split (namespace fwd): one block an SM of FWD_WARPS warps
+# holds a column slice of the three lines beside each warp's corner
+# records of a FWD_STAGE-sample stage (FWD_RECORD bytes a sample), its
+# warps walking units of FWD_UNIT samples in turn with every other slice's.
+# Longer lines than one column of FWD_MAX_ROWS rows take the first design.
+FWD_WARPS, FWD_STAGE, FWD_UNIT, FWD_RECORD = 16, 32, 32, 48
+FWD_MAX_ROWS = (MAX_SMEM - FWD_WARPS * FWD_STAGE * FWD_RECORD) // 4
 
 
 def cp_products(lines, xyz: torch.Tensor, gather=None) -> torch.Tensor:
@@ -215,7 +237,7 @@ def backward_smem(rows: int, log_cw: int, stages: int) -> int:
 def backward_plan(dims, want_density: bool, want_app: bool):
     """(log2 of the columns a backward block owns, its ring depth): the
     widest power of two up to 32, and no wider than the columns asked for,
-    at which the sums and a ring of BWD_STAGES' depths fit BWD_MAX_SMEM,
+    at which the sums and a ring of BWD_STAGES' depths fit MAX_SMEM,
     the deepest that fits. Lines of more than BWD_MAX_ROWS rows in all
     raise ValueError; any fewer fit one column at the deepest ring."""
     rows = sum(dims[:3])
@@ -230,38 +252,88 @@ def backward_plan(dims, want_density: bool, want_app: bool):
         widest += 1
     for log_cw in range(widest, -1, -1):
         for stages in BWD_STAGES:
-            if backward_smem(rows, log_cw, stages) <= BWD_MAX_SMEM:
+            if backward_smem(rows, log_cw, stages) <= MAX_SMEM:
                 return log_cw, stages
     raise AssertionError(f"no backward plan for {rows} rows")
 
 
-def backward_chunks(n: int, slices: int, sms: int) -> int:
-    """Blocks a column slice (the grid's y) of the backward for ``n``
-    samples and ``slices`` slices on a card of ``sms`` SMs: as many as fill
-    one wave of one block an SM, and no more than give each warp a unit of
-    BWD_UNIT samples; at least one."""
-    units = -(-n // BWD_UNIT)
-    return max(1, min(sms // slices, -(-units // BWD_WARPS), 65535))
+def chunks(n: int, slices: int, sms: int, unit: int, warps: int) -> int:
+    """Blocks a column slice (the grid's y) for ``n`` samples and
+    ``slices`` slices on a card of ``sms`` SMs: as many as fill one wave of
+    one block an SM, and no more than give each of a block's ``warps``
+    warps a unit of ``unit`` samples; at least one. The backward's with
+    BWD_UNIT and BWD_WARPS, the forward's with FWD_UNIT and FWD_WARPS."""
+    units = -(-n // unit)
+    return max(1, min(sms // slices, -(-units // warps), 65535))
+
+
+def forward_smem(rows: int, log_cw: int) -> int:
+    """Shared memory of a forward block: each warp's corner records of a
+    stage and the slice of ``rows`` line rows x (1 << log_cw) columns."""
+    return FWD_WARPS * FWD_STAGE * FWD_RECORD + rows * (4 << log_cw)
+
+
+def forward_plan(dims, with_app: bool):
+    """The forward's route and the log2 of the columns a block owns:
+    ("shared", the widest power of two up to 32, no wider than the columns,
+    whose slice fits MAX_SMEM beside the records), or ("l1", None) for
+    lines of more than FWD_MAX_ROWS rows in all, which take the first
+    design (a group of lanes a sample, its corner rows read through L1)."""
+    rows = sum(dims[:3])
+    cols = dims[3] + (dims[4] if with_app else 0)
+    widest = 0
+    while widest < 5 and (1 << widest) < cols:
+        widest += 1
+    for log_cw in range(widest, -1, -1):
+        if forward_smem(rows, log_cw) <= MAX_SMEM:
+            return "shared", log_cw
+    return "l1", None
+
+
+def forward_words(dims, log_cw: int, aligned: bool) -> int:
+    """Columns a lane of the forward's shared route takes: 8 (two float4
+    words) where both ranks are multiples of 8, a block owns at least 8
+    columns and every pointer is 16-byte aligned, else 1."""
+    if aligned and dims[3] % 8 == 0 and dims[4] % 8 == 0 and 1 << log_cw >= 8:
+        return 8
+    return 1
 
 
 def _launch_forward(lines, dims, flat, with_app):
+    """sigma [n] and the appearance products [n, R_app] (None without
+    ``with_app``) through the route ``forward_plan`` picks: "shared"
+    (with more than one density slice, a scratch of their sums) or
+    "l1"."""
     n = flat.shape[0]
     sigma = torch.empty(n, dtype=torch.float32, device=flat.device)
     app = (torch.empty((n, dims[4]), dtype=torch.float32, device=flat.device)
            if with_app else None)
     if n > 0:
+        route, log_cw = forward_plan(dims, with_app)
         lib = _build.load("cp_features", _SIGNATURES)
         ptrs = _ptrs(lines)
         vec = _vec(dims, ptrs + [flat.data_ptr()]
                    + ([] if app is None else [app.data_ptr()]))
+        args = (flat.data_ptr(), n, (ctypes.c_longlong * 6)(*ptrs),
+                (ctypes.c_int * 5)(*dims), sigma.data_ptr(),
+                0 if app is None else app.data_ptr())
+        sms = _build.sm_count(flat.device)
         stream = torch.cuda.current_stream(flat.device).cuda_stream
-        rc = lib.iff_cp_features(
-            flat.data_ptr(), n, (ctypes.c_longlong * 6)(*ptrs),
-            (ctypes.c_int * 5)(*dims), sigma.data_ptr(),
-            0 if app is None else app.data_ptr(), int(vec),
-            _build.sm_count(flat.device), stream)
-        _build.check(rc, "cp_features kernel launch")
+        if route == "shared":
+            slices = -(-(dims[3] + dims[4]) >> log_cw)
+            dens_slices = -(-dims[3] >> log_cw)
+            part = (torch.empty((dens_slices, n), dtype=torch.float32,
+                                device=flat.device) if dens_slices > 1 else None)
+            rc = lib.iff_cp_features(
+                *args, forward_words(dims, log_cw, vec), log_cw,
+                chunks(n, slices, sms, FWD_UNIT, FWD_WARPS),
+                0 if part is None else part.data_ptr(), sms,
+                stream)
+        else:
+            rc = lib.iff_cp_features_l1(*args, int(vec), sms, stream)
+        _build.check(rc, f"cp_features kernel launch ({route} route)")
         cp_features.launches += 1
+        cp_features.launches_by_route[route] += 1
     return sigma, app
 
 
@@ -280,7 +352,7 @@ def _launch_backward(lines, dims, flat, dsigma, dapp, wanted):
         lib = _build.load("cp_features", _SIGNATURES)
         cols = (dims[3] if want_d else 0) + (dims[4] if want_a else 0)
         slices = -(-cols >> log_cw)
-        chunks = backward_chunks(n, slices, _build.sm_count(flat.device))
+        blocks = chunks(n, slices, _build.sm_count(flat.device), BWD_UNIT, BWD_WARPS)
         queue = torch.zeros(slices, dtype=torch.int32, device=flat.device)
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         rc = lib.iff_cp_features_bwd(
@@ -288,7 +360,7 @@ def _launch_backward(lines, dims, flat, dsigma, dapp, wanted):
             (ctypes.c_longlong * 6)(*_ptrs(full)), (ctypes.c_int * 5)(*dims),
             dsigma.data_ptr() if want_d else 0,
             dapp.data_ptr() if want_a else 0, int(want_d), int(want_a),
-            log_cw, stages, chunks, queue.data_ptr(), stream)
+            log_cw, stages, blocks, queue.data_ptr(), stream)
         _build.check(rc, "cp_features backward kernel launch")
         cp_features_backward.launches += 1
     return [g if want else None for g, want in zip(full, wanted)]
@@ -426,5 +498,6 @@ def cp_features_coords_grad(config, params, xyz: torch.Tensor,
 
 
 cp_features.launches = 0
+cp_features.launches_by_route = {"shared": 0, "l1": 0}
 cp_features_backward.launches = 0
 cp_features_coords_grad.launches = 0

@@ -26,6 +26,7 @@ import torch_parity  # noqa: F401  (torch on one thread)
 from iffnerf_tpu.models import field as jfield
 from iffnerf_tpu_torch.models import field as tfield
 from iffnerf_tpu_torch.ops import cp_features as cpf
+from iffnerf_tpu_torch.ops.grid_sample import corners_1d
 from iffnerf_tpu_torch.ops.gather import (
     gather_rows,
     gather_rows_backward,
@@ -236,10 +237,10 @@ def test_cp_features_refuses_before_any_launch(take):
 def test_cp_backward_columns(dims, want_d, want_a, log_cw, stages):
     """A block's column slice and its warps' ring depth: the widest power
     of two up to 32, no wider than the columns asked for, whose sums of the
-    three lines and rings fit BWD_MAX_SMEM, at the deepest ring that fits."""
+    three lines and rings fit MAX_SMEM, at the deepest ring that fits."""
     got = cpf.backward_plan(dims, want_d, want_a)
     assert got == (log_cw, stages)
-    assert cpf.backward_smem(sum(dims[:3]), *got) <= cpf.BWD_MAX_SMEM
+    assert cpf.backward_smem(sum(dims[:3]), *got) <= cpf.MAX_SMEM
 
 
 def test_cp_backward_refuses_lines_too_long_for_shared_memory():
@@ -269,7 +270,7 @@ def test_cp_backward_plan_takes_what_the_first_design_took(ranks):
             cols = (ranks[0] if want_d else 0) + (ranks[1] if want_a else 0)
             assert 0 <= log_cw <= 5 and (log_cw == 0 or 1 << (log_cw - 1) < cols)
             assert stages in cpf.BWD_STAGES
-            assert cpf.backward_smem(total, log_cw, stages) <= cpf.BWD_MAX_SMEM
+            assert cpf.backward_smem(total, log_cw, stages) <= cpf.MAX_SMEM
     too_long = (28673, 0, 0) + ranks
     assert not _parent_accepts(too_long)
     with pytest.raises(ValueError):
@@ -283,7 +284,7 @@ def test_cp_backward_plan_takes_what_the_first_design_took(ranks):
 def test_cp_backward_chunks(n, slices, sms, want):
     """One wave of one block an SM (whole slices' worth), no more blocks
     than give each warp a unit of samples, at least one."""
-    assert cpf.backward_chunks(n, slices, sms) == want
+    assert cpf.chunks(n, slices, sms, cpf.BWD_UNIT, cpf.BWD_WARPS) == want
 
 
 @pytest.mark.parametrize("rows,cols", [(9, 4), (30, 1)])
@@ -332,7 +333,7 @@ def test_gather_rows_backward_refuses(take):
     n for n, v in cp_time.VARIANTS.items() if v[0] == "source"))
 def test_cp_time_variants_edit_the_source(name):
     """Each text edit of ``tools/cp_time.py``'s variants of this checkout's
-    line-gradient kernel finds its text exactly once."""
+    line-gradient or forward kernel finds its text exactly once."""
     src = (Path(cpf.__file__).resolve().parents[1] / "csrc"
            / "cp_features.cu").read_text()
     text = cp_time.variant_source(name, src, None)
@@ -345,3 +346,133 @@ def test_cp_time_parent_plan_is_the_first_designs():
     assert cp_time.parent_plan([505, 505, 489, 96, 288], 384, 7_090_176,
                                132) == (4, 22)
     assert cp_time.parent_plan([20, 20, 20, 3, 5], 8, 1021, 132) == (3, 1)
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, v in cp_time.VARIANTS.items() if v[0] == "parent" and cp_time.is_forward(n)))
+def test_cp_time_parent_variants_edit_the_first_design(name):
+    """The parent's forward cut-outs edit the first design, which the
+    source keeps as its long-line route: each edit finds its text there
+    exactly once. The source's line gradient is not the first design, so
+    ``--parent`` at this checkout runs its backward through the wrapper."""
+    src = (Path(cpf.__file__).resolve().parents[1] / "csrc"
+           / "cp_features.cu").read_text()
+    assert cp_time.variant_source(name, None, src) != src
+    assert not cp_time.first_backward(src)
+
+
+@pytest.mark.parametrize("name,registers,warps", [
+    ("_ZN3iff2cp3fwd22cp_features_fwd_kernelILi8ELi2EEEvPKfNS0_5LinesE", 112, 16),
+    ("_ZN3iff2cp18cp_features_kernelILi4EEEvPKfNS0_5LinesEPfS4_li", 66, 24),
+    ("_ZN3iff2cp3bwd22cp_features_bwd_kernelEPKfS3_S3_", 128, 16),
+    ("_ZN3iff2cp19cp_sigma_sum_kernelEPKfPfil", 16, 64),
+])
+def test_cp_time_resident_warps_by_kernel(name, registers, warps):
+    """Each kernel's warps an SM at its own block's threads: 512 for the
+    shared forward and the line gradient, 256 for the rest."""
+    assert cp_time.kernels_resident_warps({name: registers}) == {name: warps}
+
+
+@pytest.mark.parametrize("dims,with_app,route,log_cw", [
+    ((505, 505, 489, 96, 288), True, "shared", 5),     # lego's CP step
+    ((505, 505, 489, 96, 288), False, "shared", 5),    # density only: 96 columns
+    ((20, 20, 20, 3, 5), True, "shared", 3),           # 8 columns
+    ((16, 17, 18, 4, 12), True, "shared", 4),          # 16 columns
+    ((130, 140, 150, 47, 5), True, "shared", 5),       # odd ranks
+    ((130, 140, 150, 1, 1), False, "shared", 0),       # one column
+    ((542, 541, 541, 96, 288), True, "shared", 5),     # 1 624 rows: the last at 32
+    ((542, 542, 541, 96, 288), True, "shared", 4),     # 1 625 rows: 16 columns
+    ((4000, 4000, 4000, 96, 288), True, "shared", 2),
+    ((9000, 9000, 9000, 96, 288), True, "shared", 0),
+    ((17323, 17323, 17322, 96, 288), True, "shared", 0),  # FWD_MAX_ROWS
+    ((17323, 17323, 17323, 96, 288), True, "l1", None),   # one row more
+    ((60000, 0, 0, 4, 4), False, "l1", None),
+])
+def test_cp_forward_plan(dims, with_app, route, log_cw):
+    """The forward's route and column width: the widest power of two up to
+    32, no wider than the columns, whose slice of the three lines fits
+    MAX_SMEM beside the warps' records; the first design past
+    FWD_MAX_ROWS rows in all."""
+    assert cpf.forward_plan(dims, with_app) == (route, log_cw)
+    rows = sum(dims[:3])
+    assert (route == "shared") == (rows <= cpf.FWD_MAX_ROWS)
+    if route == "shared":
+        assert cpf.forward_smem(rows, log_cw) <= cpf.MAX_SMEM
+        assert log_cw == 5 or cpf.forward_smem(rows, log_cw + 1) > cpf.MAX_SMEM \
+            or 1 << log_cw >= dims[3] + (dims[4] if with_app else 0)
+
+
+def test_cp_forward_plan_at_lego_slices():
+    """lego's CP step: 12 slices of 32 columns, 3 of them density, 11
+    blocks a slice (one an SM of 132), 216 448 bytes of shared memory."""
+    dims = (505, 505, 489, 96, 288)
+    _, log_cw = cpf.forward_plan(dims, True)
+    slices = -(-(96 + 288) >> log_cw)
+    assert (slices, -(-96 >> log_cw)) == (12, 3)
+    assert cpf.chunks(7_090_176, slices, 132, cpf.FWD_UNIT, cpf.FWD_WARPS) == 11
+    assert cpf.forward_smem(1499, log_cw) == 216_448
+
+
+@pytest.mark.parametrize("n,slices,sms,want", [
+    (7_090_176, 12, 132, 11), (204_660, 12, 132, 11), (1_769_472, 3, 132, 44),
+    (1021, 3, 132, 2), (0, 12, 132, 1), (40_000, 1, 132, 79),
+    (10 ** 9, 400, 132, 1)])
+def test_cp_forward_chunks(n, slices, sms, want):
+    """One wave of one block an SM, no more blocks than give each warp a
+    unit of FWD_UNIT samples, at least one."""
+    assert cpf.chunks(n, slices, sms, cpf.FWD_UNIT, cpf.FWD_WARPS) == want
+
+
+@pytest.mark.parametrize("dims,log_cw,aligned,want", [
+    ((505, 505, 489, 96, 288), 5, True, 8),   # lego's CP step: two float4 a lane
+    ((505, 505, 489, 96, 288), 5, False, 1),  # a pointer off the 16-byte grid
+    ((505, 505, 489, 96, 0), 5, True, 8),     # density only
+    ((300, 17, 90, 12, 20), 5, True, 1),      # ranks multiples of 4, not of 8
+    ((4000, 4000, 4000, 96, 288), 2, True, 1),  # a block of 4 columns
+    ((8000, 8000, 8000, 96, 288), 1, True, 1),
+    ((130, 140, 150, 47, 5), 5, True, 1),
+])
+def test_cp_forward_words(dims, log_cw, aligned, want):
+    """Columns a lane of the shared route takes: two float4 words where
+    the ranks, the block's columns and the pointers allow, else one."""
+    assert cpf.forward_words(dims, log_cw, aligned) == want
+
+
+def _kernel_products(lines, xyz):
+    """The forward kernel's arithmetic on the CPU: each axis's corners by
+    slot parity, the in-range flag folded into the weights (f * (m * a)
+    for (f * m) * a), the two terms added in slot order, the lerps
+    multiplied in the axis order 0, 1, 2."""
+    prod = None
+    for i, line in enumerate(lines):
+        g = xyz[:, cpf.VEC_MODE[i]]
+        idx, valid, w = corners_1d(line.shape[0], g)
+        i0 = torch.floor((g + 1.0) * 0.5 * (line.shape[0] - 1)).to(torch.int32)
+        w0 = torch.where(valid[0], 1.0 - w, torch.zeros_like(w))[:, None]
+        w1 = torch.where(valid[1], w, torch.zeros_like(w))[:, None]
+        t0 = line[idx[0].long()] * w0
+        t1 = line[idx[1].long()] * w1
+        even = (i0 % 2 == 0)[:, None]
+        lerp = torch.where(even, t0 + t1, t1 + t0)
+        prod = lerp if prod is None else prod * lerp
+    return prod
+
+
+@pytest.mark.parametrize("name", list(FIELDS))
+def test_cp_forward_folded_weights_are_the_plain_lerp_bit_for_bit(name):
+    """The shared-memory forward's lerp (two products and a sum a texel,
+    the flags in the weights, the terms in slot order) gives the samplers'
+    products bit for bit, at corners in range, out of range and at the
+    edges."""
+    lines, xyz, _, _ = _case(name, seed=9, n=500)
+    params = _t(lines)
+    x = torch.from_numpy(xyz)
+    for kind in cpf.LINES:
+        got = _kernel_products(params[kind], x)
+        want = cpf.cp_products(params[kind], x)
+        assert torch.equal(got, want)
+
+
+def test_cp_forward_counts_launches_by_route():
+    """The forward's launches are counted in all and by route."""
+    assert set(cpf.cp_features.launches_by_route) == {"shared", "l1"}

@@ -1278,6 +1278,87 @@ def test_cp_wrappers_refuse_before_any_launch(dev, take):
             cpf.cp_features_coords_grad.launches) == counts
 
 
+def _assert_cp_forward_matches_plain(params, xyz, route):
+    """The forward kernel against cp_features_plain (chunked): the products
+    bit-equal, sigma within 1e-5 and 1e-6 x max|plain|, a second call
+    bit-equal, a density-only call's sigma the same; one launch a call, on
+    ``route``."""
+    before = dict(cpf.cp_features.launches_by_route)
+    with torch.no_grad():
+        sigma, app = cpf.cp_features(CP_CFG, params, xyz)
+        again = cpf.cp_features(CP_CFG, params, xyz)
+        only, none = cpf.cp_features(CP_CFG, params, xyz, with_app=False)
+    torch.cuda.synchronize()
+    counted = {k: cpf.cp_features.launches_by_route[k] - before[k] for k in before}
+    assert counted == {k: 3 * (k == route and xyz.shape[0] > 0) for k in before}
+    want_s, want_a = _cp_chunked(lambda x: cpf.cp_features_plain(
+        params, x, True, gather_rows_plain), xyz)
+    assert torch.equal(app, want_a) and none is None
+    atol = 1e-6 * float(want_s.abs().max()) if want_s.numel() else 0.0
+    torch.testing.assert_close(sigma, want_s, rtol=1e-5, atol=atol)
+    torch.testing.assert_close(only, want_s, rtol=1e-5, atol=atol)
+    assert torch.equal(sigma, again[0]) and torch.equal(app, again[1])
+
+
+@pytest.mark.parametrize("n", [4096 * 1731, 204660, 1024 * 1728])
+def test_cp_forward_kernel_at_the_main_paths_counts(dev, n):
+    """TensoRF's CP ranks at a training step's, a colour chunk's and an
+    iNeRF iteration's sample counts: 32 columns a block, float4 words."""
+    params = _cp_lines("lego", dev, seed=11)
+    assert cpf.forward_plan([a.shape[0] for a in params["density_line"]]
+                            + [96, 288], True) == ("shared", 5)
+    _assert_cp_forward_matches_plain(params, _cp_samples(n, dev, seed=11), "shared")
+
+
+@pytest.mark.parametrize("length,log_cw", [(600, 4), (2000, 3), (4000, 2),
+                                           (8000, 1), (17000, 0)])
+def test_cp_forward_kernel_narrower_slices(dev, length, log_cw):
+    """Lines long enough that the plan takes 16, 8, 4, 2 and 1 columns a
+    block (scalar words below 8), at lego's ranks."""
+    g = torch.Generator().manual_seed(12)
+    params = {k: tuple((0.5 * torch.randn((length + j, r), generator=g)).to(dev)
+                       for j in range(3))
+              for k, r in (("density_line", 96), ("app_line", 288))}
+    dims = [length, length + 1, length + 2, 96, 288]
+    assert cpf.forward_plan(dims, True) == ("shared", log_cw)
+    _assert_cp_forward_matches_plain(params, _cp_samples(30000, dev, seed=12), "shared")
+
+
+@pytest.mark.parametrize("lengths,rd,ra", [
+    ((129, 64, 37), 7, 13),     # scalar words, a slice of both kinds
+    ((300, 17, 90), 33, 31),
+    ((61, 250, 9), 96, 288),
+    ((50, 60, 70), 4, 12),      # scalar words, 16 columns a block (ranks not multiples of 8)
+    ((129, 64, 37), 12, 20),    # scalar words at 32 columns a block
+    ((20000, 20000, 20000), 8, 8),  # past FWD_MAX_ROWS: the first design
+])
+def test_cp_forward_kernel_uneven_lines_and_ranks(dev, lengths, rd, ra):
+    g = torch.Generator().manual_seed(13)
+    params = {k: tuple((0.5 * torch.randn((length, r), generator=g)).to(dev)
+                       for length in lengths)
+              for k, r in (("density_line", rd), ("app_line", ra))}
+    route = cpf.forward_plan(list(lengths) + [rd, ra], True)[0]
+    assert route == ("l1" if sum(lengths) > cpf.FWD_MAX_ROWS else "shared")
+    _assert_cp_forward_matches_plain(params, _cp_samples(9000, dev, seed=13), route)
+
+
+def test_cp_forward_kernel_unaligned_coords_and_lines(dev):
+    """Coordinates, then one line, off the 16-byte grid at lego's ranks:
+    scalar words at 32 columns a block, at counts around a stage and a
+    unit."""
+    params = _cp_lines("lego", dev, seed=14)
+    for n in (1, 31, 33, 257, 1021):
+        buf = _cp_samples(n + 1, dev, seed=14).reshape(-1)
+        xyz = buf[1:1 + 3 * n].view(n, 3)
+        _assert_cp_forward_matches_plain(params, xyz, "shared")
+    line = params["app_line"][1]
+    buf = torch.empty(line.numel() + 1, device=dev)
+    buf[1:] = line.reshape(-1)
+    params["app_line"] = (params["app_line"][0], buf[1:].view(line.shape),
+                          params["app_line"][2])
+    _assert_cp_forward_matches_plain(params, _cp_samples(5000, dev, seed=14), "shared")
+
+
 def _assert_cp_backward_matches_plain(params, xyz, dsigma, dapp=None):
     """The line-gradient kernel against cp_features_backward_plain (chunked)
     within CP_GRAD_TOL of each line's largest, one launch."""
