@@ -382,6 +382,11 @@ CP_FLAGS = ("--model_name", "TensorCP", "--n_lamb_sigma", "96",
             "--n_lamb_sh", "288", "--N_voxel_final", "125000000",
             "--L1_weight_inital", "1e-5", "--L1_weight_rest", "1e-5")
 CP_GRAD_TOL, CP_SAMPLER_RAYS, CP_INERF_ITERS = 1e-4, 256, 50
+# The CP coordinate kernel's all-live set: an iNeRF iteration's count (1 024
+# rays of 1 728 samples, as 2 048 of 864) ray-ordered half a texel apart at
+# the trained field's lines, centres within INERF_LIVE_SPREAD of the
+# origin, every upstream word normal
+CP_LIVE_RAYS, CP_LIVE_PER_RAY = 2048, 864
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 T_START = time.perf_counter()
 
@@ -3743,6 +3748,24 @@ def cp_random_upstream(params, xyz, seed):
     return dsigma, dapp
 
 
+def cp_all_live_inputs(params, dev):
+    """The CP coordinate kernel's all-live input at ``params``' lines:
+    CP_LIVE_RAYS rays in random directions of CP_LIVE_PER_RAY samples half
+    a texel apart (``ray_ordered_samples`` on the lines' lengths), every
+    upstream word normal (numpy, from the seed) -> (params, xyz, dsigma,
+    dapp)."""
+    grid = tuple(a.shape[0] for a in params["density_line"])[::-1]
+    dirs = np.random.default_rng(SEED + 63).standard_normal((CP_LIVE_RAYS, 3))
+    xyz = ray_ordered_samples(grid, dirs, CP_LIVE_PER_RAY, SEED + 64,
+                              spread=INERF_LIVE_SPREAD)
+    rng = np.random.default_rng(SEED + 65)
+    n, ra = xyz.shape[0], params["app_line"][0].shape[1]
+    dsigma = rng.standard_normal(n, dtype=np.float32)
+    dapp = rng.standard_normal((n, ra), dtype=np.float32)
+    return (params, *(torch.as_tensor(a, device=dev)
+                      for a in (xyz, dsigma, dapp)))
+
+
 def cp_chunked(fn, xyz, *ups, total=False):
     """``fn(xyz_chunk, *ups_chunk)`` over chunks of FT_PLAIN_CHUNK samples
     -> the outputs concatenated, or summed leaf by leaf with ``total``."""
@@ -3953,6 +3976,44 @@ def cp_kernel_holds(config, params, xyz, dsigma, dapp, label):
     return rows
 
 
+def cp_coords_holds(config, params, xyz, dsigma, dapp, label):
+    """The CP coordinate kernel at these inputs against its plain version
+    (chunked) within COORDS_GRAD_TOL of the largest |dxyz|, three calls
+    bit-equal; then timed (graph and eager) beside its bound, its plain
+    version and F.grid_sample's backward on the three lines -> the row."""
+    got = cp_features_coords_grad(config, params, xyz, dsigma, dapp)
+    want = cp_chunked(lambda *a: cp_features_coords_grad_plain(params, *a),
+                      xyz, dsigma, dapp)
+    scale = float(want.abs().max())
+    row = {"n": xyz.shape[0], "max_abs_err": float((got - want).abs().max()),
+           "max_abs_plain": scale,
+           "samples_with_upstream": int(((dsigma != 0)
+                                         | (dapp != 0).any(-1)).sum()),
+           "repeats_bit_equal": all(torch.equal(got, cp_features_coords_grad(
+               config, params, xyz, dsigma, dapp)) for _ in range(2))}
+    row["share_of_tolerance"] = row["max_abs_err"] / (
+        COORDS_GRAD_TOL * max(scale, 1e-30))
+    check(row["share_of_tolerance"] <= 1.0 and row["repeats_bit_equal"],
+          f"the CP coordinate kernel at {label}: {row}")
+    del got, want
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        row["ms"] = time_ms(lambda: cp_features_coords_grad(
+            config, params, xyz, dsigma, dapp), reps=FT_REPS, graph=True)
+        row["eager_ms"] = time_ms(lambda: cp_features_coords_grad(
+            config, params, xyz, dsigma, dapp), reps=FT_REPS)
+    row["bound_ms"], row["bound_by"] = cp_bounds(
+        params, xyz, dsigma, dapp)["coords_grad"]
+    row["plain_ms"] = time_ms(lambda: cp_chunked(
+        lambda *a: cp_features_coords_grad_plain(params, *a), xyz, dsigma,
+        dapp), reps=3)
+    lines = cp_library_lines(params)
+    row["library_ms"] = time_ms(
+        lambda: cp_library_coords(lines, xyz, dsigma, dapp), reps=3)
+    torch.cuda.empty_cache()
+    return row
+
+
 def k3_backward_holds(table_rows, idx, up, label):
     """K3's backward at ``idx`` [N] int32 and ``up`` [N, C] into a table of
     ``table_rows`` rows against index_add_ (gather_rows_backward_plain)
@@ -4091,6 +4152,29 @@ def train_cp(dev):
         pool_s=pool_s)
 
 
+def cp_inerf_frame(config, params, mask, dev):
+    """The CP iNeRF case: lego's camera, a true pose, the 800x800 frame
+    rendered from the field there and the JAX test's perturbed start ->
+    (cam_k, gt, obs, start)."""
+    cam_k = lego_camera()
+    gt = _look_at_c2w(4.0 * np.array([math.cos(0.6) * math.cos(0.5),
+                                      math.sin(0.6) * math.cos(0.5),
+                                      math.sin(0.5)]))
+    obs = render_rgba(config, params, mask, gt, cam_k, dev)
+    return cam_k, gt, obs, perturbed(gt)
+
+
+def cp_inerf(config, params, mask, frame, n_iters, seed, dev):
+    """``n_iters`` iterations of ``estimate_pose_inerf`` at
+    test_pose_estimation's settings from ``cp_inerf_frame``'s start ->
+    (loss, pose, history)."""
+    cam_k, _, obs, start = frame
+    return estimate_pose_inerf(
+        start, obs, cam_k, config, params, mask, sampling_strategy="random",
+        lrate=INERF_LRATE, batch_size=INERF_BATCH, color_bkgd_aug="random",
+        n_iters=n_iters, dice_loss=True, seed=seed, device=dev)
+
+
 def phase_tensor_cp(dev):
     """TensorCP fields on the card: ``train_cp`` (its checks: the CP kernels
     and K3's mask lookup every step, every forward on the shared-memory
@@ -4103,9 +4187,12 @@ def phase_tensor_cp(dev):
     (``cp_sampler_route``); ``explore_field`` on the trained field (launch
     counts, no texel lerp in torch); CP_INERF_ITERS iterations of
     ``estimate_pose_inerf`` from the JAX test's perturbation of an 800x800
-    frame rendered from the field, the coordinate kernel and the forward
-    held to their plain versions at an iteration's inputs -> {kernel: the
-    kernels line's entry}."""
+    frame rendered from the field, INERF_PROFILE_ITERS more under the
+    profiler; the coordinate kernel and the forward
+    held to their plain versions at an iteration's inputs, the coordinate
+    kernel also at an all-live set of as many samples (``cp_all_live_
+    inputs``), repeats bit-equal at both -> {kernel: the kernels line's
+    entry}."""
     t_phase = time.perf_counter()
     run = train_cp(dev)
     args, config, params, mask = run.args, run.config, run.params, run.mask
@@ -4203,27 +4290,20 @@ def phase_tensor_cp(dev):
     del cp, cxyz, line_idx
 
     # iNeRF on the CP field
-    cam_k = lego_camera()
-    gt = _look_at_c2w(4.0 * np.array([math.cos(0.6) * math.cos(0.5),
-                                      math.sin(0.6) * math.cos(0.5),
-                                      math.sin(0.5)]))
     t0 = time.perf_counter()
-    obs = render_rgba(config, params, mask, gt, cam_k, dev)
+    frame = cp_inerf_frame(config, params, mask, dev)
     render_s = _sync_s(t0)
+    gt, obs, start = frame[1:]
     check(bool(torch.isfinite(obs).all()), "finite CP frame")
     coverage = float((obs[..., 3] > 0.5).float().mean())
-    start = perturbed(gt)
     with count_torch_lerps() as torch_lerps, captured_cp(
             "_launch_coords_grad", first_call()) as caught, captured_cp(
             "_launch_forward", first_call()) as fcaught:
         _reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        loss, refined, _ = estimate_pose_inerf(
-            start, obs, cam_k, config, params, mask,
-            sampling_strategy="random", lrate=INERF_LRATE,
-            batch_size=INERF_BATCH, color_bkgd_aug="random",
-            n_iters=CP_INERF_ITERS, dice_loss=True, seed=SEED, device=dev)
+        loss, refined, _ = cp_inerf(config, params, mask, frame,
+                                    CP_INERF_ITERS, SEED, dev)
         inerf_s = _sync_s(t0)
         inerf_counts = _counts()
     inerf_peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4236,31 +4316,19 @@ def phase_tensor_cp(dev):
           f"coordinate launch, no line backward: {inerf_counts}")
     check(math.isfinite(float(loss)) and bool(np.isfinite(refined).all()),
           f"finite iNeRF result {loss}")
+
+    def some_iterations():
+        cp_inerf(config, params, mask, frame, INERF_PROFILE_ITERS, SEED + 1,
+                 dev)
+        return INERF_PROFILE_ITERS
+
+    inerf_profile = _profiled("tensor_cp_inerf_iteration", some_iterations)
     ip, ixyz, ids, ida = caught["inputs"]
-    got = cp_features_coords_grad(config, ip, ixyz, ids, ida)
-    want = cp_chunked(lambda *a: cp_features_coords_grad_plain(ip, *a), ixyz,
-                      ids, ida)
-    scale = float(want.abs().max())
-    it_coords = {"n": ixyz.shape[0], "max_abs_err": float((got - want)
-                                                          .abs().max()),
-                 "max_abs_plain": scale,
-                 "samples_with_upstream": int(((ids != 0)
-                                               | (ida != 0).any(-1)).sum())}
-    it_coords["share_of_tolerance"] = it_coords["max_abs_err"] / (
-        COORDS_GRAD_TOL * max(scale, 1e-30))
-    check(it_coords["share_of_tolerance"] <= 1.0,
-          f"the CP coordinate kernel at an iNeRF iteration: {it_coords}")
-    it_coords["ms"] = time_ms(lambda: cp_features_coords_grad(
-        config, ip, ixyz, ids, ida), reps=FT_REPS, graph=True)
-    it_coords["bound_ms"], it_coords["bound_by"] = cp_bounds(
-        ip, ixyz, ids, ida)["coords_grad"]
-    it_coords["plain_ms"] = time_ms(lambda: cp_chunked(
-        lambda *a: cp_features_coords_grad_plain(ip, *a), ixyz, ids, ida),
-        reps=3)
-    ilines = cp_library_lines(ip)
-    it_coords["library_ms"] = time_ms(
-        lambda: cp_library_coords(ilines, ixyz, ids, ida), reps=3)
-    del ip, ixyz, ids, ida, got, want, ilines
+    it_coords = cp_coords_holds(config, ip, ixyz, ids, ida,
+                                "an iNeRF iteration")
+    all_live = cp_coords_holds(config, *cp_all_live_inputs(ip, dev),
+                               "the CP all-live set")
+    del ip, ixyz, ids, ida
     fp, fxyz, _, _ = fcaught["inputs"]
     it_forward = cp_forward_holds(config, fp, fxyz, "an iNeRF iteration")
     del fp, fxyz
@@ -4287,7 +4355,9 @@ def phase_tensor_cp(dev):
                 "errors_start": pose_errors(gt, start),
                 "errors_end": pose_errors(gt, refined),
                 "launches": inerf_counts, "peak_mem_gb": inerf_peak,
+                "profile": inerf_profile,
                 "coords_grad_at_iteration": it_coords,
+                "coords_grad_all_live": all_live,
                 "forward_at_iteration": it_forward},
          phase_s=time.perf_counter() - t_phase)
     by_path = {"tensor_cp_train": counts, "tensor_cp_explore": explore_counts,
@@ -4365,8 +4435,17 @@ def phase_tensor_cp(dev):
               " registers until its row changes; one float RED a row, rank"
               " and block"),
         entry("cp_features_coords_grad", "coords_grad", "tensor_cp_inerf",
-              "the forward's mapping: a group of lanes a sample, each word's"
-              " derivative sums in registers, met by shuffles; no atomics"),
+              "one block an SM of 12 warps, each taking 64-sample units from"
+              " a queue and streaming 8-sample stages (xyz, dsigma, whole dapp"
+              " rows) through its own 2-stage bulk-copy mbarrier ring; one"
+              " vote a sample (a dead stage stores zeros at once), corners"
+              " once a block into records (slot keys by parity with the"
+              " flags, the odd slot's weight, the signed axis factor); the"
+              " live samples walked with three float4 words a lane and each"
+              " axis's slot words in registers, reloaded only when a key"
+              " changes; rank-order sums met by a fixed shuffle tree, no"
+              " atomics",
+              at_inerf_iteration=it_coords, at_all_live=all_live),
         k3]
 
 

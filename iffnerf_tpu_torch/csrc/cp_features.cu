@@ -146,14 +146,49 @@
 // stages each, too few to hide it. The additions land in another order on
 // every run: the gradient is not bit-stable.
 //
-// Coordinate gradient (cp_coords_grad_kernel, iff_cp_features_coords_grad),
-// for iNeRF on a CP field: for each sample and axis i, the sum over ranks
-// of u * (f1 - f0) * the other two axes' lerps, scaled by (L_i - 1) / 2,
-// into dxyz[2 - i]; f0 and f1 the flagged corner texels, so an axis whose
-// corners are out of range adds zero. A kernel of its own with the
-// forward's mapping (a group of lanes a sample, its words in registers):
-// the group's partial sums meet by shuffles, no atomics. Bound: bytes, the
-// upstream read (dapp) and the coordinates.
+// Coordinate gradient (namespace cgrad: cp_coords_grad_kernel,
+// iff_cp_features_coords_grad), for iNeRF on a CP field: for each sample
+// and axis i, the sum over ranks of u * (f1 - f0) * the other two axes'
+// lerps, scaled by (L_i - 1) / 2, into dxyz[2 - i]; f0 and f1 the flagged
+// corner texels, so an axis whose corners are out of range adds zero.
+// Bound on an H100 SXM: bytes, nearly all of them the upstream read (dapp,
+// 1 152 B a sample at 288 ranks: 2.04 GB at an iNeRF iteration's 1.77 M
+// samples, 0.62 ms at 3.35 TB/s), of which an iteration's samples carry
+// about 3.4 % (each word has to be read to know). The first design (the
+// first forward's mapping: a group of lanes a sample) did all its work
+// for every sample, dead or not: 9.2 KB of corner words through L1 a
+// sample, and one chain of dependent loads a lane: 3.2 times the bound.
+// The design here:
+// - Streaming the upstream: each of a block's kWarps warps takes 64-sample
+//   units from a queue and streams their 8-sample stages (xyz, dsigma and
+//   whole dapp rows, contiguous: 9 344 B) through its own ring of 2 to 4
+//   mbarrier slots, lane 0 bulk-copying under L2's evict-first policy (the
+//   host's plan: the longest stage at the deepest ring that fits; 2 slots
+//   at lego's ranks). The stage a call ends in, and every stage off the
+//   float4 route or with a pointer off the 16-byte grid, is read from
+//   device memory instead.
+// - One vote a sample on its whole upstream row, each word read once. A
+//   stage with no live sample stores its zeros and is done: no corner, no
+//   line word.
+// - Corners once a block: a lane a live sample and axis writes the
+//   sample's record: the keys of its two slots by the parity of the
+//   corner's row (the flag folded into the key, so that a flagged slot
+//   holds zeros), the odd slot's weight, and the axis's factor, negated
+//   where the odd slot holds the lower corner.
+// - The walk: lanes take three float4 words of the ranks (density first;
+//   4-byte words, and passes of 96, off the float4 route) and keep each
+//   axis's two slot words in registers, loading a slot's row (from L2:
+//   the lines are 2.3 MB) only when its key changes; per lane the terms
+//   are summed in rank order, then a fixed shuffle tree a sample. No
+//   atomics: repeats are bit-equal, and a sample with no upstream is
+//   exactly 0.
+// What holds it (tools/cp_time.py --coords, PERF.md): at an iteration the
+// stream and the vote alone take 94 % of the kernel (1.12 times the bound);
+// where most samples are live the walk holds it, about 1 160 cycles a live
+// sample a warp, so the time falls with more warps (8 to 12: the step
+// 3.74 -> 3.10 ms); removing its slot loads or its shuffle trees saves
+// 8 % and 5 % of an all-live set, and its lerps and products (14 floating-
+// point operations a rank) keep it near the issue rate.
 #include <climits>
 #include <cstdint>
 #include <cstring>
@@ -300,73 +335,6 @@ __global__ void __launch_bounds__(kThreads)
       }
       for (int o = g >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       if (live && grp.sub == 0 && sigma != nullptr) sigma[n] = s;
-    }
-  }
-}
-
-template <int VEC>
-__global__ void __launch_bounds__(kThreads)
-    cp_coords_grad_kernel(const float* __restrict__ xyz, Lines t,
-                          const float* __restrict__ dsigma, const float* __restrict__ dapp,
-                          float* __restrict__ dxyz, int64_t N, int log_g) {
-  const int g = 1 << log_g;
-  const Group grp = group_of(log_g);
-  const int wd = t.rd / VEC, words = wd + t.ra / VEC;
-  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
-  const int64_t span = static_cast<int64_t>(grp.per_warp) * kRun;
-  for (int64_t base = warp * span; base < N; base += warps * span) {
-    const int64_t first = base + static_cast<int64_t>(grp.index) * kRun;
-    for (int k = 0; k < kRun; ++k) {
-      const int64_t n = first + k;
-      const bool live = n < N;
-      float acc[3] = {0.0f, 0.0f, 0.0f};
-      if (live) {
-        Corner c[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) c[i] = corner(__ldg(xyz + 3 * n + 2 - i), t.L[i]);
-        const float us = __ldg(dsigma + n);
-        for (int w = grp.sub; w < words; w += g) {
-          const bool dens = w < wd;
-          const int stride = dens ? t.rd : t.ra;
-          const int col = (dens ? w : w - wd) * VEC;
-          Vec<VEC> u;
-          if (dens) {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) u.v[e] = us;
-          } else {
-            u = load_vec<VEC>(dapp + n * t.ra + col);
-          }
-          Vec<VEC> l[3], d[3];
-#pragma unroll
-          for (int i = 0; i < 3; ++i) {
-            const float* line = dens ? t.density[i] : t.app[i];
-            const Vec<VEC> a = load_vec<VEC>(line + static_cast<int64_t>(c[i].r0) * stride + col);
-            const Vec<VEC> b = load_vec<VEC>(line + static_cast<int64_t>(c[i].r1) * stride + col);
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) {
-              l[i].v[e] = lerp(a.v[e], b.v[e], c[i]);
-              d[i].v[e] = b.v[e] * c[i].m1 - a.v[e] * c[i].m0;
-            }
-          }
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            // autograd's order through ((l0 * l1) * l2)
-            const float u2 = u.v[e] * l[2].v[e];
-            acc[0] += u2 * l[1].v[e] * d[0].v[e];
-            acc[1] += u2 * l[0].v[e] * d[1].v[e];
-            acc[2] += u.v[e] * (l[0].v[e] * l[1].v[e]) * d[2].v[e];
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        for (int o = g >> 1; o > 0; o >>= 1) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-      if (live && grp.sub == 0) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          dxyz[3 * n + 2 - i] = acc[i] * static_cast<float>(t.L[i] - 1) * 0.5f;
-      }
     }
   }
 }
@@ -732,6 +700,305 @@ bool upstream_map(CUtensorMap* map, const void* dapp, long long n, int ra, int c
 }
 
 }  // namespace bwd
+
+namespace cgrad {
+
+constexpr int kWarps = 12;                // warps a block, each walking on its own; one block an SM
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxRun = 8;                // samples a stage, at most (the host's plan: 8 or 4)
+constexpr int kUnit = 64;                 // samples a warp takes from the queue
+constexpr int kWords = 3;                 // words a lane takes in a pass over the ranks
+constexpr int kMinStages = 2, kMaxStages = 4;
+constexpr int kRecordBytes = 3 * 16;      // a sample's corner records, one an axis
+constexpr uint32_t kNoKey = 0xffffffffu;  // a slot that holds no row
+constexpr uint32_t kOut = 0x80000000u;    // a slot key's flag: the corner lies outside
+static_assert(kMaxStages * kMaxRun <= kUnit, "the ring runs at most one unit ahead");
+
+// The host's split of the work.
+struct Plan {
+  int run;          // samples a stage: 8, or 4 for wide appearance ranks
+  int stages;       // ring depth a warp
+  int stage_bytes;  // a stage's xyz, dsigma and dapp rows: run * (16 + 4 Ra)
+  int tma;          // stages bulk-copied into the rings (else read from device memory)
+  int units;        // units of kUnit samples
+};
+
+// Shared memory of a block: each warp's ring of stages (its xyz, dsigma
+// and dapp rows), then each warp's corner records, then the barriers. The
+// host's plan (ops/cp_features.py: coords_smem) counts the same.
+__host__ __device__ inline long long smem_bytes(int ra, int run, int stages) {
+  return static_cast<long long>(kWarps) *
+         (stages * (static_cast<long long>(run) * (16 + 4LL * ra) + 8) + kMaxRun * kRecordBytes);
+}
+
+// A sample's corners on one axis as the walk takes them: x and y the keys
+// of slot e (the even corner's row) and slot o (the odd one's), each with
+// kOut set where its corner is flagged out (the slot's words are then
+// zeros: a flag that changes reloads the slot, as a row does); z the odd
+// slot's weight, so that the lerp is ve + (vo - ve) * wo; w the axis's
+// factor (L - 1) / 2, negated where the odd slot holds the lower corner
+// (vo - ve is then f0 - f1, not the derivative f1 - f0)
+__device__ __forceinline__ uint4 record(const Corner& c, int L) {
+  const bool even = (c.i0 & 1) == 0;
+  const uint32_t ke = static_cast<uint32_t>(even ? c.r0 : c.r1) |
+                      ((even ? c.m0 : c.m1) != 0.0f ? 0u : kOut);
+  const uint32_t ko = static_cast<uint32_t>(even ? c.r1 : c.r0) |
+                      ((even ? c.m1 : c.m0) != 0.0f ? 0u : kOut);
+  const float scale = 0.5f * static_cast<float>(L - 1);
+  return make_uint4(ke, ko, __float_as_uint(even ? c.w : c.omw),
+                    __float_as_uint(even ? scale : -scale));
+}
+
+// VEC floats at p, in shared memory (a ring's stage) or device memory
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> load_any(const float* p) {
+  Vec<VEC> x;
+  if (VEC == 1) {
+    x.v[0] = *p;
+  } else {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    x.v[0] = q.x;
+    x.v[1] = q.y;
+    x.v[2] = q.z;
+    x.v[3] = q.w;
+  }
+  return x;
+}
+
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> zero_vec() {
+  Vec<VEC> x;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) x.v[e] = 0.0f;
+  return x;
+}
+
+template <int VEC>
+__device__ __forceinline__ bool nonzero(const Vec<VEC>& x) {
+  bool nz = false;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) nz |= x.v[e] != 0.0f;
+  return nz;
+}
+
+// Word w of a sample's ranks (density words first) of line i at the row
+// of slot key `key`: zeros where the corner is flagged out or the word is
+// past the ranks
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> slot_word(const Lines& t, int i, uint32_t key, int w, int wd,
+                                              int words) {
+  if ((key & kOut) || w >= words) return zero_vec<VEC>();
+  const bool dens = w < wd;
+  const float* line = dens ? t.density[i] : t.app[i];
+  const int64_t stride = dens ? t.rd : t.ra;
+  return load_vec<VEC>(line + static_cast<int64_t>(key) * stride + (dens ? w : w - wd) * VEC);
+}
+
+// Each warp takes units of kUnit samples from the queue (an int32, zeroed
+// by the host) until they run out, and streams each unit's stages of
+// p.run samples through its own ring of p.stages slots: lane 0 bulk-copies
+// a stage's xyz, dsigma and dapp rows (contiguous) under L2's evict-first
+// policy, or arrives with no bytes where the lanes read the stage from
+// device memory (the stage a call ends in, and every stage off the ring's
+// route). For each stage: one vote a sample on its whole upstream row (each
+// word read once); a stage with no live sample stores its zeros; otherwise
+// lanes compute each live sample's three corner records once, and the warp
+// walks the live samples in order, a lane taking kWords words of the ranks
+// a pass (float4 or float, density words first) and keeping each axis's
+// two slot words in registers, loading a slot's row only when its key
+// changes; a sample's lane sums (in rank order) meet in a fixed shuffle
+// tree. No atomics: repeats are bit-equal, and a sample with no upstream
+// is exactly 0.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+    cp_coords_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ dsigma,
+                          const float* __restrict__ dapp, const __grid_constant__ Lines t,
+                          const __grid_constant__ Plan p, int64_t N, float* __restrict__ dxyz,
+                          int* __restrict__ queue) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int K = p.stages, run = p.run, ra = t.ra;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ring_bytes = kWarps * K * p.stage_bytes;
+  unsigned char* ring = smem + warp * K * p.stage_bytes;                       // [K][stage_bytes]
+  uint4* rec = reinterpret_cast<uint4*>(smem + ring_bytes) + warp * kMaxRun * 3;  // [run][3]
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(smem + ring_bytes + kWarps * kMaxRun * kRecordBytes) + warp * K;
+  if (lane == 0) {
+    for (int s = 0; s < K; ++s) hop::mbar_init(bar + s, 1);
+    hop::fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int wd = t.rd / VEC, words = wd + ra / VEC;  // words of a sample's ranks
+  const int passes = (words + 32 * kWords - 1) / (32 * kWords);
+  const int per_unit = kUnit / run;
+  const uint64_t policy = bwd::evict_first();
+
+  auto grab = [&]() {  // the next unit of the queue, or -1
+    int u = 0;
+    if (lane == 0) u = atomicAdd(queue, 1);
+    u = __shfl_sync(0xffffffffu, u, 0);
+    return u < p.units ? u : -1;
+  };
+  // the bulk copies of stage st of unit into slot s, by lane 0 (none when
+  // the stage is read from device memory)
+  auto issue = [&](int s, int unit, int st) {
+    if (lane != 0) return;
+    const int64_t n0 = static_cast<int64_t>(unit) * kUnit + st * run;
+    const bool staged = p.tma && n0 + run <= N;
+    hop::mbar_arrive_expect_tx(bar + s, staged ? static_cast<uint32_t>(p.stage_bytes) : 0u);
+    if (!staged) return;
+    unsigned char* dst = ring + s * p.stage_bytes;
+    hop::bulk_load(dst, xyz + 3 * n0, run * 12, bar + s, policy);
+    hop::bulk_load(dst + run * 12, dsigma + n0, run * 4, bar + s, policy);
+    if (ra) hop::bulk_load(dst + run * 16, dapp + n0 * ra, run * ra * 4, bar + s, policy);
+  };
+
+  int cu = grab();  // the unit being consumed
+  if (cu < 0) return;
+  int iu = cu, nu = -1, ist = 0, issued = 0;  // the unit and stage issued next
+  bool more = true;
+  auto advance = [&]() {
+    if (++ist == per_unit) {
+      ist = 0;
+      iu = nu = grab();
+      more = iu >= 0;
+    }
+  };
+  for (int s = 0; s < K && more; ++s, ++issued) {
+    issue(s, iu, ist);
+    advance();
+  }
+  // a lane's slots: each axis's keys and words, kept while the keys hold
+  uint32_t ke[3], ko[3];
+  Vec<VEC> ve[3][kWords], vo[3][kWords];
+  auto forget = [&]() {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) ke[i] = ko[i] = kNoKey;
+  };
+  forget();
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) ve[i][j] = vo[i][j] = zero_vec<VEC>();
+
+  int consumed = 0, cst = 0, s = 0;
+  uint32_t phase = 0;
+  while (consumed < issued) {
+    hop::mbar_wait(bar + s, phase);
+    const int64_t n0 = static_cast<int64_t>(cu) * kUnit + cst * run;
+    const bool staged = p.tma && n0 + run <= N;
+    const int64_t left = N - n0;
+    const int count = left <= 0 ? 0 : left < run ? static_cast<int>(left) : run;
+    const unsigned char* slot = ring + s * p.stage_bytes;
+    const float* sx = staged ? reinterpret_cast<const float*>(slot) : xyz + 3 * n0;
+    const float* sd = staged ? reinterpret_cast<const float*>(slot + run * 12) : dsigma + n0;
+    const float* sa = !ra ? nullptr
+                          : staged ? reinterpret_cast<const float*>(slot + run * 16)
+                                   : dapp + n0 * ra;
+    // the vote: bit k of live when sample k has a non-zero word
+    unsigned live = 0;
+    for (int k = 0; k < count; ++k) {
+      bool nz = sd[k] != 0.0f;
+      for (int w = lane; w < ra / VEC; w += 32) nz |= nonzero<VEC>(load_any<VEC>(sa + k * ra + w * VEC));
+      if (__any_sync(0xffffffffu, nz)) live |= 1u << k;
+    }
+    float out = 0.0f;  // lane 3 k + c: coordinate c of sample k
+    if (live != 0) {
+      // corners once a block: a lane a live sample and axis
+      if (lane < 3 * count) {
+        const int k = lane / 3, i = lane - 3 * k;
+        if ((live >> k) & 1) rec[lane] = record(corner(sx[3 * k + 2 - i], t.L[i]), t.L[i]);
+      }
+      __syncwarp();
+      for (int ps = 0; ps < passes; ++ps) {
+        const int w0 = ps * 32 * kWords + lane;  // the lane's word j is w0 + 32 j
+        if (passes > 1) forget();
+        for (int k = 0; k < count; ++k) {
+          if (!((live >> k) & 1)) continue;
+          uint4 q[3];
+          float wo[3];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            q[i] = rec[3 * k + i];
+            wo[i] = __uint_as_float(q[i].z);
+            if (q[i].x != ke[i]) {
+              ke[i] = q[i].x;
+#pragma unroll
+              for (int j = 0; j < kWords; ++j)
+                ve[i][j] = slot_word<VEC>(t, i, q[i].x, w0 + 32 * j, wd, words);
+            }
+            if (q[i].y != ko[i]) {
+              ko[i] = q[i].y;
+#pragma unroll
+              for (int j = 0; j < kWords; ++j)
+                vo[i][j] = slot_word<VEC>(t, i, q[i].y, w0 + 32 * j, wd, words);
+            }
+          }
+          const float us = sd[k];
+          float a[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int j = 0; j < kWords; ++j) {
+            const int w = w0 + 32 * j;
+            Vec<VEC> u;
+            if (w >= words) {
+              u = zero_vec<VEC>();
+            } else if (w < wd) {
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) u.v[e] = us;
+            } else {
+              u = load_any<VEC>(sa + k * ra + (w - wd) * VEC);
+            }
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              float d[3], l[3];
+#pragma unroll
+              for (int i = 0; i < 3; ++i) {
+                d[i] = vo[i][j].v[e] - ve[i][j].v[e];
+                l[i] = fmaf(d[i], wo[i], ve[i][j].v[e]);
+              }
+              // autograd's order through ((l0 * l1) * l2)
+              const float u2 = u.v[e] * l[2];
+              a[0] = fmaf(u2 * l[1], d[0], a[0]);
+              a[1] = fmaf(u2 * l[0], d[1], a[1]);
+              a[2] = fmaf(u.v[e] * (l[0] * l[1]), d[2], a[2]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) a[i] += __shfl_xor_sync(0xffffffffu, a[i], o);
+            if (lane == 3 * k + 2 - i) out += a[i];
+          }
+        }
+      }
+      if (lane < 3 * count) {
+        const int k = lane / 3, i = 2 - (lane - 3 * k);
+        out = (live >> k) & 1 ? out * __uint_as_float(rec[3 * k + i].w) : 0.0f;
+      }
+      __syncwarp();  // the records read before the next stage's are written
+    }
+    if (lane < 3 * count) dxyz[3 * n0 + lane] = out;
+    __syncwarp();  // the slot read: refill it
+    ++consumed;
+    if (++cst == per_unit) {  // the unit's end: the next unit's rows are others
+      cst = 0;
+      cu = nu;
+      forget();
+    }
+    if (more) {
+      issue(s, iu, ist);
+      ++issued;
+      advance();
+    }
+    if (++s == K) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+}  // namespace cgrad
 
 namespace fwd {
 
@@ -1176,32 +1443,45 @@ extern "C" int iff_cp_features_bwd(const void* xyz, long long N, const long long
 }
 
 // The gradient of sum(sigma * dsigma) (+ sum(app * dapp) when Ra > 0) with
-// respect to xyz: xyz, ptrs, dims and vec as iff_cp_features takes them;
-// dsigma [N] float32 (Rd > 0); dapp [N, Ra] float32 or null (Ra 0); dxyz
-// [N, 3] float32, written whole. Returns a cudaError_t; N == 0 launches
-// nothing.
+// respect to xyz: xyz, ptrs, dims and vec as iff_cp_features takes them
+// (vec 4: float4 words, Rd and Ra multiples of 4, every line and dapp
+// 16-byte aligned; else 0, 4-byte words); dsigma [N] float32 (Rd > 0); dapp
+// [N, Ra] float32 or null (Ra 0); dxyz [N, 3] float32, written whole (zeros
+// for a sample with no upstream). run: samples a stage (8 or 4); stages:
+// each warp's ring depth (2 to 4; the block's shared memory,
+// cgrad::smem_bytes, at most 227 KB); blocks: the grid (one block an SM);
+// queue: an int32, zeroed. The rings take the stages when vec is 4 and xyz,
+// dsigma and dapp are 16-byte aligned. Returns a cudaError_t; N == 0
+// launches nothing.
 extern "C" int iff_cp_features_coords_grad(const void* xyz, long long N, const long long* ptrs,
                                            const int* dims, const void* dsigma,
-                                           const void* dapp, void* dxyz, int vec, int sms,
-                                           void* stream) {
+                                           const void* dapp, void* dxyz, int vec, int run,
+                                           int stages, int blocks, void* queue, void* stream) {
   namespace c = iff::cp;
+  namespace g = iff::cp::cgrad;
   c::Lines t;
-  if (N < 0 || sms <= 0 || !c::make_lines(ptrs, dims, t) || (vec && (t.rd % 4 || t.ra % 4)) ||
-      t.rd == 0 || !dsigma || (t.ra > 0) != (dapp != nullptr))
+  if (N < 0 || !c::make_lines(ptrs, dims, t) || (vec && (t.rd % 4 || t.ra % 4)) ||
+      t.rd == 0 || !dsigma || (t.ra > 0) != (dapp != nullptr) || (run != 4 && run != 8) ||
+      stages < g::kMinStages || stages > g::kMaxStages || blocks <= 0 || queue == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = g::smem_bytes(t.ra, run, stages);
+  const long long units = (N + g::kUnit - 1) / g::kUnit;
+  if (smem > c::kMaxSmem || units > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
-  const int v = vec ? 4 : 1;
-  const int log_g = c::log_group((t.rd + t.ra) / v);
-  const int blocks = c::grid_of(N, log_g, sms);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* x = static_cast<const float*>(xyz);
-  auto* ds = static_cast<const float*>(dsigma);
-  auto* da = static_cast<const float*>(dapp);
-  if (vec)
-    c::cp_coords_grad_kernel<4><<<blocks, c::kThreads, 0, s>>>(x, t, ds, da,
-                                                              static_cast<float*>(dxyz), N, log_g);
-  else
-    c::cp_coords_grad_kernel<1><<<blocks, c::kThreads, 0, s>>>(x, t, ds, da,
-                                                              static_cast<float*>(dxyz), N, log_g);
+  g::Plan p;
+  p.run = run;
+  p.stages = stages;
+  p.stage_bytes = run * (16 + 4 * t.ra);
+  p.units = static_cast<int>(units);
+  const auto aligned = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; };
+  p.tma = vec && aligned(xyz) && aligned(dsigma) && (t.ra == 0 || aligned(dapp));
+  auto kernel = vec ? g::cp_coords_grad_kernel<4> : g::cp_coords_grad_kernel<1>;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  kernel<<<blocks, g::kThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xyz), static_cast<const float*>(dsigma),
+      static_cast<const float*>(dapp), t, p, N, static_cast<float*>(dxyz),
+      static_cast<int*>(queue));
   return static_cast<int>(cudaGetLastError());
 }

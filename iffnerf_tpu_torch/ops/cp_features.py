@@ -41,10 +41,13 @@ lines accumulated in shared memory, each of its warps walking the upstream
 that its lane 0 bulk-copies into the warp's ring; ``backward_plan`` and
 ``chunks`` split the work);
 for the coordinates (iNeRF's pose gradient) ``iff_cp_features_coords_grad``
-(the wrapper ``cp_features_coords_grad``). Each launches only when its
-inputs require grad. The plain versions, ``cp_features_backward_plain`` and
-``cp_features_coords_grad_plain``, are torch's autograd through the grid
-samplers on ``gather_rows_plain``.
+(the wrapper ``cp_features_coords_grad``: each warp streams units of
+samples through its own bulk-copy ring, votes once a sample, leaves a stage
+with no upstream at once and walks the live samples with its slot words in
+registers; ``coords_plan`` picks the stage and the ring). Each launches
+only when its inputs require grad. The plain versions,
+``cp_features_backward_plain`` and ``cp_features_coords_grad_plain``, are
+torch's autograd through the grid samplers on ``gather_rows_plain``.
 """
 
 from __future__ import annotations
@@ -72,7 +75,8 @@ _SIGNATURES = {
                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, _P, _P],
     "iff_cp_features_coords_grad": [_P, ctypes.c_longlong, _LL, _I, _P, _P, _P,
-                                    ctypes.c_int, ctypes.c_int, _P],
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, _P, _P],
 }
 MAX_SMEM = 227 * 1024       # a block's shared memory
 # The backward's split, as csrc/cp_features.cu (namespace bwd) lays out
@@ -90,6 +94,14 @@ BWD_STAGES = (4, 3, 2)      # ring depths tried, deepest first
 # Longer lines than one column of FWD_MAX_ROWS rows take the first design.
 FWD_WARPS, FWD_STAGE, FWD_UNIT, FWD_RECORD = 16, 32, 32, 48
 FWD_MAX_ROWS = (MAX_SMEM - FWD_WARPS * FWD_STAGE * FWD_RECORD) // 4
+# The coordinate gradient's split (namespace cgrad): one block an SM of
+# COORDS_WARPS warps, each taking units of COORDS_UNIT samples from a queue
+# and streaming their stages of COORDS_RUNS[0] samples (COORDS_RUNS[1] for
+# appearance ranks too wide for it) through its own ring of 2 to 4 stages,
+# beside its corner records (COORDS_RECORD bytes a sample, 8 samples).
+COORDS_WARPS, COORDS_UNIT, COORDS_RECORD = 12, 64, 48
+COORDS_RUNS = (8, 4)
+COORDS_STAGES = (4, 3, 2)   # ring depths tried, deepest first
 
 
 def cp_products(lines, xyz: torch.Tensor, gather=None) -> torch.Tensor:
@@ -299,6 +311,31 @@ def forward_words(dims, log_cw: int, aligned: bool) -> int:
     return 1
 
 
+def coords_smem(ra: int, run: int, stages: int) -> int:
+    """Shared memory of a coordinate-gradient block: each warp's ring of
+    ``stages`` stages of ``run`` samples (xyz, dsigma and ``ra`` dapp words
+    a sample, and a barrier) and its corner records of 8 samples."""
+    return COORDS_WARPS * (stages * (run * (16 + 4 * ra) + 8)
+                           + max(COORDS_RUNS) * COORDS_RECORD)
+
+
+def coords_plan(dims, with_app: bool):
+    """(samples a stage, ring depth) of the coordinate gradient: the
+    longest stage of COORDS_RUNS at the deepest ring of COORDS_STAGES
+    whose blocks fit MAX_SMEM; appearance ranks too wide for two stages of
+    the shortest raise ValueError."""
+    ra = dims[4] if with_app else 0
+    for run in COORDS_RUNS:
+        for stages in COORDS_STAGES:
+            if coords_smem(ra, run, stages) <= MAX_SMEM:
+                return run, stages
+    raise ValueError(
+        f"the CP coordinate gradient streams whole upstream rows through "
+        f"shared memory: {ra} appearance ranks need "
+        f"{coords_smem(ra, COORDS_RUNS[-1], COORDS_STAGES[-1])} B, more than "
+        f"{MAX_SMEM}")
+
+
 def _launch_forward(lines, dims, flat, with_app):
     """sigma [n] and the appearance products [n, R_app] (None without
     ``with_app``) through the route ``forward_plan`` picks: "shared"
@@ -372,16 +409,21 @@ def _launch_coords_grad(lines, dims, flat, dsigma, dapp):
     n = flat.shape[0]
     dxyz = torch.empty((n, 3), dtype=torch.float32, device=flat.device)
     if n > 0:
+        run, stages = coords_plan(dims, dapp is not None)
         lib = _build.load("cp_features", _SIGNATURES)
         ptrs = _ptrs(lines)
         vec = _vec(dims, ptrs + [flat.data_ptr()]
                    + ([] if dapp is None else [dapp.data_ptr()]))
+        units = -(-n // COORDS_UNIT)
+        blocks = max(1, min(_build.sm_count(flat.device),
+                            -(-units // COORDS_WARPS)))
+        queue = torch.zeros(1, dtype=torch.int32, device=flat.device)
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         rc = lib.iff_cp_features_coords_grad(
             flat.data_ptr(), n, (ctypes.c_longlong * 6)(*ptrs),
             (ctypes.c_int * 5)(*dims), dsigma.data_ptr(),
             0 if dapp is None else dapp.data_ptr(), dxyz.data_ptr(), int(vec),
-            _build.sm_count(flat.device), stream)
+            run, stages, blocks, queue.data_ptr(), stream)
         _build.check(rc, "cp_features coordinate-gradient kernel launch")
         cp_features_coords_grad.launches += 1
     return dxyz
@@ -431,6 +473,8 @@ def cp_features(config, params, xyz: torch.Tensor, with_app: bool = True):
         # the backward's refusal before the forward's launch, so that no
         # call under grad fails only at its backward
         backward_plan(dims, True, with_app)
+    if torch.is_grad_enabled() and xyz.requires_grad:
+        coords_plan(dims, with_app)
     shape = xyz.shape[:-1]
     flat = xyz.reshape(-1, 3).contiguous()
     out = _CPFeatures.apply(dims, with_app, flat, *lines)

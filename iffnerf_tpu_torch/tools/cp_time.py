@@ -1,5 +1,6 @@
-"""Times the TensorCP kernels' line gradient (``iff_cp_features_bwd``) or,
-with ``--forward``, their forward (``iff_cp_features``) on one card,
+"""Times the TensorCP kernels' line gradient (``iff_cp_features_bwd``),
+with ``--forward`` their forward (``iff_cp_features``) or with ``--coords``
+their coordinate gradient (``iff_cp_features_coords_grad``) on one card,
 beside the parent's kernel and cut-out variants of both.
 
 Imports ``iffnerf_tpu_torch`` and ``chip_smoke`` from the working
@@ -22,9 +23,27 @@ CUDA-event batches, ``chip_smoke.time_ms``) and, where its results mean
 something, its errors against the plain version (the backward's largest
 error as a share of CP_GRAD_TOL of the line's largest; the forward's
 products bit-equal, sigma within FIELD_RTOL and FIELD_ATOL x max|plain|,
-two calls bit-equal).
+two calls bit-equal; the coordinate gradient's largest error as a share
+of COORDS_GRAD_TOL of max|plain| and three calls bit-equal).
 
-    cd <checkout> && python3 <path>/cp_time.py <label> [--forward [--placements]] [--parent DIR] [--variants A,B] [--rounds N]
+``--coords`` times five cases: the step (its captured upstream, about 38 %
+of the samples live), an iNeRF iteration's count (the step's first
+INERF_SAMPLES samples with ``iteration_upstream``: a run of live samples a
+ray, about 3.4 % live), an iNeRF iteration's own inputs (captured at the
+first iteration from ``chip_smoke.cp_inerf_frame``'s start), a colour
+chunk's shape (``cp_random_upstream``) and ``chip_smoke.cp_all_live_
+inputs``' all-live set (as many samples, ray-ordered half a texel apart,
+every upstream word normal); with each case's live 8-sample stages. The parent's
+coordinate gradient runs through its own entry where it is the first
+design (a group of lanes a sample, no ring).
+
+``--iterations`` (with ``--coords`` and a ``parent`` variant) also
+profiles INERF_PROFILE_ITERS iterations of ``estimate_pose_inerf`` on the
+trained field (``chip_smoke.cp_inerf_frame``), with the source's
+coordinate kernel and with the parent's in turns, ``--rounds`` times:
+each iteration's kernel ms and host ms, and its coordinate kernel's ms.
+
+    cd <checkout> && python3 <path>/cp_time.py <label> [--forward [--placements] | --coords [--iterations]] [--parent DIR] [--variants A,B] [--rounds N]
 
 ``--variants`` builds text edits of the checkout's ``csrc/cp_features.cu``
 (or of the parent's) into ``build/kernels/variants/``, all nvcc processes
@@ -93,6 +112,24 @@ their text in both):
 - ``parent_fwd_cg``: line reads through ``ld.global.cg`` (L2 only, not
   L1).
 
+The coordinate gradient's (``--coords``):
+
+- ``coords_no_skip``: every stage walked, its samples live or not (the
+  vote's result unused: the compiler drops the vote too);
+- ``coords_no_ring``: every stage read from device memory, nothing
+  bulk-copied: what the rings buy;
+- ``coords_vote_only`` (not checked): the stream and the vote, no corners
+  or walk;
+- ``coords_always_load``: each slot's row loaded at every live sample, not
+  only when its key changes;
+- ``coords_warps8``, ``coords_warps16``: 8 warps a block (3-stage rings,
+  at most 255 registers a thread), or 16 with 2-stage rings of 4-sample
+  stages (at most 128);
+- ``coords_no_tree`` (not checked): no shuffle tree, each lane's sums
+  taken as they are;
+- ``coords_no_loads`` (not checked): no slot row loaded, the walk on
+  zeros.
+
 ``--placements`` (with ``--forward``) also times the source's forward at
 the step with its outputs carved out of one large buffer at offsets of
 PLACEMENTS MB, in that order, twice over: whether where the products land
@@ -111,9 +148,13 @@ from pathlib import Path
 import torch
 
 INERF_SAMPLES = 1024 * 1728
+# an iNeRF iteration's upstream on the CP field: about 59 live samples a
+# ray of 1 728 (60 243-60 395 of 1 769 472), in one run along the ray
+RAY_SAMPLES, LIVE_RUN = 1728, 59
 PLACEMENTS = (0, 1, 2, 4, 16)
 _RUN_TAIL = "                   // samples a group"
 _WARPS_TAIL = "                // warps a block, each walking"
+_COORDS_WARPS_TAIL = "                // warps a block, each walking on its own; one"
 _NEVER = " && p.rows < 0"  # false at run time, which the compiler cannot see
 _NO_RING = ("  p.tma = tma;\n", "  p.tma = 0;\n")
 _ADD = "  if (row != kNoRow && s != 0.0f) atomicAdd(acc + off + static_cast<int>(row) * cw, s);"
@@ -178,7 +219,8 @@ def _constant(name, value, new, tail=""):
 # name: (base, text edits, overrides of ops/cp_features.py's constants or
 # plan, whether its results mean something). The cut-outs guard what
 # they cut with a condition false at run time, so that the compiler keeps
-# the work they leave. Names with "fwd_" time the forward (--forward).
+# the work they leave. Names with "fwd_" time the forward (--forward),
+# names with "coords_" the coordinate gradient (--coords).
 VARIANTS = {
     "stream_only": ("source", [(
         "        u[k] = k < count ? su[k * ustride] : 0.0f;\n",
@@ -222,6 +264,31 @@ VARIANTS = {
     "parent_flush_only": ("parent", [(
         "    for (int64_t n = s_lo; n < s_hi; ++n) {\n",
         "    for (int64_t n = s_lo; n < s_lo; ++n) {\n")], {}, False),
+    "coords_no_skip": ("source", [(
+        "      if (__any_sync(0xffffffffu, nz)) live |= 1u << k;\n",
+        "      if (__any_sync(0xffffffffu, nz) || k < count) live |= 1u << k;\n")],
+        {}, True),
+    "coords_no_ring": ("source", [("  p.tma = vec && aligned(xyz)",
+                                   "  p.tma = 0 && vec && aligned(xyz)")], {}, True),
+    "coords_vote_only": ("source", [("    if (live != 0) {\n      // corners once a block",
+                                     "    if (live != 0 && p.units < 0) {\n"
+                                     "      // corners once a block")], {}, False),
+    "coords_warps8": ("source", [_constant("kWarps", 12, 8, _COORDS_WARPS_TAIL)],
+                      {"COORDS_WARPS": 8}, True),
+    "coords_warps16": ("source", [_constant("kWarps", 12, 16, _COORDS_WARPS_TAIL)],
+                       {"COORDS_WARPS": 16, "COORDS_RUNS": (4,), "COORDS_STAGES": (2,)}, True),
+    "coords_no_tree": ("source", [(
+        "            for (int o = 16; o > 0; o >>= 1) a[i] += __shfl_xor_sync(",
+        "            for (int o = 16; o > 0 && p.units < 0; o >>= 1) a[i] += __shfl_xor_sync(")],
+        {}, False),
+    "coords_no_loads": ("source", [("            if (q[i].x != ke[i]) {",
+                                    "            if (q[i].x != ke[i] && p.units < 0) {"),
+                                   ("            if (q[i].y != ko[i]) {",
+                                    "            if (q[i].y != ko[i] && p.units < 0) {")], {}, False),
+    "coords_always_load": ("source", [("            if (q[i].x != ke[i]) {",
+                                       "            if (true) {"),
+                                      ("            if (q[i].y != ko[i]) {",
+                                       "            if (true) {")], {}, True),
     "fwd_store_only": ("source", _FWD_STORE_ONLY, {}, False),
     "fwd_no_store": ("source", [(_FWD_STORE, _FWD_STORE.replace("k < live", "k < live" + _NEVER))],
                      {}, False),
@@ -254,16 +321,55 @@ PARENT_SIGNATURE = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_
 PARENT_FORWARD = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
                   ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                   ctypes.c_int, ctypes.c_void_p]
+PARENT_COORDS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
+                 ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def is_forward(name):
     return "fwd_" in name
 
 
+def is_coords(name):
+    return name.startswith("coords_")
+
+
+def kernel_of(name):
+    """The kernel variant ``name`` times: "forward", "coords" or
+    "backward"."""
+    return "forward" if is_forward(name) else "coords" if is_coords(name) else "backward"
+
+
 def first_backward(text):
     """Whether the line gradient of ``text`` (a cp_features.cu) is the
     first design, which streams no stage through a bulk-copy ring."""
     return _NO_RING[0] not in text
+
+
+def first_coords(text):
+    """Whether the coordinate gradient of ``text`` (a cp_features.cu) is
+    the first design (a group of lanes a sample, no ring)."""
+    return "namespace cgrad" not in text
+
+
+def iteration_upstream(params, n, seed, dev, per_ray=RAY_SAMPLES, run=LIVE_RUN):
+    """An iNeRF iteration's kind of upstream for ``n`` ray-major samples
+    (numpy, from ``seed``): in each ``per_ray``-sample ray one run of live
+    samples, 0 to 2 * ``run`` long at a random start, dsigma and dapp
+    normal there, zeros elsewhere -> (dsigma [n], dapp [n, R_app])."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ra = params["app_line"][0].shape[1]
+    live = np.zeros(n, bool)
+    for r0 in range(0, n, per_ray):
+        length = int(rng.integers(0, 2 * run + 1))
+        start = r0 + int(rng.integers(0, per_ray - length + 1))
+        live[start:min(start + length, n)] = True
+    dsigma = rng.standard_normal(n, dtype=np.float32) * live
+    dapp = rng.standard_normal((n, ra), dtype=np.float32) * live[:, None]
+    return (torch.as_tensor(dsigma, device=dev),
+            torch.as_tensor(dapp, device=dev))
 
 
 def parent_plan(dims, cols, n, sms):
@@ -346,7 +452,8 @@ def _build_variants(names, parent_cu, first):
     """({name: the cp_features library of variant name}, {name: its
     kernels' registers}), the nvcc processes all started together
     (``source``: the checkout's build; ``parent_cu`` the parent's source,
-    ``first`` whether its line gradient is the first design)."""
+    ``first`` whether its line gradient and its coordinate gradient are
+    the first designs: {"backward", "coords"} -> bool)."""
     from iffnerf_tpu_torch.ops import _build
     from iffnerf_tpu_torch.ops import cp_features as cpf
 
@@ -380,6 +487,7 @@ def _build_variants(names, parent_cu, first):
             libs[name], regs[name] = own, own_regs
     for name, (proc, path) in procs.items():
         log = proc.communicate(timeout=600)[0]
+        path.with_suffix(".so.log").write_text(log)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
         regs[name] = ptxas_registers(log)
@@ -387,8 +495,11 @@ def _build_variants(names, parent_cu, first):
         for fn, argtypes in cpf._SIGNATURES.items():
             if _is_parent(name) and fn == "iff_cp_features":
                 argtypes = PARENT_FORWARD
-            if _is_parent(name) and fn == "iff_cp_features_bwd" and first:
+            if _is_parent(name) and fn == "iff_cp_features_bwd" and first["backward"]:
                 argtypes = PARENT_SIGNATURE
+            if (_is_parent(name) and fn == "iff_cp_features_coords_grad"
+                    and first["coords"]):
+                argtypes = PARENT_COORDS
             if not hasattr(lib, fn):
                 continue
             getattr(lib, fn).argtypes = argtypes
@@ -435,6 +546,75 @@ def parent_forward(lib, params, xyz):
         torch.cuda.current_stream(xyz.device).cuda_stream)
     _build.check(rc, "the parent's CP forward")
     return sigma, app
+
+
+def parent_coords(lib, params, xyz, dsigma, dapp):
+    """The first design's coordinate gradient at these inputs through its
+    own entry -> dxyz [n, 3]."""
+    from iffnerf_tpu_torch.ops import _build
+    from iffnerf_tpu_torch.ops import cp_features as cpf
+
+    lines, dims = cpf.kernel_layout(params, True)
+    n = xyz.shape[0]
+    dxyz = torch.empty((n, 3), dtype=torch.float32, device=xyz.device)
+    ptrs = cpf._ptrs(lines)
+    vec = cpf._vec(dims, ptrs + [xyz.data_ptr(), dapp.data_ptr()])
+    rc = lib.iff_cp_features_coords_grad(
+        xyz.data_ptr(), n, (ctypes.c_longlong * 6)(*ptrs), (ctypes.c_int * 5)(*dims),
+        dsigma.data_ptr(), dapp.data_ptr(), dxyz.data_ptr(), int(vec),
+        _build.sm_count(xyz.device), torch.cuda.current_stream(xyz.device).cuda_stream)
+    _build.check(rc, "the parent's CP coordinate gradient")
+    return dxyz
+
+
+def iteration_profiles(chip_smoke, config, params, mask, parent_lib, rounds):
+    """{"source" | "parent": [a profile a round]} of INERF_PROFILE_ITERS
+    iNeRF iterations on the CP field, its coordinate gradient through the
+    source's kernel or the parent's (the launcher swapped), in turns: the
+    kernel ms and host ms an iteration and the coordinate kernel's ms."""
+    from iffnerf_tpu_torch.ops import cp_features as cpf
+
+    dev = params["density_line"][0].device
+    frame = chip_smoke.cp_inerf_frame(config, params, mask, dev)
+    launch = cpf._launch_coords_grad
+
+    def parent_launch(lines, dims, flat, dsigma, dapp):
+        cpf.cp_features_coords_grad.launches += 1
+        return parent_coords(parent_lib, {"density_line": lines[:3], "app_line": lines[3:]},
+                             flat, dsigma, dapp)
+
+    def iterations():
+        chip_smoke.cp_inerf(config, params, mask, frame, chip_smoke.INERF_PROFILE_ITERS,
+                            chip_smoke.SEED + 1, dev)
+        return chip_smoke.INERF_PROFILE_ITERS
+
+    out = {}
+    for _ in range(rounds):
+        for name in ("source", "parent"):
+            cpf._launch_coords_grad = launch if name == "source" else parent_launch
+            try:
+                prof = chip_smoke._profiled(f"cp_time {name} iterations", iterations)
+            finally:
+                cpf._launch_coords_grad = launch
+            top = prof["top_kernels_ms_per_unit"]
+            out.setdefault(name, []).append({
+                "device_ms_per_iteration": prof["device_ms_per_unit"],
+                "host_ms_per_iteration": prof["host_ms_per_unit"],
+                "busy_share": prof["device_busy_share"],
+                "coords_ms": sum(v for k, v in top.items() if "coords_grad" in k),
+                "top_kernels_ms": top})
+    return out
+
+
+def coords_errors(call, want, tol):
+    """The coordinate gradient's largest error against the plain version's
+    as a share of ``tol`` x max|plain|, and whether three calls gave the
+    same bits."""
+    got = call()
+    err = float((got - want).abs().max())
+    return {"share_of_tolerance": err / (tol * max(float(want.abs().max()), 1e-30)),
+            "max_abs_err": err,
+            "repeats_bit_equal": all(torch.equal(got, call()) for _ in range(2))}
 
 
 def placed_forward(params, xyz, buf, offset):
@@ -495,7 +675,8 @@ class _Overrides:
         from iffnerf_tpu_torch.ops import cp_features as cpf
 
         self.saved = {k: getattr(cpf, k) for k in
-                      ("BWD_WARPS", "BWD_RUN", "BWD_STAGES", "backward_plan", "forward_plan")}
+                      ("BWD_WARPS", "BWD_RUN", "BWD_STAGES", "COORDS_WARPS", "COORDS_RUNS",
+                       "COORDS_STAGES", "backward_plan", "forward_plan")}
         log_cw = self.spec.pop("log_cw", None)
         for k, v in self.spec.items():
             setattr(cpf, k, v)
@@ -565,18 +746,23 @@ def main() -> int:
         return 1
     label = sys.argv[1] if len(sys.argv) > 1 and not sys.argv[1].startswith("--") else "cp"
     forward = "--forward" in sys.argv
+    coords = "--coords" in sys.argv
+    kernel = "forward" if forward else "coords" if coords else "backward"
     variants = _arg("--variants", "source").split(",")
-    wrong = [v for v in variants if v in VARIANTS and is_forward(v) != forward]
+    wrong = [v for v in variants if v in VARIANTS and kernel_of(v) != kernel]
     if wrong:
-        raise SystemExit(f"cp_time: {wrong} time the other kernel")
+        raise SystemExit(f"cp_time: {wrong} time another kernel")
     rounds = int(_arg("--rounds", "1"))
     parent_cu = _parent_cu(_arg("--parent", None))
-    first = parent_cu is not None and first_backward(parent_cu.read_text())
+    ptext = parent_cu.read_text() if parent_cu is not None else None
+    first = {"backward": ptext is not None and first_backward(ptext),
+             "coords": ptext is not None and first_coords(ptext)}
     libs, regs = _build_variants(variants, parent_cu, first)
     dev = torch.device("cuda")
     run = chip_smoke.train_cp(dev)
     config = run.config
     params, xyz, dsigma, dapp = run.caught
+    field = (run.config, run.params, run.mask)
     del run
     torch.cuda.empty_cache()
     lengths = [a.shape[0] for a in params["density_line"]]
@@ -585,9 +771,18 @@ def main() -> int:
              "colour_chunk": (cxyz, *chip_smoke.cp_random_upstream(params, cxyz, 42))}
     if forward:
         cases["inerf"] = (xyz[:INERF_SAMPLES], None, None)
+    if coords:
+        cases["inerf"] = (xyz[:INERF_SAMPLES],
+                          *iteration_upstream(params, INERF_SAMPLES, 43, dev))
+        cases["all_live"] = chip_smoke.cp_all_live_inputs(params, dev)[1:]
+        frame = chip_smoke.cp_inerf_frame(*field, dev)
+        with chip_smoke.captured_cp("_launch_coords_grad", chip_smoke.first_call()) as caught:
+            chip_smoke.cp_inerf(*field, frame, 1, chip_smoke.SEED, dev)
+        cases["inerf_captured"] = caught["inputs"][1:]
+        del frame
     ranks = [params["density_line"][0].shape[1], params["app_line"][0].shape[1]]
     dims = lengths + ranks
-    result = {"label": label, "kernel": "forward" if forward else "backward",
+    result = {"label": label, "kernel": kernel,
               "card": chip_smoke.card_line(), "lines": lengths, "ranks": ranks,
               "n": {}, "live": {}, "bound_ms": {}, "plan": {},
               "registers": regs,
@@ -609,9 +804,19 @@ def main() -> int:
                 plain[case] = chip_smoke.cp_chunked(lambda c: cpf.cp_features_plain(
                     params, c, True, gather_rows_plain), x)
             continue
+        result["live"][case] = int(((ds != 0) | (da != 0).any(-1)).sum())
+        if coords:
+            alive = (ds != 0) | (da != 0).any(-1)
+            pad = -alive.shape[0] % 8
+            result.setdefault("live_stages", {})[case] = int(torch.nn.functional.pad(
+                alive, (0, pad)).view(-1, 8).any(-1).sum())
+            result["bound_ms"][case] = chip_smoke.cp_bounds(params, x, ds, da)["coords_grad"][0]
+            result["plan"][case] = dict(zip(("run", "stages"), cpf.coords_plan(dims, True)))
+            plain[case] = chip_smoke.cp_chunked(
+                lambda *a: cpf.cp_features_coords_grad_plain(params, *a), x, ds, da)
+            continue
         log_cw, stages = cpf.backward_plan(dims, True, True)
         slices = -(-cols >> log_cw)
-        result["live"][case] = int(((ds != 0) | (da != 0).any(-1)).sum())
         result["bound_ms"][case] = chip_smoke.cp_bounds(params, x, ds, da)["backward"][0]
         result["plan"][case] = {"log_cw": log_cw, "stages": stages, "slices": slices,
                                 "parent_plan": parent_plan(dims, cols, x.shape[0], sms),
@@ -630,7 +835,13 @@ def main() -> int:
                 if forward and parentish:
                     def call():
                         return parent_forward(libs[name], params, x)
-                elif parentish and first:
+                elif coords and parentish and first["coords"]:
+                    def call():
+                        return parent_coords(libs[name], params, x, ds, da)
+                elif coords:
+                    def call():
+                        return cpf.cp_features_coords_grad(config, params, x, ds, da)
+                elif parentish and first["backward"]:
                     def call():
                         return parent_backward(libs[name], params, x, ds, da)
                 elif forward:
@@ -643,7 +854,10 @@ def main() -> int:
                 with _Overrides(spec), torch.no_grad():
                     cell["graph_ms"].append(chip_smoke.time_ms(call, graph=True))
                     cell["ms"].append(chip_smoke.time_ms(call))
-                    if rnd == 0 and meaningful and forward:
+                    if rnd == 0 and meaningful and coords:
+                        cell.update(coords_errors(call, plain[case],
+                                                  chip_smoke.COORDS_GRAD_TOL))
+                    elif rnd == 0 and meaningful and forward:
                         got = call()
                         cell.update(forward_errors(got, call(), plain[case],
                                                    chip_smoke.FIELD_RTOL,
@@ -653,6 +867,9 @@ def main() -> int:
                         cell.update(errors(call(), plain[case], chip_smoke.CP_GRAD_TOL))
                 _build._LIBS["cp_features"] = libs.get("source", _build._LIBS["cp_features"])
                 torch.cuda.empty_cache()
+    if coords and "--iterations" in sys.argv:
+        _build._LIBS["cp_features"] = libs.get("source", _build._LIBS["cp_features"])
+        result["iterations"] = iteration_profiles(chip_smoke, *field, libs["parent"], rounds)
     if forward and "--placements" in sys.argv:
         _build._LIBS["cp_features"] = libs.get("source", _build._LIBS["cp_features"])
         with torch.no_grad():

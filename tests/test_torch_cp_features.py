@@ -4,9 +4,11 @@ its line gradient and its coordinate gradient) against the JAX package's
 ``compute_densityfeature`` and ``compute_appfeature`` for CP (``basis_mat``
 the identity, so that the appearance feature is the products) and
 ``jax.vjp`` of them; K3's plain backward against ``jax.vjp`` of
-``jnp.take``; the dispatch rule ``use_cp_kernel``; the wrappers' refusals.
-The kernels themselves run on the card (tests/test_torch_cuda_kernels.py,
-chip_smoke.py).
+``jnp.take``; the dispatch rule ``use_cp_kernel``; the wrappers' refusals;
+the kernels' plans, and models of the forward's lerp and of the
+coordinate gradient's records and walk against the plain versions; the
+timing tool's text edits. The kernels themselves run on the card
+(tests/test_torch_cuda_kernels.py, chip_smoke.py).
 
 Inputs are drawn by numpy from a seed. Tolerances: the forward within rtol
 1e-5 (sigma's sum over ranks in another order; the products are the same
@@ -14,6 +16,8 @@ float32 operations); the gradients within 1e-5 of the largest (float32
 sums of up to a few hundred terms in another order).
 """
 
+import math
+import re
 from pathlib import Path
 
 import jax
@@ -476,3 +480,148 @@ def test_cp_forward_folded_weights_are_the_plain_lerp_bit_for_bit(name):
 def test_cp_forward_counts_launches_by_route():
     """The forward's launches are counted in all and by route."""
     assert set(cpf.cp_features.launches_by_route) == {"shared", "l1"}
+
+
+@pytest.mark.parametrize("dims,with_app,run,stages", [
+    ((505, 505, 489, 96, 288), True, 8, 2),     # lego's CP ranks: 229 056 B
+    ((505, 505, 489, 96, 288), False, 8, 4),    # density only
+    ((20, 20, 20, 3, 5), True, 8, 4),
+    ((16, 17, 18, 4, 292), True, 8, 2),         # the widest at 8 samples a stage
+    ((16, 17, 18, 4, 293), True, 4, 3),
+    ((16, 17, 18, 4, 400), True, 4, 2),
+    ((16, 17, 18, 4, 588), True, 4, 2),         # the widest taken
+    ((60000, 0, 0, 4, 4), True, 8, 4),          # line lengths do not count
+])
+def test_cp_coords_plan(dims, with_app, run, stages):
+    """The coordinate gradient's stage and ring: the longest stage at the
+    deepest ring whose blocks fit MAX_SMEM."""
+    assert cpf.coords_plan(dims, with_app) == (run, stages)
+    ra = dims[4] if with_app else 0
+    assert cpf.coords_smem(ra, run, stages) <= cpf.MAX_SMEM
+    deeper = [(r, k) for r in cpf.COORDS_RUNS for k in cpf.COORDS_STAGES
+              if (r, k) > (run, stages) or (r == run and k > stages)]
+    assert all(cpf.coords_smem(ra, r, k) > cpf.MAX_SMEM for r, k in deeper)
+
+
+def test_cp_coords_plan_refuses_ranks_too_wide_for_shared_memory():
+    assert cpf.coords_smem(589, 4, 2) > cpf.MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        cpf.coords_plan((16, 17, 18, 4, 589), True)
+    assert cpf.coords_plan((16, 17, 18, 4, 589), False) == (8, 4)
+
+
+def _cgrad_source():
+    src = (Path(cpf.__file__).resolve().parents[1] / "csrc"
+           / "cp_features.cu").read_text()
+    return src[src.index("namespace cgrad {"):src.index("}  // namespace cgrad")]
+
+
+def test_cp_coords_plan_counts_what_the_kernel_lays_out():
+    """The host's constants and shared-memory count are the kernel's: its
+    warps, stage lengths, unit, records and ring depths, and the same sum
+    of rings, barriers and records."""
+    src = _cgrad_source()
+
+    def const(name):
+        expr = re.search(rf"\b{name} = ([0-9* ]+)[;,]", src).group(1)
+        return math.prod(int(t) for t in expr.split("*"))
+    assert const("kWarps") == cpf.COORDS_WARPS
+    assert const("kMaxRun") == max(cpf.COORDS_RUNS)
+    assert const("kUnit") == cpf.COORDS_UNIT
+    assert const("kRecordBytes") == cpf.COORDS_RECORD
+    assert const("kMinStages") == min(cpf.COORDS_STAGES)
+    assert const("kMaxStages") == max(cpf.COORDS_STAGES)
+    assert ("(stages * (static_cast<long long>(run) * (16 + 4LL * ra) + 8) "
+            "+ kMaxRun * kRecordBytes)") in src
+    entry = (Path(cpf.__file__).resolve().parents[1] / "csrc"
+             / "cp_features.cu").read_text()
+    assert "(run != 4 && run != 8)" in entry and set(cpf.COORDS_RUNS) == {4, 8}
+
+
+def _kernel_coords_grad(params, xyz, dsigma, dapp=None):
+    """The coordinate kernel's arithmetic on the CPU: for each axis the
+    corners' slots by parity (a flagged-out corner's words zeros), the
+    lerp ve + (vo - ve) * wo with wo the odd slot's weight, vo - ve times
+    the record's factor, (L - 1) / 2 negated where the odd slot holds the
+    lower corner; a sample's density and appearance terms summed."""
+    kinds = [(params["density_line"], dsigma[:, None])]
+    if dapp is not None:
+        kinds.append((params["app_line"], dapp))
+    acc = [0.0, 0.0, 0.0]
+    scale = [None] * 3
+    for lines, u in kinds:
+        lerps, diffs = [], []
+        for i, line in enumerate(lines):
+            length = line.shape[0]
+            g = xyz[:, cpf.VEC_MODE[i]]
+            p = (g + 1.0) * 0.5 * float(length - 1)
+            i0 = torch.floor(p).to(torch.int64)
+            w = p - i0.to(torch.float32)
+            m0 = ((i0 >= 0) & (i0 <= length - 1))[:, None]
+            m1 = ((i0 + 1 >= 0) & (i0 + 1 <= length - 1))[:, None]
+            f0 = line[i0.clamp(0, length - 1)] * m0
+            f1 = line[(i0 + 1).clamp(0, length - 1)] * m1
+            even = (i0 % 2 == 0)[:, None]
+            ve, vo = torch.where(even, f0, f1), torch.where(even, f1, f0)
+            wo = torch.where(even, w[:, None], 1.0 - w[:, None])
+            diffs.append(vo - ve)
+            lerps.append(ve + diffs[-1] * wo)
+            scale[i] = torch.where(even[:, 0], 0.5, -0.5) * float(length - 1)
+        u2 = u * lerps[2]
+        terms = (u2 * lerps[1] * diffs[0], u2 * lerps[0] * diffs[1],
+                 u * (lerps[0] * lerps[1]) * diffs[2])
+        acc = [a + t.sum(-1) for a, t in zip(acc, terms)]
+    out = torch.empty_like(xyz)
+    for i in range(3):
+        out[:, 2 - i] = acc[i] * scale[i]
+    return out
+
+
+@pytest.mark.parametrize("name", list(FIELDS))
+@pytest.mark.parametrize("with_app", [False, True])
+def test_cp_coords_kernel_arithmetic_matches_the_plain_gradient(name, with_app):
+    """The coordinate kernel's records and walk, modelled on the CPU,
+    against ``cp_features_coords_grad_plain`` within GRAD_TOL of the
+    largest, at corners in range, out of range and at the edges."""
+    lines, xyz, dsigma, dapp = _case(name, seed=10, n=500)
+    params = _t(lines)
+    x, ds = torch.from_numpy(xyz), torch.from_numpy(dsigma)
+    da = torch.from_numpy(dapp) if with_app else None
+    got = _kernel_coords_grad(params, x, ds, da)
+    want = cpf.cp_features_coords_grad_plain(params, x, ds, da)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=GRAD_TOL * float(want.abs().max()))
+
+
+def test_cp_time_iteration_upstream_runs_along_each_ray():
+    """The timing tool's iteration-like upstream: one run of live samples
+    a ray, each word of a live sample drawn, about 3.4 % of the samples."""
+    params = {"app_line": (torch.zeros((4, 6)),) * 3}
+    n = cp_time.RAY_SAMPLES * 120
+    dsigma, dapp = cp_time.iteration_upstream(params, n, 43, "cpu")
+    live = ((dsigma != 0) | (dapp != 0).any(-1)).reshape(120, -1)
+    assert 0.025 < float(live.float().mean()) < 0.045
+    for ray in live:
+        idx = torch.nonzero(ray)[:, 0]
+        assert idx.numel() == 0 or idx[-1] - idx[0] + 1 == idx.numel()
+    assert bool((dapp[(dsigma != 0)] != 0).all())
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, v in cp_time.VARIANTS.items() if cp_time.is_coords(n)))
+def test_cp_time_coords_variants_edit_the_coordinate_kernel(name):
+    """Each ``--coords`` variant edits the coordinate gradient (its kernel
+    or its entry) and nothing else, or sets only the coordinate plan's
+    constants, and times that kernel."""
+    src = (Path(cpf.__file__).resolve().parents[1] / "csrc"
+           / "cp_features.cu").read_text()
+    text = cp_time.variant_source(name, src, None)
+    assert cp_time.kernel_of(name) == "coords"
+    if text == src:
+        spec = cp_time.VARIANTS[name][2]
+        assert spec and all(k.startswith("COORDS_") and hasattr(cpf, k) for k in spec)
+        return
+    first = next(i for i, (a, b) in enumerate(zip(src, text)) if a != b)
+    kernel = (src.index("namespace cgrad {"), src.index("}  // namespace cgrad"))
+    entry = src.index('extern "C" int iff_cp_features_coords_grad(')
+    assert kernel[0] < first < kernel[1] or first > entry

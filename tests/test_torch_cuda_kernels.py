@@ -26,7 +26,14 @@ and COORDS_GRAD_TOL), and refuse what they do not take before any launch;
 the line gradient also at counts around its stage and unit lengths, with
 dead stages and units, ranks that are not multiples of 4 and slices that
 hold both kinds, density-only and appearance-only, and at the lines'
-length where its plan narrows the columns a block;
+length where its plan narrows the columns a block; the coordinate
+gradient also at an iteration-like set (about 3 % of the samples live in
+a run along each ray) and an all-live set, each in three bit-equal calls,
+with live samples only at the ends of its stages, units and call, live
+through dsigma alone or one dapp word alone, with zero upstream giving
+exact zeros, at lego's ranks on 4-byte words in four passes (coordinates
+or dapp off the 16-byte grid), and at appearance ranks wide enough for
+4-sample stages or past its plan (refused before any launch);
 K3's backward is held to ``index_add_`` at the mask lookup's and the
 lines' shapes, and the samplers' route of a VM and a CP field under grad
 (``fused_eval="off"``) runs on it. The row gather covers both its routes,
@@ -106,6 +113,7 @@ from iffnerf_tpu_torch.ops.grid_sample import (
 from iffnerf_tpu_torch.pose.id_module import IDConfig, init_id_module, score_rays
 from iffnerf_tpu_torch.pose.solve import _scores_maybe_fused
 from iffnerf_tpu_torch.pose.vit import ViTConfig
+from iffnerf_tpu_torch.tools.cp_time import iteration_upstream
 from iffnerf_tpu_torch.tools.ff_time import (
     AXES,
     DIAGONALS,
@@ -1196,11 +1204,23 @@ def test_cp_kernels_match_plain_at_a_lego_cp_step(dev):
 
 def test_cp_kernels_scalar_words_and_unaligned_coords(dev):
     """Ranks not a multiple of 4 take 4-byte words; coordinates off the
-    16-byte grid take them too."""
+    16-byte grid take them too. The coordinate kernel also at lego's ranks
+    with the coordinates, then the appearance upstream, off the grid:
+    4-byte words read from device memory, 384 words in four passes."""
     params = _cp_lines("r47", dev)
     buf = _cp_samples(1022 * 3, dev).reshape(-1)[:3067]
     xyz = buf[1:].view(1022, 3)
     _assert_cp_kernels_match_plain(params, xyz, *_cp_upstream(params, 1022, dev))
+    params = _cp_lines("lego", dev, seed=20)
+    n = 20 * 1728 + 5
+    buf = _cp_samples(n + 1, dev, seed=20).reshape(-1)
+    xyz = buf[1:1 + 3 * n].view(n, 3)
+    dsigma, dapp = iteration_upstream(params, n, 20, dev)
+    _assert_cp_coords_grad_matches_plain(params, xyz, dsigma, dapp)
+    flat = torch.empty(dapp.numel() + 1, device=dev)
+    flat[1:] = dapp.reshape(-1)
+    _assert_cp_coords_grad_matches_plain(params, _cp_samples(n, dev, seed=20), dsigma,
+                                         flat[1:].view(dapp.shape))
 
 
 def test_cp_autograd_launches_the_kernels(dev):
@@ -1357,6 +1377,117 @@ def test_cp_forward_kernel_unaligned_coords_and_lines(dev):
     params["app_line"] = (params["app_line"][0], buf[1:].view(line.shape),
                           params["app_line"][2])
     _assert_cp_forward_matches_plain(params, _cp_samples(5000, dev, seed=14), "shared")
+
+
+def _assert_cp_coords_grad_matches_plain(params, xyz, dsigma, dapp=None, repeats=1):
+    """The coordinate kernel against cp_features_coords_grad_plain (chunked)
+    within COORDS_GRAD_TOL of the largest |dxyz|, one launch a call, a
+    sample with no upstream exactly 0, ``repeats`` calls bit-equal -> the
+    kernel's result."""
+    before = cpf.cp_features_coords_grad.launches
+    got = cpf.cp_features_coords_grad(CP_CFG, params, xyz, dsigma, dapp)
+    torch.cuda.synchronize()
+    assert cpf.cp_features_coords_grad.launches == before + (xyz.shape[0] > 0)
+    ups = (dsigma,) if dapp is None else (dsigma, dapp)
+    want = _cp_chunked(lambda x, *u: cpf.cp_features_coords_grad_plain(
+        params, x, *u), xyz, *ups)
+    torch.testing.assert_close(got, want, rtol=0, atol=COORDS_GRAD_TOL * max(
+        float(want.abs().max()) if want.numel() else 0.0, 1e-30))
+    dead = dsigma == 0 if dapp is None else (dsigma == 0) & (dapp == 0).all(-1)
+    assert bool((got[dead] == 0).all())
+    for _ in range(repeats - 1):
+        assert torch.equal(got, cpf.cp_features_coords_grad(CP_CFG, params, xyz,
+                                                            dsigma, dapp))
+    return got
+
+
+def test_cp_coords_kernel_at_an_iteration_like_set(dev):
+    """Ray-ordered samples at lego's CP ranks with about 3 % live in a run
+    along each ray (nearly every stage dead), with and without the
+    appearance upstream; three calls bit-equal."""
+    params = _cp_lines("lego", dev, seed=21)
+    n = 96 * 1728
+    xyz = _cp_samples(n, dev, seed=21)
+    dsigma, dapp = iteration_upstream(params, n, 21, dev)
+    live = float(((dsigma != 0) | (dapp != 0).any(-1)).float().mean())
+    assert 0.02 < live < 0.05
+    _assert_cp_coords_grad_matches_plain(params, xyz, dsigma, dapp, repeats=3)
+    _assert_cp_coords_grad_matches_plain(params, xyz, dsigma, repeats=3)
+
+
+def test_cp_coords_kernel_all_live(dev):
+    """Every upstream word normal at lego's CP ranks: every stage walked;
+    three calls bit-equal."""
+    params = _cp_lines("lego", dev, seed=22)
+    n = 30000
+    g = torch.Generator().manual_seed(22)
+    dsigma = torch.randn(n, generator=g).to(dev)
+    dapp = torch.randn((n, 288), generator=g).to(dev)
+    _assert_cp_coords_grad_matches_plain(params, _cp_samples(n, dev, seed=22), dsigma,
+                                         dapp, repeats=3)
+
+
+# the coordinate kernel's edges: 8-sample stages, 64-sample units; a call
+# shorter than a stage, ending inside a stage and inside a unit
+@pytest.mark.parametrize("n", [5, 333, 3 * 64 + 8])
+@pytest.mark.parametrize("name", ["r5", "lego"])
+def test_cp_coords_kernel_stage_and_call_edges(dev, name, n):
+    """Live samples only at the first and last sample of stages, of units
+    and of the call, the rest without upstream."""
+    params = _cp_lines(name, dev, seed=23)
+    xyz = _cp_samples(n, dev, seed=23)
+    dsigma, dapp = _cp_upstream(params, n, dev, seed=23)
+    keep = torch.zeros(n, dtype=torch.bool, device=dev)
+    for k in (0, 7, 8, 15, 63, 64, 127, 200, 319, 320, 327, 328, n - 1):
+        if k < n:
+            keep[k] = True
+    dsigma[0] = 1.5
+    _assert_cp_coords_grad_matches_plain(params, xyz, dsigma * keep, dapp * keep[:, None])
+
+
+def test_cp_coords_kernel_live_through_one_kind(dev):
+    """Samples live through dsigma alone and through one dapp word alone,
+    in otherwise dead stages."""
+    params = _cp_lines("lego", dev, seed=24)
+    n = 1000
+    xyz = _cp_samples(n, dev, seed=24)
+    dsigma = torch.zeros(n, device=dev)
+    dapp = torch.zeros((n, 288), device=dev)
+    dsigma[[3, 100, 517]] = torch.tensor([1.0, -2.0, 0.5], device=dev)
+    dapp[17, 0] = 1.25
+    dapp[250, 287] = -0.75
+    dapp[517, 100] = 2.0
+    _assert_cp_coords_grad_matches_plain(params, xyz, dsigma, dapp)
+
+
+def test_cp_coords_kernel_zero_upstream_gives_zero(dev):
+    params = _cp_lines("lego", dev, seed=25)
+    n = 4097
+    xyz = _cp_samples(n, dev, seed=25)
+    got = cpf.cp_features_coords_grad(CP_CFG, params, xyz, torch.zeros(n, device=dev),
+                                      torch.zeros((n, 288), device=dev))
+    assert torch.equal(got, torch.zeros_like(xyz))
+
+
+def test_cp_coords_kernel_wide_ranks_take_short_stages(dev):
+    """Appearance ranks too wide for 8-sample stages take 4; wider than two
+    such stages fit are refused before any launch."""
+    g = torch.Generator().manual_seed(26)
+    params = {k: tuple((0.5 * torch.randn((length, r), generator=g)).to(dev)
+                       for length in (40, 50, 60))
+              for k, r in (("density_line", 8), ("app_line", 500))}
+    assert cpf.coords_plan([40, 50, 60, 8, 500], True)[0] == 4
+    n = 5000
+    xyz = _cp_samples(n, dev, seed=26)
+    _assert_cp_coords_grad_matches_plain(params, xyz, *iteration_upstream(
+        params, n, 26, dev, per_ray=500, run=100))
+    wide = dict(params, app_line=tuple(torch.zeros((a.shape[0], 900), device=dev)
+                                       for a in params["app_line"]))
+    before = cpf.cp_features_coords_grad.launches
+    with pytest.raises(ValueError):
+        cpf.cp_features_coords_grad(CP_CFG, wide, xyz, torch.ones(n, device=dev),
+                                    torch.ones((n, 900), device=dev))
+    assert cpf.cp_features_coords_grad.launches == before
 
 
 def _assert_cp_backward_matches_plain(params, xyz, dsigma, dapp=None):
