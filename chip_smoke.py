@@ -118,6 +118,7 @@ from iffnerf_tpu_torch.ops import _build
 from iffnerf_tpu_torch.ops import banked_attention as banked_attention_module
 from iffnerf_tpu_torch.ops import cp_features as cp_features_module
 from iffnerf_tpu_torch.ops import field_features as field_features_module
+from iffnerf_tpu_torch.ops import gather as gather_module
 from iffnerf_tpu_torch.ops import grid_sample as grid_sample_module
 from iffnerf_tpu_torch.ops.banked_attention import (
     PATCHES,
@@ -150,6 +151,7 @@ from iffnerf_tpu_torch.ops.fused_ray_attention import (
     scaled_queries,
 )
 from iffnerf_tpu_torch.ops.gather import (
+    backward_plan,
     gather_rows,
     gather_rows_backward,
     gather_rows_backward_plain,
@@ -382,6 +384,9 @@ CP_FLAGS = ("--model_name", "TensorCP", "--n_lamb_sigma", "96",
             "--n_lamb_sh", "288", "--N_voxel_final", "125000000",
             "--L1_weight_inital", "1e-5", "--L1_weight_rest", "1e-5")
 CP_GRAD_TOL, CP_SAMPLER_RAYS, CP_INERF_ITERS = 1e-4, 256, 50
+# K3's backward at wide rows of many rows: a VM plane of lego's
+# 300^3 grid, [K3_PLANE^2, 48], at a colour chunk's 4 corners a sample
+K3_PLANE = 300
 # The CP coordinate kernel's all-live set: an iNeRF iteration's count (1 024
 # rays of 1 728 samples, as 2 048 of 864) ray-ordered half a texel apart at
 # the trained field's lines, centres within INERF_LIVE_SPREAD of the
@@ -4014,12 +4019,20 @@ def cp_coords_holds(config, params, xyz, dsigma, dapp, label):
     return row
 
 
+def k3_runs(idx):
+    """The runs of equal indices in ``idx`` [N]: 1 + the positions n where
+    idx[n] != idx[n - 1] (0 for no entry)."""
+    return int((idx[1:] != idx[:-1]).sum()) + 1 if idx.numel() else 0
+
+
 def k3_backward_holds(table_rows, idx, up, label):
     """K3's backward at ``idx`` [N] int32 and ``up`` [N, C] into a table of
     ``table_rows`` rows against index_add_ (gather_rows_backward_plain)
     within CP_GRAD_TOL of its largest; timed (graph and eager) beside its
     bound (the upstream and indices read once, each touched row read and
-    written once), its plain version and one index_add_ -> the row."""
+    written once), its plain version and one index_add_; its plan's slice
+    width and slices and the runs of equal indices (an add a run and slice)
+    -> the row."""
     got = gather_rows_backward(up, idx, table_rows)
     want = gather_rows_backward_plain(up, idx, table_rows)
     err = float((got - want).abs().max())
@@ -4030,6 +4043,8 @@ def k3_backward_holds(table_rows, idx, up, label):
     c = up.shape[1]
     ms, by = bound(up.numel() * 4 + idx.numel() * 4 + 2 * touched * c * 4,
                    0.0, torch.float32)
+    plan = backward_plan(table_rows, c, idx.shape[0],
+                         _build.sm_count(up.device), up.data_ptr() % 16 == 0)
     long_idx = idx.long()
 
     def library():
@@ -4037,7 +4052,8 @@ def k3_backward_holds(table_rows, idx, up, label):
             0, long_idx, up)
 
     return {"table": [table_rows, c], "n": idx.shape[0], "max_abs_err": err,
-            "share_of_tolerance": share,
+            "share_of_tolerance": share, "slice_cols": plan.slice_cols, "slices": plan.slices,
+            "runs": k3_runs(idx),
             "ms": time_ms(lambda: gather_rows_backward(up, idx, table_rows),
                           reps=FT_REPS, graph=True),
             "eager_ms": time_ms(lambda: gather_rows_backward(
@@ -4048,32 +4064,58 @@ def k3_backward_holds(table_rows, idx, up, label):
             "bound_ms": ms, "bound_by": by}
 
 
-def cp_sampler_route(config, params, mask, pool, n_samples, dev):
-    """One step's loss and gradients of CP_SAMPLER_RAYS rays at the final
-    grid through the CP kernels and through the samplers (fused_eval "off":
-    K3 and its backward), the same rays and jitter: the loss within 1e-5
-    and each leaf's gradient within POSE_GRAD_TOL of its largest; launch
-    counts of each route set to 0 just before it and read just after ->
-    (the samplers' counts, the comparison)."""
+@contextlib.contextmanager
+def captured_k3_backward():
+    """Keeps the inputs of every launch of K3's backward while open ->
+    [(upstream [N, C], idx [N], table rows)], in launch order."""
+    out = []
+    launch = gather_module._launch_backward
+
+    def capture(grad, idx, rows):
+        out.append((grad, idx, rows))
+        return launch(grad, idx, rows)
+
+    gather_module._launch_backward = capture
+    try:
+        yield out
+    finally:
+        gather_module._launch_backward = launch
+
+
+def sampler_step(config, params, mask, pool, n_samples, dev):
+    """One training step's loss of CP_SAMPLER_RAYS rays of ``pool`` under
+    ``config`` (rays and jitter drawn from SEED + 60), its backward taken
+    -> (the loss, the trainable leaves' gradients)."""
     rng = np.random.default_rng(SEED + 60)
     rows = torch.as_tensor(rng.integers(0, pool.all_rays.shape[0],
                                         CP_SAMPLER_RAYS), device=dev)
     jitter = torch.as_tensor(rng.random((CP_SAMPLER_RAYS, 1),
                                         dtype=np.float32), device=dev)
-    bg = torch.ones(3, device=dev)
+    p = trainable(params, dev)
+    total, _ = field_trainer.field_loss(
+        config, p, mask, pool.all_rays[rows], pool.all_rgbs[rows],
+        torch.ones(3, device=dev), {"l1": 1e-5, "tv_d": 0.0, "tv_a": 0.0},
+        n_samples=n_samples, jitter=jitter, use_l1=True)
+    total.backward()
+    torch.cuda.synchronize()
+    return float(total.detach()), [a.grad for a in leaves(p)]
+
+
+def cp_sampler_route(config, params, mask, pool, n_samples, dev):
+    """``sampler_step`` at the final grid through the CP kernels and
+    through the samplers (fused_eval "off": K3 and its backward), the same
+    rays and jitter: the loss within 1e-5 and each leaf's gradient within
+    POSE_GRAD_TOL of its largest; launch counts of each route set to 0 just
+    before it and read just after; the samplers' K3-backward launches held
+    to index_add_ and timed one by one (``k3_backward_holds``) -> (the
+    samplers' counts, the comparison and the launches' rows)."""
     out, counts = {}, {}
     for route, cfg in (("cp_kernel", config),
                        ("samplers", config.replace(fused_eval="off"))):
-        p = trainable(params, dev)
-        _reset_counts()
-        total, _ = field_trainer.field_loss(
-            cfg, p, mask, pool.all_rays[rows], pool.all_rgbs[rows], bg,
-            {"l1": 1e-5, "tv_d": 0.0, "tv_a": 0.0}, n_samples=n_samples,
-            jitter=jitter, use_l1=True)
-        total.backward()
-        torch.cuda.synchronize()
-        counts[route] = _counts()
-        out[route] = (float(total.detach()), [a.grad for a in leaves(p)])
+        with captured_k3_backward() as k3_inputs:
+            _reset_counts()
+            out[route] = sampler_step(cfg, params, mask, pool, n_samples, dev)
+            counts[route] = _counts()
     check(counts["cp_kernel"]["cp_features_backward"] == 1
           and counts["cp_kernel"]["gather_rows_backward"] == 0,
           f"the CP route's launches {counts['cp_kernel']}")
@@ -4089,9 +4131,21 @@ def cp_sampler_route(config, params, mask, pool, n_samples, dev):
         for a, b in pairs if b is not None)
     check(loss_diff <= 1e-5 * abs(out["samplers"][0]) and worst <= 1.0,
           f"CP kernels' and samplers' step agree ({loss_diff}, {worst})")
+    del out
+    check(len(k3_inputs) == counts["samplers"]["gather_rows_backward"],
+          f"{len(k3_inputs)} K3-backward launches captured")
+    launches = [k3_backward_holds(r, i, u, f"the samplers' step, launch {k}")
+                for k, (u, i, r) in enumerate(k3_inputs)]
+    del k3_inputs
+    torch.cuda.empty_cache()
     return counts["samplers"], {
         "rays": CP_SAMPLER_RAYS, "n_samples": n_samples,
-        "loss_abs_diff": loss_diff, "worst_grad_share_of_tolerance": worst}
+        "loss_abs_diff": loss_diff, "worst_grad_share_of_tolerance": worst,
+        "k3_backward_launches": launches,
+        "k3_backward_count": len(launches),
+        "k3_backward_sum": {k: sum(row[k] for row in launches)
+                            for k in ("ms", "eager_ms", "plain_ms",
+                                      "library_ms", "bound_ms")}}
 
 
 def train_cp(dev):
@@ -4287,7 +4341,12 @@ def phase_tensor_cp(dev):
         grid[2], line_idx.contiguous(),
         torch.randn((line_idx.shape[0], 288), generator=g, device=dev),
         "an appearance line at a colour chunk")
-    del cp, cxyz, line_idx
+    plane_idx = corners_2d(K3_PLANE, K3_PLANE, cxyz[:, :2])[0].reshape(-1)
+    k3_plane = k3_backward_holds(
+        K3_PLANE ** 2, plane_idx.contiguous(),
+        torch.randn((plane_idx.shape[0], 48), generator=g, device=dev),
+        "a VM plane at a colour chunk")
+    del cp, cxyz, line_idx, plane_idx
 
     # iNeRF on the CP field
     t0 = time.perf_counter()
@@ -4343,7 +4402,8 @@ def phase_tensor_cp(dev):
          launches=counts, kernels_at_step=at_step,
          kernels_at_colour_chunk=at_chunk,
          k3_backward={"mask_at_step": k3_step, "density_line_at_step": k3_line,
-                      "app_line_at_colour_chunk": k3_chunk},
+                      "app_line_at_colour_chunk": k3_chunk,
+                      "vm_plane_at_colour_chunk": k3_plane},
          grad_tolerance=CP_GRAD_TOL, sampler_route=sampler_route,
          sampler_launches=sampler_counts,
          explore={"s": explore_s, "launches": explore_counts,
@@ -4393,8 +4453,13 @@ def phase_tensor_cp(dev):
         replaces="extra/pallas_gather_bench.py:46",
         replaces_kind="the backward of pallas_gather's work (jnp.take's"
                       " scatter-add, which XLA derives)",
-        design="a group of lanes a row of the upstream, float4 REDs into"
-               " the gradient table's row",
+        design="backward_plan's launch: column slices of at most 96; each"
+               " block of a slice walks a span of units of consecutive"
+               " entries, its warps taking units from a shared-memory"
+               " counter, groups of lanes holding consecutive entries' words"
+               " loaded steps ahead; runs of equal rows merged by a segmented"
+               " shuffle scan and carried from step to step, one RED a run"
+               " and word into device memory",
         launches=sampler_counts["gather_rows_backward"],
         launches_by_path={k: c["gather_rows_backward"]
                           for k, c in by_path.items()},
@@ -4402,7 +4467,10 @@ def phase_tensor_cp(dev):
         **{k: k3_step[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms")},
         library="torch.Tensor.index_add_",
-        at_density_line=k3_line, at_app_line_colour_chunk=k3_chunk)
+        at_density_line=k3_line, at_app_line_colour_chunk=k3_chunk,
+        at_vm_plane_colour_chunk=k3_plane,
+        at_sampler_step=sampler_route["k3_backward_launches"],
+        sampler_step_sum=sampler_route["k3_backward_sum"])
     return [
         entry("cp_features", "forward", "tensor_cp_train",
               "shared route: one block an SM holds a slice of 32 ranks of"

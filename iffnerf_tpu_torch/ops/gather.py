@@ -12,15 +12,17 @@ use: ``-R <= i < 0`` wraps to ``i + R`` and any other index outside
 
 On CUDA ``gather_rows`` is differentiable in the table: an
 ``autograd.Function`` whose backward launches ``iff_gather_rows_bwd``
-(the wrapper ``gather_rows_backward``), which adds each upstream row into
-its table row with float REDs; a NaN row's upstream is dropped, as XLA's
-scatter drops it. Its plain version, ``gather_rows_backward_plain``, is an
-``index_add_``.
+(the wrapper ``gather_rows_backward``), which merges each run of equal
+rows before it adds into the table's row in device memory
+(``backward_plan`` sets its launch); a NaN row's upstream is dropped, as
+XLA's scatter drops it. Its plain version,
+``gather_rows_backward_plain``, is an ``index_add_``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,7 +35,9 @@ _SIGNATURES = {
                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
     "iff_gather_rows_bwd": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                             ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_void_p],
 }
 # The bucketed route is taken for tables above this size (beyond what L2
 # keeps) whose rows are at least this wide and that the indices read more
@@ -44,6 +48,32 @@ BUCKET_BYTES = 8 << 20
 BUCKET_MIN_TABLE_BYTES = 32 << 20
 BUCKET_MIN_ROW_BYTES = 64
 MAX_BUCKETS = 64
+# The backward's plan (csrc/gather_rows.cu, namespace bwd): column slices
+# of at most BWD_MAX_SLICE columns; at most BWD_BLOCKS_PER_SM blocks of
+# BWD_WARPS warps an SM (32 warps an SM: at 16 the samplers' step took
+# 1.28 times as long, PERF.md); a lane holds at most BWD_MAX_Q words of an
+# entry; a unit holds BWD_UNIT_MIN to BWD_UNIT_MAX entries, and a plan
+# gives each warp about BWD_UNITS_PER_WARP units (a warp's last unit is
+# the imbalance, a unit's end an extra add; tuned on an H100, PERF.md).
+BWD_WARPS, BWD_BLOCKS_PER_SM = 16, 2
+BWD_MAX_SLICE = 96
+BWD_MAX_Q = 3
+BWD_UNIT_MIN, BWD_UNIT_MAX = 32, 2048
+BWD_UNITS_PER_WARP = 32
+
+
+class BackwardPlan(NamedTuple):
+    """``iff_gather_rows_bwd``'s launch: float4 words or not, the columns
+    of a slice and the slices, blocks a slice and warps a block, log2 of
+    the lanes a group, words a lane and entries a unit."""
+    vec: bool
+    slice_cols: int
+    slices: int
+    blocks: int
+    warps: int
+    log_g: int
+    q: int
+    unit: int
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -127,17 +157,71 @@ def _launch(table, idx):
     return out
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _slice_width(cols: int, slices: int, vf: int) -> int:
+    """Columns of each of ``slices`` equal slices of ``cols``, a multiple
+    of ``vf``."""
+    return vf * _ceil(_ceil(cols, slices), vf)
+
+
+def _groups(words: int):
+    """(log2 of the lanes a group, words a lane) covering ``words`` words
+    of a slice: the fewest words a lane, then the narrowest group."""
+    for q in range(1, BWD_MAX_Q + 1):
+        log_g = (_ceil(words, q) - 1).bit_length()
+        if log_g <= 5:
+            return log_g, q
+    raise ValueError(f"no group covers {words} words")
+
+
+def backward_plan(rows: int, cols: int, n: int, sms: int,
+                  aligned: bool) -> BackwardPlan:
+    """The backward's launch for ``n`` entries into a [rows, cols] table
+    on a card of ``sms`` SMs, float4 words where ``cols`` % 4 == 0 and the
+    pointers are ``aligned`` (16 bytes): the fewest slices of equal width
+    (at most BWD_MAX_SLICE columns, a multiple of 4 on the float4 route);
+    a group of lanes covers a slice's words with the fewest a lane (a
+    slice of 96 columns: 24 lanes of one float4 word). Blocks (at most
+    BWD_BLOCKS_PER_SM an SM in all, each warp at least 16 steps) and units
+    give each warp about BWD_UNITS_PER_WARP units of consecutive entries.
+    Raises ValueError for what the kernel does not take."""
+    if not 0 < rows < 2 ** 31 or cols < 1 or n < 0 or sms < 1:
+        raise ValueError(f"no backward plan for a [{rows}, {cols}] table, "
+                         f"{n} entries and {sms} SMs")
+    vec = bool(aligned) and cols % 4 == 0
+    vf = 4 if vec else 1
+    width = _slice_width(cols, _ceil(cols, BWD_MAX_SLICE), vf)
+    slices = _ceil(cols, width)
+    log_g, q = _groups(width // vf)
+    e = 32 >> log_g  # entries a step
+    blocks = max(1, min(BWD_BLOCKS_PER_SM * sms // slices,
+                        _ceil(n, BWD_WARPS * e * 16), 65535))
+    steps = min(BWD_UNIT_MAX // e, max(_ceil(BWD_UNIT_MIN, e), _ceil(
+        n, blocks * BWD_WARPS * BWD_UNITS_PER_WARP * e)))
+    unit = steps * e
+    if slices > 65535 or _ceil(n, unit) >= 2 ** 31:
+        raise ValueError(f"too many slices or units for a [{rows}, {cols}] "
+                         f"table and {n} entries")
+    return BackwardPlan(vec, width, slices, blocks, BWD_WARPS, log_g, q,
+                        unit)
+
+
 def _launch_backward(grad, idx, rows):
     n, c = grad.shape
     out = torch.zeros((rows, c), dtype=torch.float32, device=grad.device)
     if n == 0:
         return out
+    plan = backward_plan(rows, c, n, _build.sm_count(grad.device),
+                         grad.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     lib = _build.load("gather_rows", _SIGNATURES)
-    vec = c % 4 == 0 and grad.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     stream = torch.cuda.current_stream(grad.device).cuda_stream
-    rc = lib.iff_gather_rows_bwd(grad.data_ptr(), idx.data_ptr(),
-                                 out.data_ptr(), rows, n, c, int(vec),
-                                 _build.sm_count(grad.device), stream)
+    rc = lib.iff_gather_rows_bwd(
+        grad.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, n, c,
+        int(plan.vec), plan.slice_cols, plan.blocks, plan.warps, plan.log_g,
+        plan.q, plan.unit, stream)
     _build.check(rc, "gather_rows backward kernel launch")
     gather_rows_backward.launches += 1
     return out

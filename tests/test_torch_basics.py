@@ -226,6 +226,7 @@ def test_port_imports_no_jax():
         import iffnerf_tpu_torch.pose.vit
         import iffnerf_tpu_torch.pose_cli
         import iffnerf_tpu_torch.tools.convert_dinov2
+        import iffnerf_tpu_torch.tools.k3_time
         import iffnerf_tpu_torch.train
         import iffnerf_tpu_torch.train.trainer
         import chip_smoke

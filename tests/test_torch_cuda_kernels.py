@@ -34,8 +34,9 @@ through dsigma alone or one dapp word alone, with zero upstream giving
 exact zeros, at lego's ranks on 4-byte words in four passes (coordinates
 or dapp off the 16-byte grid), and at appearance ranks wide enough for
 4-sample stages or past its plan (refused before any launch);
-K3's backward is held to ``index_add_`` at the mask lookup's and the
-lines' shapes, and the samplers' route of a VM and a CP field under grad
+K3's backward is held to ``index_add_`` at the mask lookup's, the lines'
+and a VM plane's shapes, a line of 2 500 rows, one run, runs of 1, one
+entry and less than a unit; the samplers' route of a VM and a CP field under grad
 (``fused_eval="off"``) runs on it. The row gather covers both its routes,
 the field's row widths, ragged and empty index counts, the edge indices, a table whose
 rows are not 16-byte aligned and the mask lookup's stacked corners; the
@@ -98,6 +99,7 @@ from iffnerf_tpu_torch.ops.field_features import (
 )
 from iffnerf_tpu_torch.ops import cp_features as cpf
 from iffnerf_tpu_torch.ops.gather import (
+    backward_plan,
     gather_rows,
     gather_rows_backward,
     gather_rows_backward_plain,
@@ -105,6 +107,7 @@ from iffnerf_tpu_torch.ops.gather import (
 )
 from iffnerf_tpu_torch.ops.grid_sample import (
     corners_1d,
+    corners_2d,
     corners_3d,
     grid_sample_1d,
     grid_sample_2d,
@@ -1603,26 +1606,52 @@ def test_cp_backward_kernel_at_the_column_width_switch(dev, side):
 
 
 @pytest.mark.parametrize("shape", ["mask", "density_line", "app_line",
-                                   "wrapped", "unaligned"])
+                                   "wrapped", "unaligned", "vm_plane",
+                                   "long_line", "one_run", "shuffled", "one",
+                                   "below_unit"])
 def test_gather_backward_kernel_matches_index_add(dev, shape):
     """K3's backward against index_add_ (gather_rows_backward_plain): the
-    mask lookup's stacked corners into a [300^3, 1] volume, a CP step's
-    line corners into [500, 96] and [500, 288] lines, wrapped and
-    out-of-range indices (the latter add nothing), rows off the 16-byte
-    grid (4-byte words)."""
+    mask lookup's stacked corners into a [300^3, 1] volume (one lane an
+    entry), a CP step's line corners into [500, 96] and [500, 288] lines
+    (one and three column slices), wrapped and out-of-range indices (the
+    latter add nothing), rows off the 16-byte grid (4-byte words), a VM
+    plane [300^2, 48] at 4 corners a sample (12 lanes an entry), a longer
+    line ([2500, 96]), every index equal (one run), shuffled indices (runs
+    of 1), one entry and fewer entries than a unit holds (a [500, 1]
+    line)."""
     g = torch.Generator().manual_seed(5)
     if shape == "mask":
         rows, c = 300 ** 3, 1
         coords = (torch.rand((204660, 3), generator=g) * 2.1 - 1.05).to(dev)
         idx = corners_3d(300, 300, 300, coords)[0].reshape(-1)
+    elif shape == "vm_plane":
+        rows, c = 300 ** 2, 48
+        coords = _cp_samples(204660, dev)[:, :2]
+        idx = corners_2d(300, 300, coords)[0].reshape(-1).contiguous()
     else:
-        rows, c = 500, {"density_line": 96, "app_line": 288,
-                        "wrapped": 16, "unaligned": 16}[shape]
+        rows, c = {"long_line": (2500, 96), "one_run": (500, 96),
+                   "shuffled": (500, 96), "one": (500, 96),
+                   "below_unit": (500, 1)}.get(shape, (500, None))
+        c = c or {"density_line": 96, "app_line": 288, "wrapped": 16,
+                  "unaligned": 16}[shape]
         xyz = _cp_samples(204660, dev)
         idx = corners_1d(rows, xyz[:, 2])[0].reshape(-1).contiguous()
         if shape == "wrapped":
             idx = torch.randint(-rows - 9, rows + 9, idx.shape, generator=g,
                                 dtype=torch.int32).to(dev)
+        elif shape == "one_run":
+            idx = torch.full_like(idx, 123)
+        elif shape == "shuffled":
+            idx = idx[torch.randperm(idx.shape[0], generator=g).to(dev)]
+        elif shape == "one":
+            idx = idx[:1].contiguous()
+        elif shape == "below_unit":
+            idx = idx[:20].contiguous()
+    plan = backward_plan(rows, c, idx.shape[0], torch.cuda.get_device_properties(
+        dev).multi_processor_count, shape != "unaligned")
+    assert plan.slices == -(-c // 96)
+    if shape == "below_unit":
+        assert idx.shape[0] < plan.unit
     up = torch.randn((idx.shape[0] * c + 1,), generator=g).to(dev)
     # rows off the 16-byte grid: the kernel takes 4-byte words
     up = (up[1:] if shape == "unaligned" else up[:-1]).view(idx.shape[0], c)
