@@ -48,7 +48,12 @@ rendered from the field, then ``test_pose_estimation`` with
 ``inerf_refinement``, its refinement cut to 100 iterations), with
 ``field_features``' coordinate-gradient
 kernel held to its plain version, at an iteration's samples and on an
-all-live set, bit-equal across repeats, and timed beside it. It checks
+all-live set, bit-equal across repeats, and timed beside it; and the
+data mesh (``parallel/mesh.py``) inside a one-rank NCCL group: the sharded
+pose estimate at full width against the exact route and K1's, with
+``test_pose_estimation`` through it, the per-object field rendered with
+and without the mesh, and three configs/lego.txt steps with
+``--data_mesh 1`` and 0, the two held to one another. It checks
 what comes out, and times kernels, estimates, the object side,
 training steps and refinement iterations with CUDA events and the host
 clock. Each
@@ -160,6 +165,7 @@ from iffnerf_tpu_torch.ops.gather import (
 from iffnerf_tpu_torch.ops.grid_sample import corners_1d, corners_2d, corners_3d
 from iffnerf_tpu_torch.ops.ide import ide_output_dim
 from iffnerf_tpu_torch.ops.topk import exact_topk
+from iffnerf_tpu_torch.parallel import make_mesh
 from iffnerf_tpu_torch.pose.id_module import (
     IDConfig,
     image_queries,
@@ -180,6 +186,7 @@ from iffnerf_tpu_torch.pose.sampling import (
 from iffnerf_tpu_torch.pose.solve import (
     estimate_pose_single,
     estimate_pose_single_banked,
+    estimate_pose_single_sharded,
     solve_pose_from_topk,
 )
 from iffnerf_tpu_torch.pose import trainer as trainer_module
@@ -198,7 +205,11 @@ from iffnerf_tpu_torch.pose.trainer import (
     trainable,
 )
 from iffnerf_tpu_torch.pose.vit import ViTConfig
-from iffnerf_tpu_torch.render.renderer import evaluation, evaluation_path
+from iffnerf_tpu_torch.render.renderer import (
+    evaluation,
+    evaluation_path,
+    render_chunked,
+)
 from iffnerf_tpu_torch.tools.ff_time import AXES, ray_ordered_samples, ray_upstream
 from iffnerf_tpu_torch.train import trainer as field_trainer
 from iffnerf_tpu_torch.train.trainer import field_config_from_args, train_field
@@ -392,6 +403,14 @@ K3_PLANE = 300
 # the trained field's lines, centres within INERF_LIVE_SPREAD of the
 # origin, every upstream word normal
 CP_LIVE_RAYS, CP_LIVE_PER_RAY = 2048, 864
+# The data mesh (parallel/mesh.py) inside a one-rank NCCL group: the
+# sharded estimate at full width against the exact route and K1, the
+# per-object field rendered at one 800x800 view with and without the mesh
+# (rgb and depth within SHARD_RENDER_ATOL), and SHARD_STEPS steps of
+# configs/lego.txt (batch 4 096, from a 128^3 field with the cluster mask)
+# with --data_mesh 1 and 0 on a pool of SHARD_POOL synthetic frames, the
+# parameters held to the CPU tests' training rule (rtol 1e-4, atol 1e-6)
+SHARD_STEPS, SHARD_POOL, SHARD_RENDER_ATOL = 3, 10, 1e-6
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 T_START = time.perf_counter()
 
@@ -4517,6 +4536,187 @@ def phase_tensor_cp(dev):
         k3]
 
 
+# ---------------------------------------------------------------------------
+# the data mesh: the sharded routes inside a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+
+def _params_agree(a, b, rtol=1e-4, atol=1e-6):
+    """-> (largest |a - b| over the leaves, all within the rule, all
+    bit-equal)."""
+    fa, fb = (_flatten(_numpy_leaves(t)) for t in (a, b))
+    worst = max(float(np.abs(fa[k] - fb[k]).max()) for k in fa)
+    close = all(np.allclose(fa[k], fb[k], rtol=rtol, atol=atol) for k in fa)
+    return worst, close, all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def sharded_pose(mesh, params, cfg, imgs, mask, rays):
+    """The sharded estimate at full width (bf16 bank) against the exact
+    route (c2w within 1e-4, the same top-100) and K1's banked route
+    (``_compare_routes``' rule), each timed over the same images; then
+    ``test_pose_estimation`` with the mesh against without it."""
+    ro, rd, rr = rays
+    bank = ray_bank(params, cfg, ro, rd, rr)
+    _reset_counts()
+    outs, ms = _drive(lambda img: estimate_pose_single_sharded(
+        params, cfg, img, mask, ro, rd, rr, UP, mesh, k=K_TOP, bank=bank),
+        imgs)
+    counts = _counts()
+    check(counts["banked_scores"] == 0, f"the sharded estimate scores on "
+          f"the exact route: {counts}")
+    exact = dataclasses.replace(cfg, fused_bank=False)
+    refs, exact_ms = _drive(lambda img: estimate_pose_single_banked(
+        params, exact, img, mask, bank, ro, rd, UP, k=K_TOP), imgs)
+    k1, k1_ms = _drive(lambda img: estimate_pose_single_banked(
+        params, cfg, img, mask, bank, ro, rd, UP, k=K_TOP), imgs)
+    vs_exact, ov_exact = _compare_routes(outs, refs, "sharded vs exact")
+    vs_k1, ov_k1 = _compare_routes(outs, k1, "sharded vs K1")
+    bit_equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                    for a, b in zip(outs, refs))
+    del outs, refs, k1
+    frames = synthetic_frames(imgs.device)
+    rows, *_ = test_pose_estimation(frames, params, cfg, ro, rd, rr,
+                                    torch.tensor(UP), mesh=mesh,
+                                    log_fn=lambda *a: None)
+    plain, *_ = test_pose_estimation(frames, params, cfg, ro, rd, rr,
+                                     torch.tensor(UP), log_fn=lambda *a: None)
+    tpe = max(float(np.abs(np.asarray(a["pred_c2w"])
+                           - np.asarray(b["pred_c2w"])).max())
+              for a, b in zip(rows, plain))
+    check(len(rows) == N_FRAMES and tpe <= 1e-4, f"test_pose_estimation "
+          f"with the mesh: {len(rows)} rows, c2w {tpe} from no mesh")
+    return {"n_rays": N_RAYS, "images": imgs.shape[0], "launches": counts,
+            "ms_per_image_median": statistics.median(ms), "ms_per_image": ms,
+            "exact_route_ms_per_image_median": statistics.median(exact_ms),
+            "k1_banked_ms_per_image_median": statistics.median(k1_ms),
+            "c2w_max_diff_vs_exact": vs_exact,
+            "top100_min_overlap_vs_exact": ov_exact,
+            "bit_equal_to_exact": bit_equal,
+            "c2w_max_diff_vs_k1": vs_k1, "top100_min_overlap_vs_k1": ov_k1,
+            "test_pose_estimation_c2w_max_diff": tpe}
+
+
+def sharded_render(mesh, field, field_mask, dev):
+    """The per-object field rendered at lego's 800x800 camera from radius
+    4, with the mesh and without, in turns (mesh, plain, plain, mesh): each
+    with-mesh render's rgb and depth within SHARD_RENDER_ATOL of each
+    plain one's; the seconds of each."""
+    config, params = field
+    unit, radii = _ray_grid(dev)
+    c2w = torch.as_tensor(_look_at_c2w(np.array([2.4, -2.4, 2.0])),
+                          device=dev)
+    rays = torch.cat([c2w[:3, 3].expand(unit.shape[0], 3), unit @ c2w[:3, :3].T,
+                      radii], -1)
+    out = {"mesh": [], "plain": []}
+    for name in ("mesh", "plain", "plain", "mesh"):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgb, depth = render_chunked(config, params, field_mask, rays,
+                                    white_bg=True,
+                                    mesh=mesh if name == "mesh" else None)
+        out[name].append((rgb, depth, _sync_s(t0), _counts()))
+    counts = out["mesh"][0][3]
+    diff, bit_equal = 0.0, True
+    for rgb, depth, _, _ in out["mesh"]:
+        for rgb0, depth0, _, _ in out["plain"]:
+            diff = max(diff, float((rgb - rgb0).abs().max()),
+                       float((depth - depth0).abs().max()))
+            bit_equal &= bool(torch.equal(rgb, rgb0)
+                              and torch.equal(depth, depth0))
+    check(diff <= SHARD_RENDER_ATOL, f"render with the mesh vs without: "
+          f"{diff}")
+    rgb = out["mesh"][0][0]
+    check(bool(torch.isfinite(rgb).all()) and bool((rgb < 0.99).any()),
+          "the render shows the field")
+    check(counts["field_features"] > 0 and counts["gather_rows"] > 0,
+          f"the sharded render launched field_features and K3: {counts}")
+    return {"rays": rays.shape[0], "launches": counts,
+            "seconds": [r[2] for r in out["mesh"]],
+            "plain_seconds": [r[2] for r in out["plain"]],
+            "max_abs_diff": diff, "bit_equal": bit_equal}
+
+
+def sharded_train(dev):
+    """SHARD_STEPS steps of configs/lego.txt through ``train_field`` with
+    ``--data_mesh 1`` and ``0`` from one 128^3 field and seed, in turns
+    (plain, mesh, mesh, plain); each step timed; every with-mesh run's
+    parameters held to every plain run's under the CPU tests' training
+    rule."""
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    pool = synthetic_ray_pool(dev, SHARD_POOL, SEED + 30)
+    path = WORK_DIR / "sharded_field_128.npz"
+    base = config_args("lego", SHARD_STEPS, (), ())
+    cfg0, np_params, mask0 = make_lego_field(dev, FT_GRID_INIT, spread=1.75)
+    save_field(str(path), field_config_from_args(
+        base, pool.scene_bbox, (FT_GRID_INIT,) * 3, pool.near_far),
+        np_params, mask0)
+    del np_params, mask0
+    runs = {"mesh": [], "plain": []}
+    for name in ("plain", "mesh", "mesh", "plain"):
+        args = config_args("lego", SHARD_STEPS, (), (),
+                           extra=("--data_mesh", "1" if name == "mesh" else "0"))
+        config, params, mask = load_field(str(path), device=dev)
+        with timed_field_steps() as steps:
+            _reset_counts()
+            _, params, _ = train_field(
+                args, config, params, mask, pool, None,
+                str(WORK_DIR / f"sharded_train_{name}"),
+                log_fn=lambda *a: None, device=dev,
+                reso_cur=N_to_reso(args.N_voxel_init, pool.scene_bbox))
+            counts = _counts()
+        runs[name].append((params, steps, counts))
+    path.unlink()
+    worst, close, bit_equal = 0.0, True, True
+    for params, _, _ in runs["mesh"]:
+        for params0, _, _ in runs["plain"]:
+            w, c, b = _params_agree(params, params0)
+            worst, close, bit_equal = max(worst, w), close and c, bit_equal and b
+    check(close, f"--data_mesh 1 and 0 agree after {SHARD_STEPS} steps "
+          f"({worst})")
+    counts = runs["mesh"][0][2]
+    check(counts["field_features"] > 0 and counts["field_features_backward"]
+          == SHARD_STEPS and counts["gather_rows"] > 0,
+          f"the sharded steps launched field_features, its backward and "
+          f"K3: {counts}")
+    return {"steps": SHARD_STEPS, "batch": FT_BATCH, "grid": FT_GRID_INIT,
+            "pool_frames": SHARD_POOL, "launches": counts,
+            "step_s": [[st["s"] for st in r[1]] for r in runs["mesh"]],
+            "plain_step_s": [[st["s"] for st in r[1]] for r in runs["plain"]],
+            "mse": [[st["mse"] for st in r[1]] for r in runs["mesh"]],
+            "plain_mse": [[st["mse"] for st in r[1]] for r in runs["plain"]],
+            "params_max_abs_diff": worst, "params_bit_equal": bit_equal}
+
+
+def phase_sharded(params, cfg, imgs, mask, rays, field, field_mask, dev):
+    """The sharded routes through the entry points inside a one-rank NCCL
+    group (a ``file://`` rendezvous in a temporary directory; the group is
+    destroyed at the end): the pose estimate, the render, field training.
+    Launch counts set to 0 just before each and read just after. -> the
+    counts by route."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            check(mesh.size == 1 and mesh.device.type == "cuda",
+                  f"a one-rank mesh on the card: {mesh}")
+            pose = sharded_pose(mesh, params, cfg, imgs, mask, rays)
+            render = sharded_render(mesh, field, field_mask, dev)
+            train = sharded_train(dev)
+        finally:
+            dist.destroy_process_group()
+    emit(phase="sharded", backend="nccl", ranks=1, pose=pose, render=render,
+         train=train)
+    return {"sharded_pose": pose["launches"],
+            "sharded_render": render["launches"],
+            "sharded_train": train["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4564,6 +4764,12 @@ def main() -> int:
         "fused_float32": lambda img: estimate_pose_single(
             params, fused32, img, mask, ro, rd, rr, UP, k=K_TOP)}, imgs)
     del bank, bank32
+    torch.cuda.empty_cache()
+    # the data mesh in a one-rank NCCL group: the sharded estimate on the
+    # exact route, the render (field_features, K3) and field training
+    # (field_features and its backward, K3)
+    sh_counts = phase_sharded(params, cfg16, imgs, mask, rays, field,
+                              field_mask, dev)
     torch.cuda.empty_cache()
     # ID-module training: its renewals launch K3 and field_features
     id_counts = phase_id_train(field, field_mask, dev)
@@ -4655,7 +4861,9 @@ def main() -> int:
                                **{(k if k.startswith("object_")
                                    else f"real_scenes_{k}"): c["gather_rows"]
                                   for k, c in rs_counts.items()},
-                               "inerf": inerf_counts["gather_rows"]},
+                               "inerf": inerf_counts["gather_rows"],
+                               **{k: c["gather_rows"]
+                                  for k, c in sh_counts.items()}},
              **rows["gather_rows/mask_stacked"]),
         dict(name="field_features", route="cuda",
              source="iffnerf_tpu_torch/csrc/field_features.cu",
@@ -4683,7 +4891,9 @@ def main() -> int:
                                    else f"real_scenes_{k}"):
                                   c["field_features"]
                                   for k, c in rs_counts.items()},
-                               "inerf": inerf_counts["field_features"]},
+                               "inerf": inerf_counts["field_features"],
+                               **{k: c["field_features"]
+                                  for k, c in sh_counts.items()}},
              at_training_step=ft_forward,
              at_real_scenes={k: r[1] for k, r in real.items()},
              at_object_captures={k: r[1] for k, r in trained.items()},
@@ -4693,7 +4903,9 @@ def main() -> int:
                  ft_backward["launches_by_path"],
                  **{(k if k.startswith("object_") else f"real_scenes_{k}"):
                     c["field_features_backward"]
-                    for k, c in rs_counts.items()}),
+                    for k, c in rs_counts.items()},
+                 sharded_train=sh_counts["sharded_train"][
+                     "field_features_backward"]),
              at_real_scenes={k: r[2] for k, r in real.items()},
              at_object_captures={k: r[2] for k, r in trained.items()}),
         dict(coords_entry, launches_by_path=dict(

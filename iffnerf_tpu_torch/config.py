@@ -120,6 +120,8 @@ def build_argparse() -> argparse.ArgumentParser:
     # its config files parse here too
     parser.add_argument("--train_scan", type=int, default=0)
     parser.add_argument("--adaptive_compact", type=int, default=1)
+    # the data mesh over a torchrun launch's ranks (train/trainer.py::
+    # data_mesh): -1 on when there is more than one rank, 0 off, 1 on
     parser.add_argument("--data_mesh", type=int, default=-1)
     parser.add_argument("--resume_iter", type=int, default=0)
     parser.add_argument("--ckpt_every", type=int, default=2000)

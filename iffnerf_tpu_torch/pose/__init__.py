@@ -30,6 +30,7 @@ from iffnerf_tpu_torch.pose.sampling import (
 from iffnerf_tpu_torch.pose.solve import (
     estimate_pose_single,
     estimate_pose_single_banked,
+    estimate_pose_single_sharded,
     solve_pose_from_topk,
 )
 from iffnerf_tpu_torch.pose.test import test_pose_estimation

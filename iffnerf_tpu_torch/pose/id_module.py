@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from iffnerf_tpu_torch.device import as_tensor, resolve_device, tree_to
 from iffnerf_tpu_torch.nn import linear_apply, mlp_init, uniform
 from iffnerf_tpu_torch.ops.encoding import positional_encoding
+from iffnerf_tpu_torch.parallel.mesh import pmax, psum
 from iffnerf_tpu_torch.pose.vit import ViTConfig, init_vit, vit_forward_features
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -249,13 +250,14 @@ def score_rays(params, config: IDConfig, q, patch_valid, rays_ori, rays_dir,
     path runs, as the JAX package falls back to XLA where its kernel
     cannot tile: float32 logits divided by sqrt(D) after the matmul.
 
-    ``axis_name``, the JAX package's mesh axis of a sharded ray set, is
-    not ported: the sharded route raises.
+    With ``axis_name`` the rays are this rank's shard of a mesh axis
+    (``parallel.mesh``) and the exact path runs, in the JAX package's
+    order: the logits' maximum over the whole ray set (``pmax``), then
+    ``exp(logits - max)`` and its sum over the whole set (``psum``), so
+    that the shard's scores are the full softmax's.
 
     Returns (scores [R], attention [P, R] | None)."""
-    if axis_name is not None:
-        raise NotImplementedError("the sharded scoring route is not ported")
-    if bank is not None and config.fused_bank:
+    if bank is not None and config.fused_bank and axis_name is None:
         from iffnerf_tpu_torch.ops import banked_attention as banked
 
         if bank.shape[0] > 0 and banked.kernel_takes(
@@ -265,8 +267,13 @@ def score_rays(params, config: IDConfig, q, patch_valid, rays_ori, rays_dir,
          else _ray_keys(params, config, rays_ori, rays_dir, rays_rgb))
     logits = (q.float() @ k.float().T) / math.sqrt(q.shape[-1])  # [P, R]
     m = logits.max(dim=-1).values
+    if axis_name is not None:
+        m = pmax(m, axis_name)
     e = torch.exp(logits - m[:, None])
-    attention = e / e.sum(dim=-1)[:, None]
+    denom = e.sum(dim=-1)
+    if axis_name is not None:
+        denom = psum(denom, axis_name)
+    attention = e / denom[:, None]
     scores = torch.where(patch_valid[:, None], attention, 0.0).sum(dim=0)
     return scores, attention
 

@@ -15,6 +15,7 @@ import torch
 
 from iffnerf_tpu_torch.device import as_tensor, resolve_device, tree_to
 from iffnerf_tpu_torch.ops.topk import exact_topk
+from iffnerf_tpu_torch.parallel.mesh import all_gather, bound, shard_bounds
 from iffnerf_tpu_torch.pose.geometry import (
     compute_line_intersection_impl2,
     det3,
@@ -136,3 +137,47 @@ def estimate_pose_single_banked(params, config: IDConfig, img, mask, bank,
         rays_ori[idx], rays_dirs[idx], weights_k, model_up
     )
     return c2w, scores, idx, weights_k
+
+
+@torch.no_grad()
+def estimate_pose_single_sharded(params, config: IDConfig, img, mask,
+                                 rays_ori, rays_dirs, rays_rgb, model_up,
+                                 mesh, k: int = 100, bank=None, device=None):
+    """``estimate_pose_single`` with the candidate rays split over
+    ``mesh``'s ranks (``parallel.mesh``; the JAX package's shard_map over
+    its 'data' axis). Every rank gets the whole ray set; the image side
+    runs replicated; each rank scores its rows on the exact path
+    (``score_rays`` with the axis name: two [P]-vector collectives make
+    them the full softmax's) and takes its shard's top-k, with global
+    indices; the candidates of all ranks are gathered and merged by one
+    more exact top-k (lower index first among equal weights) and solved.
+    ``bank`` (``id_module.ray_bank`` of the whole set) supplies the keys,
+    each rank reading its rows. The ray count must divide by the mesh size
+    (540 000 = 20 000 points x 27 directions divides any power of two up
+    to 32), and ``k`` must not exceed a shard. Returns (c2w, scores
+    [N_rays], topk_idx, topk_weights), the same on every rank."""
+    params, img, mask, rays_ori, rays_dirs, rays_rgb, model_up = _inputs(
+        device, params, img, mask, rays_ori, rays_dirs, rays_rgb, model_up)
+    n = rays_ori.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"{n} rays do not divide over {mesh.size} ranks")
+    lo, hi = shard_bounds(mesh, n)
+    q, patch_valid, _ = image_queries(params, config, img, mask)
+    with bound(mesh):
+        if bank is not None:
+            scores, _ = score_rays(
+                params, config, q, patch_valid, None, None, None,
+                axis_name=mesh.axis, bank=bank.to(rays_ori.device)[lo:hi])
+        else:
+            scores, _ = score_rays(
+                params, config, q, patch_valid, rays_ori[lo:hi],
+                rays_dirs[lo:hi], rays_rgb[lo:hi], axis_name=mesh.axis)
+    w_loc, i_loc = exact_topk(scores, k)
+    w_cand = all_gather(w_loc, mesh)
+    gidx_cand = all_gather(i_loc + lo, mesh)
+    weights_k, sel = exact_topk(w_cand, k)  # merge the shards' top-k's
+    idx = gidx_cand[sel]
+    c2w = solve_pose_from_topk(
+        rays_ori[idx], rays_dirs[idx], weights_k, model_up
+    )
+    return c2w, all_gather(scores, mesh), idx, weights_k

@@ -14,6 +14,7 @@ import torch
 
 from iffnerf_tpu_torch.device import as_tensor, resolve_device, tree_to
 from iffnerf_tpu_torch.ops.topk import exact_topk
+from iffnerf_tpu_torch.parallel.mesh import is_lead, lead_only
 from iffnerf_tpu_torch.pose.geometry import (
     compute_angular_error,
     compute_line_intersection_impl2,
@@ -26,7 +27,10 @@ from iffnerf_tpu_torch.pose.id_module import (
     distance_based_score_loss,
     ray_bank,
 )
-from iffnerf_tpu_torch.pose.solve import estimate_pose_single_banked
+from iffnerf_tpu_torch.pose.solve import (
+    estimate_pose_single_banked,
+    estimate_pose_single_sharded,
+)
 
 
 def _solver_debug_intermediates(scores, idx, weights_k, rays_ori, dirs_solve,
@@ -111,11 +115,21 @@ def test_pose_estimation(dataset, id_params, id_config: IDConfig, rays_ori,
     refined by ``estimate_pose_inerf`` (800 iterations, learning rate 0.02,
     dice loss, random pixels; the JAX package's arguments) before its
     errors are taken; the refinement runs under grad and is not in the
-    frame's time. The sharded route (``mesh``) is not ported and raises.
-    The parameters are the JAX package's, in its order, with ``device``
-    last."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded pose route is not ported")
+    frame's time.
+
+    With ``mesh`` (``parallel.make_mesh``) each frame's candidate rays are
+    split over its ranks (``estimate_pose_single_sharded``, against the
+    same bank), where the ray count divides by the mesh size; otherwise
+    the mesh is dropped with the JAX package's "pose mesh disabled" line.
+    Only the mesh's rank 0 logs and writes ``.npz`` files; every rank
+    returns the results. The parameters are the JAX package's, in its
+    order, with ``device`` last."""
+    lead = is_lead(mesh)
+    log_fn = lead_only(mesh, log_fn)
+    if mesh is not None and len(rays_ori) % mesh.size != 0:
+        log_fn(f"pose mesh disabled: {len(rays_ori)} rays not divisible "
+               f"by mesh size {mesh.size}")
+        mesh = None
     dev = resolve_device(device)
     id_params = tree_to(id_params, dev)
     rays_ori, rays_dirs, rays_rgb, model_up = (
@@ -146,6 +160,11 @@ def test_pose_estimation(dataset, id_params, id_config: IDConfig, rays_ori,
             obs_img = obs
 
         def _estimate():
+            if mesh is not None:
+                return estimate_pose_single_sharded(
+                    id_params, id_config, obs_img, mask_img, rays_ori,
+                    neg_dirs, rays_rgb, model_up, mesh, k=k, bank=bank,
+                    device=dev)
             return estimate_pose_single_banked(
                 id_params, id_config, obs_img, mask_img, bank, rays_ori,
                 neg_dirs, model_up, k=k, device=dev)
@@ -166,7 +185,7 @@ def test_pose_estimation(dataset, id_params, id_config: IDConfig, rays_ori,
         avg_loss_scores.append(avg_score)
         recalls.append(recall)
 
-        if save and (img_idx == 0 or save_all):
+        if save and lead and (img_idx == 0 or save_all):
             dump = {
                 "gt_pose": pose.cpu().numpy(),
                 "camera_intrinsic": np.asarray(

@@ -14,10 +14,21 @@ come from the command line over a ``--config`` file (``config.py``).
 
     python -m iffnerf_tpu_torch.pose_cli --config configs/lego.txt \\
         --datadir DATA --exp_patch LOG --out_path pose_eval.json [--device cpu]
+
+Under ``torchrun`` with more than one process (``runtime.setup``), the
+test passes split each frame's candidate rays over a data mesh of the
+ranks (``parallel.make_mesh``), as ``train_eval_pose_est.py`` does on a
+host with more than one device; training runs on every rank alike, and
+only rank 0 prints, saves the ID module and writes ``--out_path``:
+
+    torchrun --nproc_per_node=4 -m iffnerf_tpu_torch.pose_cli \\
+        --config configs/lego.txt --datadir DATA --exp_patch LOG \\
+        --out_path pose_eval.json
 """
 
 from __future__ import annotations
 
+import builtins
 import dataclasses
 import json
 import os
@@ -25,11 +36,15 @@ import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from iffnerf_tpu_torch import runtime
 from iffnerf_tpu_torch.checkpoint import load_pytree, save_pytree
 from iffnerf_tpu_torch.config import config_parser
 from iffnerf_tpu_torch.data import dataset_dict
 from iffnerf_tpu_torch.device import resolve_device
+from iffnerf_tpu_torch.parallel import make_mesh
+from iffnerf_tpu_torch.parallel.mesh import is_lead, lead_only
 from iffnerf_tpu_torch.pose.eval_utils import parse_exp_dir
 from iffnerf_tpu_torch.pose.id_module import IDConfig, init_id_module
 from iffnerf_tpu_torch.pose.model_utils import load_model
@@ -95,9 +110,13 @@ def parse_args(argv=None):
 
 
 def pretrain_single_object(args, data_path: str, loader, ckpt_path: str,
-                           sequence_id: str, dev: torch.device) -> list:
+                           sequence_id: str, dev: torch.device,
+                           mesh=None) -> list:
     """Train (or resume) and test one object -> the second test pass's JSON
-    rows (reference train_eval_pose_est.py:24-156)."""
+    rows (reference train_eval_pose_est.py:24-156). With ``mesh`` the test
+    passes are sharded over it and only its rank 0 prints and saves."""
+    lead = is_lead(mesh)
+    print = lead_only(mesh, builtins.print)
     print("data_path:", data_path)
     train_dataset = loader(data_path, split="train",
                            downsample=args.downsample_train, is_stack=True)
@@ -119,6 +138,8 @@ def pretrain_single_object(args, data_path: str, loader, ckpt_path: str,
         print("Checkpoint already exist, skip training phase")
         id_params, meta = load_pytree(id_ckpt_path, device=dev)
         start_iterations = int(meta.get("epoch", args.id_iters))
+    if mesh is not None:  # every rank has looked before rank 0 saves
+        dist.barrier(group=mesh.group)
 
     # a fresh surface resampling each call (reference resampling=True,
     # train_eval_pose_est.py:68-72), drawn from one seeded stream
@@ -134,7 +155,8 @@ def pretrain_single_object(args, data_path: str, loader, ckpt_path: str,
         gradient_accumulation_steps=args.accum_steps,
         start_iterations=start_iterations,
         rng=np.random.default_rng(args.seed), device=dev)
-    save_pytree(id_ckpt_path, id_params, {"epoch": args.id_iters})
+    if lead:
+        save_pytree(id_ckpt_path, id_params, {"epoch": args.id_iters})
 
     print("Training complete starting testing phase...")
     test_config = dataclasses.replace(
@@ -145,7 +167,7 @@ def pretrain_single_object(args, data_path: str, loader, ckpt_path: str,
     _, val_t, val_a, _, _ = test_pose_estimation(
         test_dataset, id_params, test_config, *gen_rays(), model_up,
         sequence_id=sequence_id, inerf_refinement=inerf_refinement,
-        nerf=nerf, device=dev)
+        nerf=nerf, log_fn=print, mesh=mesh, device=dev)
     print("Val AVG translation error:", val_t)
     print("Val AVG angular error:", val_a)
 
@@ -154,7 +176,7 @@ def pretrain_single_object(args, data_path: str, loader, ckpt_path: str,
     results, test_t, test_a, _, _ = test_pose_estimation(
         test_dataset, id_params, test_config, *gen_rays(), model_up,
         sequence_id=sequence_id, inerf_refinement=inerf_refinement,
-        nerf=nerf, save=args.save_debug > 0,
+        nerf=nerf, log_fn=print, mesh=mesh, save=args.save_debug > 0,
         save_all=args.save_debug > 1,
         save_dir=os.path.dirname(os.path.abspath(args.out_path)) or ".",
         device=dev)
@@ -165,7 +187,10 @@ def pretrain_single_object(args, data_path: str, loader, ckpt_path: str,
 
 def main(argv=None) -> list:
     args = parse_args(argv)
+    runtime.setup(args.device)
     dev = resolve_device(args.device)
+    mesh = (make_mesh() if dist.is_initialized()
+            and dist.get_world_size() > 1 else None)
     out_path = os.path.abspath(args.out_path)
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     # as train_eval_pose_est.py: blender runs end in _VM, every other
@@ -188,12 +213,13 @@ def main(argv=None) -> list:
         try:
             results.extend(pretrain_single_object(
                 args, data_path, loader, exp["checkpoint_filepath"],
-                exp["sequence_id"], dev))
+                exp["sequence_id"], dev, mesh))
         except RuntimeError:
             traceback.print_exc()
-    print("Saving results")
-    with open(out_path, "w") as fh:
-        json.dump(results, fh)
+    if is_lead(mesh):
+        print("Saving results")
+        with open(out_path, "w") as fh:
+            json.dump(results, fh)
     return results
 
 

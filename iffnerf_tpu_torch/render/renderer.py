@@ -12,7 +12,14 @@ not ported). A chunk of ``chunk`` rays is marched in pieces of at most
 CHUNK_SAMPLES samples: at lego's 300^3 grid a ray has about a thousand
 samples, and JAX's 16 384-ray evaluation chunk would hold about 10 GB of
 appearance products alone. Rays are independent, so the pieces change no
-value. The sharded route (``mesh``) is not ported and raises.
+value.
+
+With ``mesh`` (``parallel.make_mesh``) every rank gets the whole ray set,
+as the JAX package's callers pass it: each chunk (``chunk`` rounded to a
+multiple of the mesh size) is edge-padded to a multiple of the mesh size,
+each rank renders its share of it, and the shares are all-gathered with
+the padding dropped, so that every rank returns the whole image. Only the
+mesh's rank 0 writes images, videos and metrics files.
 """
 
 from __future__ import annotations
@@ -27,14 +34,15 @@ from iffnerf_tpu_torch.data.rays_np import ray_directions_Ks_np, rays_with_radii
 from iffnerf_tpu_torch.device import as_tensor, resolve_device
 from iffnerf_tpu_torch.models.field import AlphaMask, FieldConfig
 from iffnerf_tpu_torch.models.render import render_rays
+from iffnerf_tpu_torch.parallel.mesh import (
+    all_gather,
+    is_lead,
+    pad_to_multiple,
+    shard_rays,
+)
 from iffnerf_tpu_torch.utils.metrics import mse2psnr, rgb_lpips, rgb_ssim
 
 CHUNK_SAMPLES = 1 << 22  # samples a piece of a chunk of render_chunked at most
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the sharded render route is not ported")
 
 
 @torch.no_grad()
@@ -47,22 +55,33 @@ def render_chunked(config: FieldConfig, params, mask: AlphaMask | None,
     ``OctreeRender_trilinear_fast`` (reference renderer.py:12-25). Chunks
     of ``chunk`` rays, each marched in pieces of at most CHUNK_SAMPLES
     samples; ``active_rays`` (the TPU's compaction of AABB hits) is
-    accepted and ignored: the dense march gives the same values."""
-    _refuse_mesh(mesh)
+    accepted and ignored: the dense march gives the same values. With
+    ``mesh`` each rank renders its share of every chunk (module
+    docstring)."""
     dev = resolve_device(device)
     rays = as_tensor(rays, dev, torch.float32)
     n = rays.shape[0]
     s = n_samples if n_samples > 0 else config.n_samples
+    if mesh is not None:
+        chunk = max(chunk, mesh.size) // mesh.size * mesh.size
     piece = max(1, min(chunk, CHUNK_SAMPLES // max(s, 1)))
     rgbs, depths = [], []
     for i in range(0, n, chunk):
-        for j in range(i, min(i + chunk, n), piece):
-            rgb, depth, *_ = render_rays(
-                config, params, mask, rays[j:min(j + piece, i + chunk)],
-                is_train=False, white_bg=white_bg, ndc_ray=ndc_ray,
-                n_samples=n_samples)
-            rgbs.append(rgb)
-            depths.append(depth)
+        part = rays[i:i + chunk]
+        if mesh is not None:
+            part, take = pad_to_multiple(part, mesh.size)
+            part = shard_rays(mesh, part)
+        out = [render_rays(config, params, mask, part[j:j + piece],
+                           is_train=False, white_bg=white_bg,
+                           ndc_ray=ndc_ray, n_samples=n_samples)[:2]
+               for j in range(0, part.shape[0], piece)]
+        rgb = torch.cat([o[0] for o in out])
+        depth = torch.cat([o[1] for o in out])
+        if mesh is not None:
+            rgb = all_gather(rgb, mesh)[:take]
+            depth = all_gather(depth, mesh)[:take]
+        rgbs.append(rgb)
+        depths.append(depth)
     if not rgbs:
         return (torch.zeros((0, 3), device=dev), torch.zeros((0,), device=dev))
     return torch.cat(rgbs), torch.cat(depths)
@@ -106,9 +125,11 @@ def evaluation(dataset, config: FieldConfig, params, mask: AlphaMask | None,
     composites, a video and ``mean.txt`` are written only when
     ``save_path`` is given (imageio and cv2 are imported then). ``log``, a
     dict, receives the lists ``ssim`` and ``seconds`` (each image's render
-    time up to a synchronize)."""
-    _refuse_mesh(mesh)
+    time up to a synchronize). With ``mesh`` the images' rays are split
+    over its ranks and only its rank 0 writes files."""
     psnrs, ssims, l_alex, l_vgg, times = [], [], [], [], []
+    if not is_lead(mesh):
+        save_path = None
     if save_path is not None:
         os.makedirs(save_path, exist_ok=True)
         os.makedirs(save_path + "/rgbd", exist_ok=True)
@@ -124,7 +145,7 @@ def evaluation(dataset, config: FieldConfig, params, mask: AlphaMask | None,
         rays = dataset.all_rays[idx].reshape(-1, dataset.all_rays.shape[-1])
         rgb, depth = render_chunked(
             config, params, mask, rays, chunk=chunk, n_samples=n_samples,
-            white_bg=white_bg, ndc_ray=ndc_ray, device=dev)
+            white_bg=white_bg, ndc_ray=ndc_ray, mesh=mesh, device=dev)
         rgb = rgb.reshape(h, w, 3).cpu().numpy()
         depth = depth.reshape(h, w).cpu().numpy()
         times.append(time.perf_counter() - t_img)
@@ -182,8 +203,11 @@ def evaluation_path(config: FieldConfig, params, mask: AlphaMask | None,
     ``ndc_ray`` as given, without an NDC warp: the JAX package's path
     render does so (``iffnerf_tpu/render/renderer.py:286-322``), where
     the LLFF loader warps its own rays. ``log``, a dict, receives the list
-    ``seconds`` (each frame's render time up to a synchronize)."""
-    _refuse_mesh(mesh)
+    ``seconds`` (each frame's render time up to a synchronize). With
+    ``mesh`` the frames' rays are split over its ranks and only its rank 0
+    writes the video."""
+    if not is_lead(mesh):
+        save_path = None
     dev = resolve_device(device)
     w, h = dataset.img_wh
     ori_dirs, dx, dy = ray_directions_Ks_np(h, w, np.asarray(dataset.K))
@@ -201,7 +225,7 @@ def evaluation_path(config: FieldConfig, params, mask: AlphaMask | None,
                                radii.reshape(-1, 1)], -1).astype(np.float32)
         rgb, _ = render_chunked(
             config, params, mask, rays, chunk=chunk, n_samples=n_samples,
-            white_bg=white_bg, ndc_ray=ndc_ray, device=dev)
+            white_bg=white_bg, ndc_ray=ndc_ray, mesh=mesh, device=dev)
         rgb = rgb.reshape(h, w, 3).cpu().numpy()
         times.append(time.perf_counter() - t0)
         frames.append((np.clip(rgb, 0, 1) * 255).astype(np.uint8))

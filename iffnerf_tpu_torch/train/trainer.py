@@ -23,10 +23,24 @@ optax's ``exponential_decay(lr0, 1, lr_factor)`` gives it.
 On CUDA a step runs the field's features and their gradient through
 ``field_features``' kernels and the alpha-mask lookup through the row
 gather. The JAX package's TPU devices are not ported: the occupancy probe
-and compaction ladder, the multi-step scan, the data mesh and the grouped
-bit-row mask gate. Random draws (initialisation, jitter) come from
+and compaction ladder, the multi-step scan and the grouped bit-row mask
+gate. Random draws (initialisation, jitter) come from
 ``torch.Generator``s; the batch sampler is numpy, as in the JAX package,
 so one seed gives both the same ray indices.
+
+The data mesh (``--data_mesh``, ``parallel.mesh``): every rank draws the
+same batch indices and the whole batch's jitter from the same generator,
+and takes its rows of both; parameters are replicated, and after each
+backward the gradients are averaged over the ranks. Where the batch
+divides by the mesh size each rank's loss is the JAX step's on its shard,
+and the average of the replicated regularisers' gradients is theirs, so
+the step is the unsharded one up to float summation order. Where it does
+not, each rank's per-ray terms (the mse and the alpha term) are weighted
+by ``size x rows / batch``, which keeps the step the unsharded one, as
+the JAX package's GSPMD step (which pads the uneven split) is. After each
+phase event rank 0's parameters, mask and Adam state are broadcast, as
+the JAX trainer re-replicates its arrays; only rank 0 logs and writes
+checkpoints.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from iffnerf_tpu_torch.device import (
     as_tensor,
@@ -57,6 +72,15 @@ from iffnerf_tpu_torch.models.field import (
     upsample_volume_grid,
     vector_comp_diffs,
 )
+from iffnerf_tpu_torch.parallel.mesh import (
+    is_lead,
+    lead_only,
+    make_mesh,
+    psum,
+    replicate,
+    replicate_arrays,
+    shard_bounds,
+)
 from iffnerf_tpu_torch.models.render import (
     filtering_rays_bbox,
     render_rays,
@@ -67,6 +91,14 @@ from iffnerf_tpu_torch.utils.misc import N_to_reso, cal_n_samples, n_voxel_sched
 NETWORK = ("basis_mat", "shading")  # the parameters at lr_basis
 
 
+class _NullWriter:
+    def add_scalar(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
 def make_summary_writer(logfolder: str):
     """TensorBoard writer (reference train.py:157); a no-op writer when
     tensorboard does not import."""
@@ -75,14 +107,7 @@ def make_summary_writer(logfolder: str):
 
         return SummaryWriter(logfolder)
     except ImportError:
-        class _Null:
-            def add_scalar(self, *a, **k):
-                pass
-
-            def close(self):
-                pass
-
-        return _Null()
+        return _NullWriter()
 
 
 class SimpleSampler:
@@ -141,13 +166,14 @@ def field_loss(config: FieldConfig, params, mask, rays, rgbs, bg_color,
                weights, *, n_samples: int, ortho_weight: float = 0.0,
                use_l1: bool = False, use_tv_density: bool = False,
                use_tv_app: bool = False, ndc_ray: bool = False, gen=None,
-               jitter=None):
+               jitter=None, ray_share: float = 1.0):
     """The training loss of a ray batch (the JAX step's ``loss_fn``,
     trainer.py:170-194) -> (total, mse). An RGBA target is blended with
     ``bg_color`` (reference train.py:277-281); ``weights`` holds the L1 and
     TV weights of this step; ``ndc_ray`` samples the rays in NDC; the
     jitter is ``jitter`` ([N, 1] on the AABB, [N, n_samples] in NDC) or
-    drawn from ``gen``."""
+    drawn from ``gen``. ``ray_share`` weighs the per-ray terms in ``total``
+    (the mse and the alpha term; a mesh's uneven shard, ``train_step``)."""
     rgb_map, _, _, alpha, _, _ = render_rays(
         config, params, mask, rays, gen=gen, jitter=jitter, is_train=True,
         bg_color=bg_color, ndc_ray=ndc_ray, n_samples=n_samples)
@@ -155,7 +181,7 @@ def field_loss(config: FieldConfig, params, mask, rays, rgbs, bg_color,
         rgbs = torch.clamp(rgbs[..., :3] * rgbs[..., -1:]
                            + bg_color * (1 - rgbs[..., -1:]), 0.0, 1.0)
     mse = torch.mean((rgb_map - rgbs) ** 2)
-    total = mse
+    total = mse if ray_share == 1.0 else ray_share * mse
     if ortho_weight > 0:
         total = total + ortho_weight * vector_comp_diffs(config, params)
     if use_l1:
@@ -165,27 +191,88 @@ def field_loss(config: FieldConfig, params, mask, rays, rgbs, bg_color,
     if use_tv_app:
         total = total + weights["tv_a"] * tv_loss_app(config, params)
     # the exp(|alpha|) term of reference train.py:328-329
-    total = total + 0.1 * torch.mean(torch.exp(torch.abs(alpha)))
+    alpha_term = 0.1 * torch.mean(torch.exp(torch.abs(alpha)))
+    total = total + (alpha_term if ray_share == 1.0
+                     else ray_share * alpha_term)
     return total, mse
 
 
 def train_step(config: FieldConfig, params, opt: FieldOptimizer, mask, rays,
-               rgbs, bg_color, weights, *, mark=None, **loss_kw):
+               rgbs, bg_color, weights, *, mark=None, mesh=None, **loss_kw):
     """One optimizer step on a ray batch -> its mse (a detached tensor).
     ``mark(label)``, when given, is called after the forward, the backward
-    and the Adam update (for CUDA-event timing)."""
+    and the Adam update (for CUDA-event timing).
+
+    With ``mesh`` the batch and its jitter (``jitter``, or the whole
+    batch's draw from ``gen``) are the whole batch's: this rank takes its
+    rows, and the gradients are averaged over the ranks after the
+    backward; the mse returned is the whole batch's."""
     opt.zero_grad()
+    if mesh is not None:
+        rays, rgbs, loss_kw = _shard_batch(mesh, config, rays, rgbs, loss_kw)
     total, mse = field_loss(config, params, mask, rays, rgbs, bg_color,
                             weights, **loss_kw)
     if mark is not None:
         mark("forward")
     total.backward()
+    if mesh is not None:
+        mse = _average_gradients(mesh, params, mse, loss_kw["ray_share"])
     if mark is not None:
         mark("backward")
     opt.step()
     if mark is not None:
         mark("adam")
     return mse.detach()
+
+
+def _shard_batch(mesh, config: FieldConfig, rays, rgbs, loss_kw):
+    """This rank's rows of a whole batch and of its jitter, and the share
+    of its per-ray terms (``size x rows / batch``: 1 where the batch
+    divides)."""
+    n = rays.shape[0]
+    lo, hi = shard_bounds(mesh, n)
+    loss_kw = dict(loss_kw)
+    jitter, gen = loss_kw.pop("jitter", None), loss_kw.pop("gen", None)
+    if jitter is None:
+        # the draw sample_ray (one a ray) or sample_ray_ndc (one a sample)
+        # makes from gen for the whole batch
+        n_samples = loss_kw.get("n_samples", -1)
+        width = ((n_samples if n_samples > 0 else config.n_samples)
+                 if loss_kw.get("ndc_ray") else 1)
+        jitter = torch.rand((n, width), generator=gen, device=gen.device)
+    loss_kw["jitter"] = jitter[lo:hi]
+    loss_kw["ray_share"] = (hi - lo) * mesh.size / n
+    return rays[lo:hi], rgbs[lo:hi], loss_kw
+
+
+def _average_gradients(mesh, params, mse, ray_share: float):
+    """Averages the parameters' gradients over the mesh in one collective,
+    with the whole batch's mse (each rank's weighted by its rows) riding
+    along -> that mse."""
+    ts = leaves(params)
+    grads = [torch.zeros_like(t) if t.grad is None else t.grad for t in ts]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [(mse.detach() * ray_share).reshape(1)])
+    flat = psum(flat, mesh) / mesh.size
+    at = 0
+    for t, g in zip(ts, grads):
+        t.grad = flat[at:at + g.numel()].view_as(g)
+        at += g.numel()
+    return flat[at]
+
+
+def data_mesh(args, log_fn=print):
+    """The data mesh that ``--data_mesh`` asks for (the JAX package's
+    flag): -1 on when the default process group (``runtime.setup``) has
+    more than one rank, 0 off, 1 on (a one-process mesh without a group);
+    -> the mesh or None."""
+    flag = int(getattr(args, "data_mesh", -1))
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    if flag == 0 or (flag < 0 and ranks < 2):
+        return None
+    mesh = make_mesh()
+    log_fn(f"data mesh: {mesh.size} ranks on axis 'data'")
+    return mesh
 
 
 @torch.no_grad()
@@ -255,7 +342,7 @@ def _sync(dev) -> None:
 def train_field(args, config: FieldConfig, params, mask, train_dataset,
                 test_dataset, logfolder: str, seed: int = 20211202,
                 log_fn=print, device=None, events: list | None = None,
-                reso_cur=None):
+                reso_cur=None, mesh=None):
     """The training loop of ``reconstruction`` (reference train.py:190-426)
     from a field ``(config, params, mask)`` -> (config, params, mask), the
     last saved to ``<logfolder>/<expname>.npz``.
@@ -269,8 +356,14 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
     phase event (iteration, kind, host seconds up to a synchronize).
     ``reso_cur`` is the grid the sample count and the first mask update
     start from (``reconstruction`` passes ``--N_voxel_init``'s, as the JAX
-    trainer does, also for a loaded field; the field's grid by default)."""
+    trainer does, also for a loaded field; the field's grid by default).
+    ``mesh``, the data mesh, is ``data_mesh(args)`` unless given (module
+    docstring); only its rank 0 logs and writes."""
     dev = resolve_device(device)
+    if mesh is None:
+        mesh = data_mesh(args, log_fn)
+    lead = is_lead(mesh)
+    log_fn = lead_only(mesh, log_fn)
     ndc_ray = bool(args.ndc_ray)
     white_bg = train_dataset.white_bg
     expname = args.expname or "exp"
@@ -342,10 +435,24 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
                          args.lr_basis * lr_decay0, lr_factor)
     ckpt_every = int(getattr(args, "ckpt_every", 0) or 0)
 
+    def replicated():
+        """Rank 0's parameters, mask and Adam state on every rank (after
+        the phase events, as the JAX trainer re-replicates)."""
+        if mesh is not None:
+            replicate(mesh, params)
+            replicate_arrays(mesh, mask)
+            replicate_arrays(mesh, [opt.adam.state[t] for t in leaves(params)
+                                    if t in opt.adam.state])
+
+    replicated()
+
     def save_phase_ckpt(it_done: int):
         """Crash insurance at phase boundaries: restart with --ckpt
         <expname>_phase.npz --resume_iter <it of phase_ckpt.json>."""
         from iffnerf_tpu_torch.checkpoint import save_field
+
+        if not lead:
+            return
 
         save_field(f"{logfolder}/{expname}_phase.npz", config, params, mask)
         with open(f"{logfolder}/phase_ckpt.json", "w") as f:
@@ -358,7 +465,7 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
                            "s": time.perf_counter() - t0,
                            "grid": list(config.grid_size)})
 
-    writer = make_summary_writer(logfolder)
+    writer = make_summary_writer(logfolder) if lead else _NullWriter()
     psnrs, psnrs_test = [], [0.0]
     t_start = time.perf_counter()
     for it in range(start_it, args.n_iters):
@@ -367,7 +474,7 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
         weights = {"l1": l1_weight, "tv_d": tv_d, "tv_a": tv_a}
         mse = train_step(
             config, params, opt, mask, allrays[idx], allrgbs[idx], bg_color,
-            weights, n_samples=n_samples, gen=gen, **loss_kw)
+            weights, n_samples=n_samples, gen=gen, mesh=mesh, **loss_kw)
 
         if (it + 1) % args.progress_refresh_rate == 0:
             m = float(mse)
@@ -386,7 +493,7 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
                 test_dataset, config, params, mask, f"{logfolder}/imgs_vis",
                 N_vis=args.N_vis, prtx=f"{it + 1:06d}_", n_samples=n_samples,
                 white_bg=white_bg, ndc_ray=ndc_ray,
-                compute_extra_metrics=False, device=dev)
+                compute_extra_metrics=False, mesh=mesh, device=dev)
             writer.add_scalar("test/psnr", float(np.mean(psnrs_test)),
                               global_step=it)
 
@@ -401,6 +508,8 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
                 reso_mask = [256, 256, 256]
             mask, new_aabb, _ = update_alpha_mask(config, params, mask,
                                                   tuple(reso_mask))
+            if mesh is not None:  # before the shrink and the ray filter
+                replicate_arrays(mesh, mask)
             kind = "alpha-mask update"
             if it + 1 == update_mask_list[0]:
                 config, params = shrink(config, params, new_aabb,
@@ -423,6 +532,7 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
                 sampler = SimpleSampler(allrays.shape[0], batch_size,
                                         seed=seed + it)
                 kind += " + ray filtering"
+            replicated()
             save_phase_ckpt(it + 1)
             event(it + 1, kind, t0)
 
@@ -439,6 +549,7 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
                         else args.lr_decay_target_ratio ** (it / args.n_iters))
             opt = make_optimizer(params, args.lr_init * lr_scale,
                                  args.lr_basis * lr_scale, lr_factor)
+            replicated()
             save_phase_ckpt(it + 1)
             event(it + 1, "upsample", t0)
 
@@ -449,7 +560,8 @@ def train_field(args, config: FieldConfig, params, mask, train_dataset,
     params = tree_map(lambda t: t.detach(), params)
     from iffnerf_tpu_torch.checkpoint import save_field
 
-    save_field(f"{logfolder}/{expname}.npz", config, params, mask)
+    if lead:
+        save_field(f"{logfolder}/{expname}.npz", config, params, mask)
     return config, params, mask
 
 
@@ -485,24 +597,28 @@ def reconstruction(args, seed: int = 20211202, log_fn=print, device=None):
                                         train_dataset.near_far)
         params = init_field(torch.Generator(device=dev).manual_seed(seed),
                             config)
+    mesh = data_mesh(args, log_fn)
     config, params, mask = train_field(
         args, config, params, mask, train_dataset, test_dataset, logfolder,
-        seed=seed, log_fn=log_fn, device=dev, reso_cur=reso_cur)
+        seed=seed, log_fn=log_fn, device=dev, reso_cur=reso_cur, mesh=mesh)
     n_samples = min(args.nSamples,
                     cal_n_samples(config.grid_size, args.step_ratio))
     final_renders(args, config, params, mask, logfolder, test_dataset,
-                  n_samples, log_fn=log_fn, device=dev)
+                  n_samples, log_fn=log_fn, device=dev, mesh=mesh)
     return config, params, mask, logfolder
 
 
 def final_renders(args, config, params, mask, logfolder, test_dataset,
-                  n_samples: int = -1, log_fn=print, device=None):
+                  n_samples: int = -1, log_fn=print, device=None, mesh=None):
     """The train and test renders that ``--render_train`` and
     ``--render_test`` ask for, and the camera path's video that
     ``--render_path`` asks for where the dataset has a path (reference
-    train.py:431-497) -> {split: mean PSNR}."""
+    train.py:431-497) -> {split: mean PSNR}. With ``mesh`` the renders'
+    rays are split over its ranks, and only its rank 0 logs and writes."""
     from iffnerf_tpu_torch.data import dataset_dict
     from iffnerf_tpu_torch.render.renderer import evaluation, evaluation_path
+
+    log_fn = lead_only(mesh, log_fn)
 
     ndc_ray = bool(args.ndc_ray)
     white_bg = test_dataset.white_bg
@@ -518,12 +634,12 @@ def final_renders(args, config, params, mask, logfolder, test_dataset,
         psnrs = evaluation(ds, config, params, mask,
                            f"{logfolder}/imgs_{name}_all", N_vis=-1,
                            n_samples=n_samples, white_bg=white_bg,
-                           ndc_ray=ndc_ray, device=device)
+                           ndc_ray=ndc_ray, mesh=mesh, device=device)
         out[name] = float(np.mean(psnrs))
         log_fn(f"======> {args.expname} {name} all psnr: {out[name]} <====")
     if args.render_path and test_dataset.render_path is not None:
         evaluation_path(config, params, mask, test_dataset.render_path,
                         test_dataset, f"{logfolder}/imgs_path_all",
                         n_samples=n_samples, white_bg=white_bg,
-                        ndc_ray=ndc_ray, device=device)
+                        ndc_ray=ndc_ray, mesh=mesh, device=device)
     return out

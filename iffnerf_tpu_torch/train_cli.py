@@ -14,6 +14,15 @@ loader of the JAX package's registry. ``--export_mesh 1`` writes
 ``<ckpt stem>.ply``, the marching-cubes surface of the checkpoint's dense
 alpha at its grid (``utils/mesh.py``), then renders when ``--render_only``
 asks for it, and trains only when neither is asked for.
+
+Under ``torchrun`` with more than one process (``runtime.setup``)
+``--data_mesh`` splits each batch's and each render's rays over the
+ranks, as the JAX package's flag splits them over its devices: -1 (the
+default) on when there is more than one rank, 0 off, 1 on
+(``train/trainer.py::data_mesh``); only rank 0 logs and writes:
+
+    torchrun --nproc_per_node=4 -m iffnerf_tpu_torch.train_cli \\
+        --config configs/lego.txt --data_mesh 1
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import sys
 
 import numpy as np
 
+from iffnerf_tpu_torch import runtime
 from iffnerf_tpu_torch.config import config_parser
 from iffnerf_tpu_torch.device import resolve_device
 
@@ -52,7 +62,7 @@ def render_test(args, log_fn=print) -> dict:
     """Evaluation of a checkpoint (reference train.py:53-123) -> {split:
     mean PSNR}, or {} when the checkpoint does not exist."""
     from iffnerf_tpu_torch.data import dataset_dict
-    from iffnerf_tpu_torch.train.trainer import final_renders
+    from iffnerf_tpu_torch.train.trainer import data_mesh, final_renders
 
     dev = resolve_device(args.device)
     if args.ckpt is None or not os.path.exists(args.ckpt):
@@ -64,7 +74,8 @@ def render_test(args, log_fn=print) -> dict:
         is_stack=True)
     return final_renders(args, config, params, mask,
                          os.path.dirname(args.ckpt), test_dataset,
-                         log_fn=log_fn, device=dev)
+                         log_fn=log_fn, device=dev,
+                         mesh=data_mesh(args, log_fn))
 
 
 def export_mesh(args) -> str:
@@ -82,8 +93,9 @@ def export_mesh(args) -> str:
 def main(argv=None):
     np.random.seed(20211202)
     args = parse_args(argv)
+    runtime.setup(args.device)
     print(args)
-    if args.export_mesh:
+    if args.export_mesh and int(os.environ.get("RANK", "0")) == 0:
         export_mesh(args)
     if args.render_only and (args.render_test or args.render_path):
         return render_test(args)

@@ -213,6 +213,8 @@ def test_port_imports_no_jax():
         import iffnerf_tpu_torch.ops.ray_march
         import iffnerf_tpu_torch.ops.sh
         import iffnerf_tpu_torch.ops.topk
+        import iffnerf_tpu_torch.parallel
+        import iffnerf_tpu_torch.parallel.mesh
         import iffnerf_tpu_torch.pose
         import iffnerf_tpu_torch.pose.eval_utils
         import iffnerf_tpu_torch.pose.geometry
@@ -225,6 +227,7 @@ def test_port_imports_no_jax():
         import iffnerf_tpu_torch.pose.trainer
         import iffnerf_tpu_torch.pose.vit
         import iffnerf_tpu_torch.pose_cli
+        import iffnerf_tpu_torch.runtime
         import iffnerf_tpu_torch.tools.convert_dinov2
         import iffnerf_tpu_torch.tools.k3_time
         import iffnerf_tpu_torch.train

@@ -22,6 +22,7 @@ from iffnerf_tpu.models import field as jfield
 from iffnerf_tpu.models import render as jrender
 from iffnerf_tpu.ops import interpolate as jinterp
 from iffnerf_tpu.pose import id_module as jid
+from iffnerf_tpu.pose import solve as jsolve
 from iffnerf_tpu.pose import test as jtest
 from iffnerf_tpu.render import renderer as jrenderer
 from iffnerf_tpu.utils import metrics as jmetrics
@@ -32,6 +33,7 @@ from iffnerf_tpu_torch.models import render as trender
 from iffnerf_tpu_torch.ops import field_features as tff
 from iffnerf_tpu_torch.ops import interpolate as tinterp
 from iffnerf_tpu_torch.pose import id_module as tid
+from iffnerf_tpu_torch.pose import solve as tsolve
 from iffnerf_tpu_torch.pose import test as ttest
 from iffnerf_tpu_torch.render import renderer as trenderer
 from iffnerf_tpu_torch.utils import metrics as tmetrics
@@ -84,6 +86,8 @@ def _leaf_close(got, want, share, what):
     (jrenderer.render_chunked, trenderer.render_chunked, ("device",)),
     (jrenderer.evaluation, trenderer.evaluation, ("device", "log")),
     (jrenderer.evaluation_path, trenderer.evaluation_path, ("device", "log")),
+    (jsolve.estimate_pose_single_sharded, tsolve.estimate_pose_single_sharded,
+     ("device",)),
 ])
 def test_signatures_follow_jax_order(jax_fn, port_fn, trailing):
     """The port's parameter names, in order, are JAX's plus a trailing
@@ -93,23 +97,6 @@ def test_signatures_follow_jax_order(jax_fn, port_fn, trailing):
     assert list(inspect.signature(port_fn).parameters) == want
     for name, p in inspect.signature(jax_fn).parameters.items():
         assert inspect.signature(port_fn).parameters[name].default == p.default
-
-
-def test_ported_signatures_refuse_what_is_not_ported():
-    """The sharded routes, which JAX's parameters reach by name, raise
-    (the iNeRF refinement, which ``nerf`` asks for, is ported)."""
-    with pytest.raises(NotImplementedError, match="sharded"):
-        ttest.test_pose_estimation(None, {}, None, None, None, None, None,
-                                   mesh=object(), device="cpu")
-    for call in (lambda: trenderer.render_chunked(None, {}, None, np.zeros(
-                     (1, 6), np.float32), mesh=object(), device="cpu"),
-                 lambda: trenderer.evaluation(None, None, {}, None,
-                                              mesh=object(), device="cpu"),
-                 lambda: trenderer.evaluation_path(None, {}, None, None, None,
-                                                   mesh=object(),
-                                                   device="cpu")):
-        with pytest.raises(NotImplementedError, match="sharded"):
-            call()
 
 
 @pytest.fixture(scope="module")
@@ -137,9 +124,6 @@ def test_render_chunked_positional_matches_jax(f5_field, args):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tid.score_rays(None, tid.IDConfig(), None, None, None, None, None,
-                       "data")
 
 
 # ---------------------------------------------------------------------------

@@ -298,15 +298,6 @@ def test_pose_estimation_harness_matches(scene, jax_rays, tmp_path):
                                           np.sort(dj["topk_unique_ray_idx"]))
 
 
-def test_pose_estimation_refuses_what_is_not_ported(scene):
-    _, tcfg = configs(depth=1)
-    ds = tload_blender(scene, split="test", is_stack=True)
-    rays = [np.zeros((4, 3), np.float32)] * 3
-    with pytest.raises(NotImplementedError, match="sharded"):
-        ttest_pose_estimation(ds, {}, tcfg, *rays, np.ones(3), mesh=object(),
-                              device="cpu")
-
-
 def test_pose_estimation_runs_the_inerf_refinement(scene, vm, jax_rays,
                                                    monkeypatch):
     """With inerf_refinement and nerf, each frame's banked estimate goes to
