@@ -52,8 +52,15 @@ all-live set, bit-equal across repeats, and timed beside it; and the
 data mesh (``parallel/mesh.py``) inside a one-rank NCCL group: the sharded
 pose estimate at full width against the exact route and K1's, with
 ``test_pose_estimation`` through it, the per-object field rendered with
-and without the mesh, and three configs/lego.txt steps with
-``--data_mesh 1`` and 0, the two held to one another. It checks
+and without the mesh, three configs/lego.txt steps with
+``--data_mesh 1`` and 0, the two held to one another, and ID-module
+training steps at full width with the mesh and without (losses,
+gradients and parameters held to one another); then the profiler
+(``profile_cli`` on configs/lego.txt, the pose program exact and fused,
+every time and FLOP count positive and every share of the H100's peaks
+at most 1.05) and the ported accuracy gate (a fixture scene, a field
+trained through ``train_cli``, the gate's chain through the pose CLI
+with a random depth-2 backbone; its median pose errors). It checks
 what comes out, and times kernels, estimates, the object side,
 training steps and refinement iterations with CUDA events and the host
 clock. Each
@@ -92,10 +99,18 @@ from iffnerf_tpu_torch.checkpoint import (
     save_field,
 )
 from iffnerf_tpu_torch.config import config_parser
-from iffnerf_tpu_torch.data import co3d, llff, mip360, repair
+from iffnerf_tpu_torch.data import co3d, llff, load_blender, mip360, repair
 from iffnerf_tpu_torch.data.metashape import load_cameras_xml
 from iffnerf_tpu_torch.data.rays_np import ray_directions_np
-from iffnerf_tpu_torch.device import leaves, resolve_device, trainable
+from iffnerf_tpu_torch.device import (
+    H100_PEAK_BYTES,
+    H100_PEAK_FLOPS,
+    card_line,
+    leaves,
+    resolve_device,
+    trainable,
+    tree_map,
+)
 from iffnerf_tpu_torch import inerf as inerf_module
 from iffnerf_tpu_torch.inerf import estimate as inerf_estimate
 from iffnerf_tpu_torch.inerf.estimate import (
@@ -226,11 +241,13 @@ REPS = 10                # timed batches of kernel calls (median)
 BATCH_MAX = 50           # calls a timed batch
 N_PROFILE = 3            # profiled estimates per route, colour chunks
 N_PROFILE_ITERATIONS = 10  # profiled sampler iterations
-# H100 SXM datasheet peaks (dense): bf16 tensor cores, float32 FMA, HBM3;
-# TF32 tensor cores, on which K1's float32 route runs three products
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_TF32 = 495e12
-PEAK_BYTES = 3.35e12
+# H100 SXM datasheet peaks (dense, device.py): bf16 tensor cores, float32
+# FMA, HBM3; TF32 tensor cores, on which K1's float32 route runs three
+# products
+PEAK_FLOPS = {torch.bfloat16: H100_PEAK_FLOPS["bfloat16"],
+              torch.float32: H100_PEAK_FLOPS["float32"]}
+PEAK_TF32 = H100_PEAK_FLOPS["tf32"]
+PEAK_BYTES = H100_PEAK_BYTES
 UP = (0.0, 0.0, 1.0)
 # K2 against its plain version, relative (see score_tol): float32 summation
 # order; in bf16 an activation's rounding can flip, which moves a score by
@@ -411,6 +428,25 @@ CP_LIVE_RAYS, CP_LIVE_PER_RAY = 2048, 864
 # with --data_mesh 1 and 0 on a pool of SHARD_POOL synthetic frames, the
 # parameters held to the CPU tests' training rule (rtol 1e-4, atol 1e-6)
 SHARD_STEPS, SHARD_POOL, SHARD_RENDER_ATOL = 3, 10, 1e-6
+# ID-module steps with and without the mesh after a warm-up each
+SHARD_ID_TIMED = 2
+# profile_cli's shares of the H100's peaks: at most 1 up to the timers'
+# spread
+PROFILE_SHARE_MAX = 1.05
+# The accuracy gate: the fixture scene at GATE_WH pixels with GATE_TRAIN
+# train and GATE_TEST test views, a field trained by train_cli over
+# configs/lego.txt with GATE_FIELD's schedule (16^3 to 64^3 voxels), then
+# the gate with a random backbone of GATE_DEPTH blocks, GATE_ID_ITERS ID
+# iterations of GATE_ACCUM images at --gen_points GATE_POINTS (27 rays a
+# point)
+GATE_WH, GATE_TRAIN, GATE_TEST = 100, 20, 5
+GATE_FIELD_ITERS = 400
+GATE_FIELD = ("--n_iters", str(GATE_FIELD_ITERS), "--N_voxel_init", "4096",
+              "--N_voxel_final", "262144", "--upsamp_list", "100",
+              "--upsamp_list", "200", "--update_AlphaMask_list", "150",
+              "--update_AlphaMask_list", "300", "--N_vis", "0",
+              "--render_test", "0", "--vis_every", "100000")
+GATE_DEPTH, GATE_ID_ITERS, GATE_ACCUM, GATE_POINTS = 2, 200, 8, 1000
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 T_START = time.perf_counter()
 
@@ -426,13 +462,6 @@ def emit(**kw) -> None:
     if "phase" in kw:
         kw["elapsed_s"] = time.perf_counter() - T_START
     print(json.dumps(kw), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int = REPS, graph: bool = False) -> float:
@@ -1683,7 +1712,7 @@ def _step_split(params, cfg, frames, rays, dev):
     return split
 
 
-def _params_close(ref, new):
+def _params_close(ref, new, steps=ID_SMALL_STEPS):
     """The CPU parity tests' rule (tests/test_torch_id_train.py), at each
     leaf's own rate: rtol 1e-3 and atol max(5e-5, 0.1 lr); the invariant
     leaves within 2.1 x steps x lr. -> the largest share of its bound that
@@ -1694,7 +1723,7 @@ def _params_close(ref, new):
         lr = LEARNING_RATES[name.split("/")[0]]
         diff = np.abs(new[name] - a)
         if name in ID_INVARIANT:
-            share = float(diff.max()) / (2.1 * ID_SMALL_STEPS * lr)
+            share = float(diff.max()) / (2.1 * steps * lr)
         else:
             share = float((diff / (max(5e-5, 0.1 * lr)
                                    + 1e-3 * np.abs(a))).max())
@@ -1712,7 +1741,8 @@ def phase_id_train(field, mask, dev):
     it. Then the split of one step, and a reduced run (depth 2, 8 192 rays,
     accumulation 4, 2 steps) on the card and on the CPU from the same
     parameters, index rows and rays, held to the CPU parity tests' rule.
-    -> the run's launch counts."""
+    -> the run's launch counts, and (the initial parameters, the frames,
+    the last renewal's rays) for the sharded step."""
     config, fparams = field
     cfg = IDConfig()
     check(cfg.compute_dtype == "float32", "training is float32")
@@ -1781,7 +1811,7 @@ def phase_id_train(field, mask, dev):
          run_of_1500_s=ID_ITERS * step_s + n_renewals * renewal_s,
          renewal_share_of_1500=share, largest_param_move=moved,
          model_up=model_up.tolist(), card_vs_cpu=small)
-    return counts
+    return counts, (init, frames, last["rays"])
 
 
 def phase_id_train_small(init, frames, rays, dev):
@@ -4537,6 +4567,139 @@ def phase_tensor_cp(dev):
 
 
 # ---------------------------------------------------------------------------
+# the profiler (profile_cli) and the accuracy gate
+# ---------------------------------------------------------------------------
+
+
+def phase_profile_cli():
+    """``profile_cli.main`` on configs/lego.txt with ``--pose 1`` (and a
+    trace of 5 train steps), then again with ``IFFNERF_FUSED_POSE=1``:
+    every ms and FLOP count finite and positive, every share of the H100's
+    peaks at most PROFILE_SHARE_MAX; its lines re-emitted as one JSON
+    line."""
+    import os
+
+    from iffnerf_tpu_torch import profile_cli
+
+    runs, lines = {}, []
+    trace = WORK_DIR / "profile_trace"
+    before = os.environ.get("IFFNERF_FUSED_POSE")
+    try:
+        for route, fused in (("exact", "0"), ("fused", "1")):
+            os.environ["IFFNERF_FUSED_POSE"] = fused
+            argv = ["--config", str(Path(__file__).resolve().parent / "configs"
+                                    / "lego.txt"), "--pose", "1"]
+            if route == "exact":
+                argv += ["--trace", str(trace)]
+            t0 = time.perf_counter()
+            records = profile_cli.main(argv, log=lines.append)
+            runs[route] = {"seconds": time.perf_counter() - t0,
+                           "sections": records}
+    finally:
+        if before is None:
+            os.environ.pop("IFFNERF_FUSED_POSE", None)
+        else:
+            os.environ["IFFNERF_FUSED_POSE"] = before
+    for route, run in runs.items():
+        check(len(run["sections"]) == 5, f"profile_cli's {route} run: "
+              f"{[r['section'] for r in run['sections']]}")
+        for r in run["sections"]:
+            numbers = (r["ms"], r["device_ms"], r["tflops"],
+                       sum(r["flops"].values()))
+            check(all(math.isfinite(x) and x > 0 for x in numbers),
+                  f"profile_cli {route} {r['section']}: {numbers}")
+            check(r["share"] <= PROFILE_SHARE_MAX, f"profile_cli {route} "
+                  f"{r['section']}: share {r['share']} of the peaks")
+    trace_file = trace / "trace.json"
+    check(trace_file.exists() and trace_file.stat().st_size > 0,
+          "profile_cli --trace wrote its trace")
+    emit(phase="profile_cli", lines=lines, runs=runs,
+         trace_bytes=trace_file.stat().st_size)
+    trace_file.unlink()
+
+
+def phase_accuracy_gate():
+    """The ported accuracy gate at the card: a fixture scene
+    (tests/fixtures.py, GATE_WH pixels, GATE_TRAIN train and GATE_TEST test
+    views), a field trained through ``train_cli`` for GATE_FIELD_ITERS
+    steps, then ``python -m iffnerf_tpu_torch.tools.run_accuracy_gate
+    --allow_random_init`` (a random depth-GATE_DEPTH backbone, GATE_ID_ITERS
+    ID iterations at --gen_points GATE_POINTS) on it. Exit 2 fails the
+    script; on 0 or 1 the medians and the exit code are emitted, with the
+    pose CLI's loss and average-error lines."""
+    import io
+    import os
+    import shutil
+
+    from iffnerf_tpu_torch import train_cli
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from fixtures import make_blender_fixture
+
+    root = WORK_DIR / "gate"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    scene = make_blender_fixture(str(root / "data" / "lego"),
+                                 n_train=GATE_TRAIN, n_test=GATE_TEST,
+                                 wh=GATE_WH)
+    scene_s = time.perf_counter() - t0
+    lego = str(Path(__file__).resolve().parent / "configs" / "lego.txt")
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        config, params, mask, _ = train_cli.main([
+            "--config", lego, "--datadir", scene, "--basedir",
+            str(root / "log"), "--expname", "field", *GATE_FIELD])
+    field_s = _sync_s(t0)
+    # the test views' PSNR (no image is written: the card's machine may
+    # lack imageio)
+    psnr = evaluation(load_blender(scene, split="test", is_stack=True),
+                      config, params, mask, white_bg=True)
+    del config, params, mask
+    exp = root / "exp" / "tensorf_lego_VM"
+    exp.mkdir(parents=True)
+    shutil.copy(root / "log" / "field" / "field.npz",
+                exp / "tensorf_lego_VM.npz")
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    out = root / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "iffnerf_tpu_torch.tools.run_accuracy_gate",
+         "--allow_random_init", "--config", lego, "--datadir",
+         str(root / "data"), "--exp_patch", str(root / "exp"), "--out_dir",
+         str(out), "--id_iters", str(GATE_ID_ITERS), "--accum_steps",
+         str(GATE_ACCUM), "--gen_points", str(GATE_POINTS),
+         "--id_backbone_depth", str(GATE_DEPTH)],
+        env=env, cwd=root, capture_output=True, text=True, timeout=900)
+    gate_s = time.perf_counter() - t0
+    (root / "gate.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode in (0, 1), f"the accuracy gate exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+    stats = json.loads((out / "gate_stats.json").read_text())
+    check(stats["n"] == GATE_TEST, f"the gate scored {stats['n']} frames")
+    emit(phase="accuracy_gate", exit_code=proc.returncode,
+         median_rotation_error_deg=stats["median_angular_error"],
+         median_translation_error=stats["median_translation_error"],
+         mean_rotation_error_deg=stats["mean_angular_error"],
+         mean_translation_error=stats["mean_translation_error"],
+         ang_acc_5deg=stats["ang_acc@5."], tr_acc_01=stats["tr_acc@.1"],
+         n_frames=stats["n"], passed=verdict["passed"],
+         bounds={"max_median_rot_deg": 30.0, "max_median_trans": 0.5},
+         backbone=f"random, depth {GATE_DEPTH}", id_iters=GATE_ID_ITERS,
+         accum_steps=GATE_ACCUM, gen_points=GATE_POINTS,
+         field_iters=GATE_FIELD_ITERS,
+         pose_cli_lines=[ln for ln in proc.stdout.splitlines()
+                         if "loss:" in ln or "AVG" in ln],
+         field_test_psnr=[float(x) for x in psnr],
+         scene={"wh": GATE_WH, "train": GATE_TRAIN,
+                                      "test": GATE_TEST},
+         scene_s=scene_s, field_s=field_s, gate_s=gate_s)
+    shutil.rmtree(root / "data", ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # the data mesh: the sharded routes inside a one-rank NCCL group
 # ---------------------------------------------------------------------------
 
@@ -4688,12 +4851,101 @@ def sharded_train(dev):
             "params_max_abs_diff": worst, "params_bit_equal": bit_equal}
 
 
-def phase_sharded(params, cfg, imgs, mask, rays, field, field_mask, dev):
+@contextlib.contextmanager
+def counted_all_reduces():
+    """Counts ``torch.distributed.all_reduce`` calls while open (the mesh's
+    collectives look it up at each call) -> a one-entry list."""
+    import torch.distributed as dist
+
+    count, reduce = [0], dist.all_reduce
+
+    def counted(*args, **kw):
+        count[0] += 1
+        return reduce(*args, **kw)
+
+    dist.all_reduce = counted
+    try:
+        yield count
+    finally:
+        dist.all_reduce = reduce
+
+
+def sharded_id_train(mesh, id_state, dev):
+    """ID-module training steps at phase_id_train's full width (depth-12
+    float32 ViT, its last renewal's 540 000 rays, 32 images a step) through
+    ``id_train_step`` with the mesh and without it, from the same
+    initialisation, index rows and rays: a warm-up step, then
+    SHARD_ID_TIMED timed steps each. The losses within 1e-6 relative, each
+    leaf's gradient after the last step within rtol 1e-5 and atol 1e-6 of
+    its largest (tests/test_torch_parallel.py's rule), the parameters under
+    ``_params_close``; launch counts and all-reduces a step."""
+    init, frames, rays = id_state
+    cfg = IDConfig()
+    out = {}
+    for name, m in (("mesh", mesh), ("plain", None)):
+        p = trainable(init, dev)
+        opt = make_id_optimizer(p)
+        rng = np.random.default_rng(SEED + 7)
+        steps = []
+        with counted_all_reduces() as reduces:
+            _reset_counts()
+            for _ in range(1 + SHARD_ID_TIMED):
+                row = torch.as_tensor(rng.integers(0, ID_POOL, ID_ACCUM),
+                                      device=dev)
+                imgs, masks = blend_batch(frames.all_rgbs[row])
+                poses = torch.as_tensor(frames.poses, device=dev)[row]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = id_train_step(p, opt, imgs, masks, poses, rays[0],
+                                     -rays[1], rays[2], cfg, ID_ACCUM,
+                                     mesh=m)
+                steps.append((_sync_s(t0), float(loss)))
+            counts = _counts()
+        out[name] = (p, steps, counts, reduces[0] / len(steps))
+    p, steps, counts, reduces = out["mesh"]
+    p0, steps0, counts0, _ = out["plain"]
+    loss_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(steps, steps0))
+    check(loss_rel <= 1e-6, f"sharded ID losses vs unsharded: {loss_rel}")
+    grad_share, grad_leaf = 0.0, ""
+    for (name, g), g0 in zip(_flatten(_numpy_leaves(tree_map(
+            lambda t: t.grad, p))).items(), (t.grad for t in leaves(p0))):
+        g0 = g0.cpu().numpy()
+        bound = 1e-6 * np.abs(g0).max() + 1e-5 * np.abs(g0)
+        share = float((np.abs(g - g0) / np.maximum(bound, 1e-30)).max())
+        grad_share, grad_leaf = max((grad_share, grad_leaf), (share, name))
+    check(grad_share <= 1.0, f"sharded ID gradients vs unsharded: "
+          f"{grad_share} of the bound at {grad_leaf}")
+    worst, leaf = _params_close(p0, p, steps=len(steps))
+    check(worst <= 1.0, f"sharded ID parameters vs unsharded: {worst} of "
+          f"the bound at {leaf}")
+    for c in (counts, counts0):
+        check(c["banked_scores"] == 0 and c["fused_ray_scores"] == 0,
+              f"ID training scores with the exact torch path: {c}")
+    # an image: the target's sum and the loss; a one-rank axis takes the
+    # local softmax (id_module.softmax_over_rays), so no pmax or psum there
+    check(reduces == 2 * ID_ACCUM + 1, f"{reduces} all-reduces a step: "
+          f"2 an image and 1 of the gradients")
+    return {"n_rays": rays[0].shape[0], "accum_steps": ID_ACCUM,
+            "depth": cfg.backbone.depth, "warmup_step_s": steps[0][0],
+            "step_s": [s for s, _ in steps[1:]],
+            "plain_warmup_step_s": steps0[0][0],
+            "plain_step_s": [s for s, _ in steps0[1:]],
+            "losses": [x for _, x in steps],
+            "plain_losses": [x for _, x in steps0],
+            "loss_max_rel_diff": loss_rel,
+            "grad_worst_share_of_bound": grad_share, "grad_worst_leaf": grad_leaf,
+            "params_worst_share_of_bound": worst, "params_worst_leaf": leaf,
+            "all_reduces_per_step": reduces, "launches": counts,
+            "plain_launches": counts0}
+
+
+def phase_sharded(params, cfg, imgs, mask, rays, field, field_mask, id_state,
+                  dev):
     """The sharded routes through the entry points inside a one-rank NCCL
     group (a ``file://`` rendezvous in a temporary directory; the group is
-    destroyed at the end): the pose estimate, the render, field training.
-    Launch counts set to 0 just before each and read just after. -> the
-    counts by route."""
+    destroyed at the end): the pose estimate, the render, field training,
+    ID-module training steps. Launch counts set to 0 just before each and
+    read just after. -> the counts by route."""
     import tempfile
 
     import torch.distributed as dist
@@ -4708,13 +4960,16 @@ def phase_sharded(params, cfg, imgs, mask, rays, field, field_mask, dev):
             pose = sharded_pose(mesh, params, cfg, imgs, mask, rays)
             render = sharded_render(mesh, field, field_mask, dev)
             train = sharded_train(dev)
+            id_train = sharded_id_train(mesh, id_state, dev)
         finally:
             dist.destroy_process_group()
     emit(phase="sharded", backend="nccl", ranks=1, pose=pose, render=render,
          train=train)
+    emit(phase="id_train_sharded", backend="nccl", ranks=1, **id_train)
     return {"sharded_pose": pose["launches"],
             "sharded_render": render["launches"],
-            "sharded_train": train["launches"]}
+            "sharded_train": train["launches"],
+            "sharded_id_train": id_train["launches"]}
 
 
 def main() -> int:
@@ -4765,15 +5020,15 @@ def main() -> int:
             params, fused32, img, mask, ro, rd, rr, UP, k=K_TOP)}, imgs)
     del bank, bank32
     torch.cuda.empty_cache()
-    # the data mesh in a one-rank NCCL group: the sharded estimate on the
-    # exact route, the render (field_features, K3) and field training
-    # (field_features and its backward, K3)
-    sh_counts = phase_sharded(params, cfg16, imgs, mask, rays, field,
-                              field_mask, dev)
-    torch.cuda.empty_cache()
     # ID-module training: its renewals launch K3 and field_features
-    id_counts = phase_id_train(field, field_mask, dev)
-    del field, field_mask
+    id_counts, id_state = phase_id_train(field, field_mask, dev)
+    torch.cuda.empty_cache()
+    # the data mesh in a one-rank NCCL group: the sharded estimate on the
+    # exact route, the render (field_features, K3), field training
+    # (field_features and its backward, K3) and ID training (no kernel)
+    sh_counts = phase_sharded(params, cfg16, imgs, mask, rays, field,
+                              field_mask, id_state, dev)
+    del field, field_mask, id_state
     torch.cuda.empty_cache()
     # TensoRF training: field_features and its backward every step, K3's
     # mask lookup every step
@@ -4801,6 +5056,12 @@ def main() -> int:
     # iNeRF refinement: field_features, its coordinate kernel and K3's mask
     # lookup every iteration
     inerf_counts, coords_entry = phase_inerf(params, cfg16, rays, dev)
+    torch.cuda.empty_cache()
+    # the profiler's sections, then the accuracy gate (a field trained
+    # by train_cli, the pose CLI in a child process)
+    phase_profile_cli()
+    torch.cuda.empty_cache()
+    phase_accuracy_gate()
 
     n_est = N_WARM + N_TIMED
     kernels = [

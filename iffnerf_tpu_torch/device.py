@@ -12,7 +12,15 @@ mantissa would break.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
+
+# The H100 SXM's published dense peaks (NVIDIA's datasheet): tensor-core
+# bf16 and TF32 products, float32 on the FMA units (the rate of the port's
+# float32 matmuls, TF32 being off), and HBM3's rate in bytes a second
+H100_PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
+H100_PEAK_BYTES = 3.35e12
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,3 +79,12 @@ def as_tensor(x, device, dtype=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]

@@ -193,13 +193,43 @@ def _all_reduce(x: torch.Tensor, axis, op) -> torch.Tensor:
 
 
 def pmax(x: torch.Tensor, axis_name) -> torch.Tensor:
-    """The elementwise maximum of ``x`` over the ranks of the axis."""
+    """The elementwise maximum of ``x`` over the ranks of the axis (no
+    gradient: pass it a detached tensor)."""
     return _all_reduce(x, axis_name, dist.ReduceOp.MAX)
 
 
+class _Sum(torch.autograd.Function):
+    """The sum over a mesh's ranks, differentiable: each rank's output is
+    the same sum, and each rank differentiates its own part of a loss that
+    is the sum of the ranks' parts, so the cotangent of a rank's input is
+    the sum of every rank's output cotangent (JAX's ``psum`` transposes to
+    ``psum`` alike)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        ctx.axis_name = axis_name
+        return _all_reduce(x, axis_name, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis_name, dist.ReduceOp.SUM), None
+
+
 def psum(x: torch.Tensor, axis_name) -> torch.Tensor:
-    """The elementwise sum of ``x`` over the ranks of the axis."""
-    return _all_reduce(x, axis_name, dist.ReduceOp.SUM)
+    """The elementwise sum of ``x`` over the ranks of the axis. Under
+    autograd its backward all-reduces the cotangent (``_Sum``)."""
+    if mesh_of(axis_name).group is None:
+        return x
+    return _Sum.apply(x, axis_name)
+
+
+def psum_flat(tensors, axis_name) -> list:
+    """Each tensor summed over the ranks of the axis, all in one
+    all-reduce of their flat concatenation -> views of its result, shaped
+    as the tensors."""
+    flat = psum(torch.cat([t.reshape(-1) for t in tensors]), axis_name)
+    return [part.view_as(t) for part, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def all_gather(x: torch.Tensor, axis_name) -> torch.Tensor:

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from iffnerf_tpu_torch.device import as_tensor, resolve_device, tree_to
 from iffnerf_tpu_torch.nn import linear_apply, mlp_init, uniform
 from iffnerf_tpu_torch.ops.encoding import positional_encoding
-from iffnerf_tpu_torch.parallel.mesh import pmax, psum
+from iffnerf_tpu_torch.parallel.mesh import mesh_of, pmax, psum
 from iffnerf_tpu_torch.pose.vit import ViTConfig, init_vit, vit_forward_features
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -251,10 +251,9 @@ def score_rays(params, config: IDConfig, q, patch_valid, rays_ori, rays_dir,
     cannot tile: float32 logits divided by sqrt(D) after the matmul.
 
     With ``axis_name`` the rays are this rank's shard of a mesh axis
-    (``parallel.mesh``) and the exact path runs, in the JAX package's
-    order: the logits' maximum over the whole ray set (``pmax``), then
-    ``exp(logits - max)`` and its sum over the whole set (``psum``), so
-    that the shard's scores are the full softmax's.
+    (``parallel.mesh``) and the exact path runs, its softmax over the
+    whole ray set (``softmax_over_rays``), so that the shard's scores are
+    the full softmax's.
 
     Returns (scores [R], attention [P, R] | None)."""
     if bank is not None and config.fused_bank and axis_name is None:
@@ -266,16 +265,30 @@ def score_rays(params, config: IDConfig, q, patch_valid, rays_ori, rays_dir,
     k = (bank if bank is not None
          else _ray_keys(params, config, rays_ori, rays_dir, rays_rgb))
     logits = (q.float() @ k.float().T) / math.sqrt(q.shape[-1])  # [P, R]
-    m = logits.max(dim=-1).values
-    if axis_name is not None:
-        m = pmax(m, axis_name)
-    e = torch.exp(logits - m[:, None])
-    denom = e.sum(dim=-1)
-    if axis_name is not None:
-        denom = psum(denom, axis_name)
-    attention = e / denom[:, None]
+    attention = softmax_over_rays(logits, axis_name)
     scores = torch.where(patch_valid[:, None], attention, 0.0).sum(dim=0)
     return scores, attention
+
+
+def softmax_over_rays(logits, axis_name: str | None = None):
+    """The softmax of ``logits`` [P, R] over the ray axis, differentiated
+    as ``jax.nn.softmax`` is (the row maximum carries no gradient): one
+    ``torch.softmax`` of the rows at hand.
+
+    With ``axis_name`` the rays are this rank's shard of a mesh axis
+    (``parallel.mesh``), and the shard's softmax is scaled by its share of
+    the whole set's denominator: the local sum ``exp(logsumexp - m)``
+    against the maximum ``m`` over the ranks (``pmax``, no gradient),
+    divided by its differentiable ``psum``. The result is the full
+    softmax's columns, ``exp(logits - m) / psum``, as JAX computes them.
+    A one-rank axis's shard is the whole set, so its softmax is the one
+    without an axis, gradients included."""
+    attention = torch.softmax(logits, dim=-1)
+    if axis_name is None or mesh_of(axis_name).size == 1:
+        return attention
+    m = pmax(logits.detach().amax(dim=-1), axis_name)
+    part = torch.exp(torch.logsumexp(logits, dim=-1) - m)
+    return attention * (part / psum(part, axis_name))[:, None]
 
 
 def run_attention(params, config: IDConfig, img, mask, rays_ori, rays_dir,
@@ -324,9 +337,20 @@ def distance_based_score_target(camera_pose, rays_ori, rays_dir,
 
 
 def distance_based_score_loss(pred_score, camera_pose, rays_ori, rays_dir,
-                              total_number_of_features):
+                              total_number_of_features,
+                              axis_name: str | None = None,
+                              n_rays: int | None = None):
     """MSE against the normalized target (sum of target = n_valid_patches).
-    Returns (loss, target)."""
+    Returns (loss, target).
+
+    With ``axis_name`` the rays are this rank's shard of ``n_rays`` on a
+    mesh axis: the target's sum runs over the whole set (``psum``) and the
+    loss is this rank's part of the whole set's mse, its sum of squares
+    over ``n_rays`` (the parts sum to the mse over the ranks)."""
     target = distance_based_score_target(camera_pose, rays_ori, rays_dir)
-    target = (target * (total_number_of_features / target.sum())).detach()
-    return torch.mean(torch.square(pred_score - target)), target
+    total = target.sum()
+    if axis_name is not None:
+        total = psum(total, axis_name)
+    target = (target * (total_number_of_features / total)).detach()
+    n = pred_score.shape[0] if n_rays is None else n_rays
+    return torch.square(pred_score - target).sum() / n, target

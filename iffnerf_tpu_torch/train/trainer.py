@@ -47,7 +47,9 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -76,7 +78,7 @@ from iffnerf_tpu_torch.parallel.mesh import (
     is_lead,
     lead_only,
     make_mesh,
-    psum,
+    psum_flat,
     replicate,
     replicate_arrays,
     shard_bounds,
@@ -101,7 +103,12 @@ class _NullWriter:
 
 def make_summary_writer(logfolder: str):
     """TensorBoard writer (reference train.py:157); a no-op writer when
-    tensorboard does not import."""
+    tensorboard does not import. The writer's files go through
+    TensorBoard's own file layer (its ``notf`` route): otherwise it
+    imports TensorFlow where that is installed, some seconds of every run's
+    start, for local files it writes alike."""
+    sys.modules.setdefault("tensorboard.compat.notf",
+                           types.ModuleType("tensorboard.compat.notf"))
     try:
         from torch.utils.tensorboard import SummaryWriter
 
@@ -251,14 +258,10 @@ def _average_gradients(mesh, params, mse, ray_share: float):
     along -> that mse."""
     ts = leaves(params)
     grads = [torch.zeros_like(t) if t.grad is None else t.grad for t in ts]
-    flat = torch.cat([g.reshape(-1) for g in grads]
-                     + [(mse.detach() * ray_share).reshape(1)])
-    flat = psum(flat, mesh) / mesh.size
-    at = 0
-    for t, g in zip(ts, grads):
-        t.grad = flat[at:at + g.numel()].view_as(g)
-        at += g.numel()
-    return flat[at]
+    *sums, mse_sum = psum_flat(grads + [(mse.detach() * ray_share)], mesh)
+    for t, g in zip(ts, sums):
+        t.grad = g / mesh.size
+    return mse_sum / mesh.size
 
 
 def data_mesh(args, log_fn=print):

@@ -227,9 +227,18 @@ def test_port_imports_no_jax():
         import iffnerf_tpu_torch.pose.trainer
         import iffnerf_tpu_torch.pose.vit
         import iffnerf_tpu_torch.pose_cli
+        import iffnerf_tpu_torch.profile_cli
         import iffnerf_tpu_torch.runtime
+        import iffnerf_tpu_torch.tools.auto_run_paramsets
+        import iffnerf_tpu_torch.tools.colmap2nerf
+        import iffnerf_tpu_torch.tools.compute_metrics
+        import iffnerf_tpu_torch.tools.compute_scaling_factor
         import iffnerf_tpu_torch.tools.convert_dinov2
+        import iffnerf_tpu_torch.tools.gen_fixture_scene
+        import iffnerf_tpu_torch.tools.histogram_correlation
         import iffnerf_tpu_torch.tools.k3_time
+        import iffnerf_tpu_torch.tools.run_accuracy_gate
+        import iffnerf_tpu_torch.tools.softmax_time
         import iffnerf_tpu_torch.train
         import iffnerf_tpu_torch.train.trainer
         import chip_smoke
@@ -277,6 +286,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         train_id_module({}, tcfg, lambda: (z, z, z), None, None)
     with pytest.raises(RuntimeError, match="CUDA"):
         pose_cli.main(["--exp_patch", ".", "--out_path", "out.json"])
+    from iffnerf_tpu_torch import profile_cli
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile_cli.main(["--config", "configs/lego.txt"])
     with pytest.raises(RuntimeError, match="CUDA"):
         estimate_pose_inerf(np.eye(4), np.zeros((8, 8, 4)), np.eye(3), None,
                             {}, None, sampling_strategy="random")

@@ -20,8 +20,10 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from iffnerf_tpu.checkpoint import save_pytree
 from iffnerf_tpu.models import FieldConfig
@@ -29,15 +31,20 @@ from iffnerf_tpu.models.field import make_alpha_mask
 from iffnerf_tpu.parallel import make_mesh, pad_to_multiple, shard_rays
 from iffnerf_tpu.pose import estimate_pose_single_sharded
 from iffnerf_tpu.pose import id_module as jid
+from iffnerf_tpu.pose.trainer import make_id_optimizer, make_id_train_step
 from iffnerf_tpu.pose.vit import ViTConfig as JViTConfig
 from iffnerf_tpu.render import render_chunked
 from iffnerf_tpu.train import trainer as jtrainer
 from iffnerf_tpu_torch.parallel import mesh as tmesh
+from iffnerf_tpu_torch.pose.trainer import LEARNING_RATES
 
 import torch_sharded_worker as worker
 from torch_parity import blob_mask, drawn_field, near_mask_points, unit
 
 RANKS = 4
+# the ID module's leaves whose gradients are float32 cancellation noise
+# (tests/test_torch_id_train.py)
+ID_INVARIANT = ("k_proj/b", "ray_mlp2/1/b")
 HERE = os.path.dirname(os.path.abspath(__file__))
 JCFG = jid.IDConfig(backbone=JViTConfig(img_size=28, patch_size=14, dim=32,
                                         depth=1, num_heads=4),
@@ -123,6 +130,15 @@ def _inputs(tmp, rng):
     poses[:, :3, 3] = rng.uniform(-2, 2, (2, 3))
     inp["poses"] = poses
     inp["K"] = np.array([[40.0, 0, 24], [0, 40.0, 24], [0, 0, 1]], np.float32)
+    # tests/test_parallel.py's ID-module step: two 40x40 images, full
+    # masks, poses near the identity; and the same with a NaN pose
+    inp["id_imgs"] = rng.uniform(0, 1, (2, 40, 40, 3)).astype(np.float32)
+    inp["id_masks"] = np.ones((2, 40, 40), np.float32)
+    inp["id_poses"] = (np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+                       + 0.01 * rng.standard_normal((2, 4, 4)).astype(
+                           np.float32))
+    inp["id_poses_nan"] = inp["id_poses"].copy()
+    inp["id_poses_nan"][1, 0, 3] = np.nan
     np.savez(tmp / "inputs.npz", **inp)
     return jp, (jcfg, fp, fmask), (rcfg, rparams), keys, inp
 
@@ -168,7 +184,38 @@ def _jax_reference(jp, jfield, rfield, keys, inp):
     before = worker.flat(jax.tree_util.tree_map(np.asarray, fp))
     ref["train"] = (firsts[-1], np.asarray(mses),
                     {k: firsts[0][k] - v for k, v in before.items()})
+
+    # the ID-module step with the candidate rays sharded over the mesh
+    # (tests/test_parallel.py::test_sharded_id_train_step_matches_single)
+    # (tests/test_parallel.py::test_sharded_id_train_step_matches_single);
+    # the same step with _kept_gradients in Adam's place gives its gradients
+    sh, rep = NamedSharding(jmesh, P("data")), NamedSharding(jmesh, P())
+    outs = []
+    for tx in (make_id_optimizer(jp), _kept_gradients()):
+        step = make_id_train_step(JCFG, tx, accum_steps=worker.ID_ACCUM)
+        p = jax.device_put(jax.tree_util.tree_map(jnp.copy, jp), rep)
+        outs.append(step(p, tx.init(p), jnp.asarray(inp["id_imgs"]),
+                         jnp.asarray(inp["id_masks"]),
+                         jnp.asarray(inp["id_poses"]),
+                         *(jax.device_put(jnp.asarray(inp[k]), sh)
+                           for k in ("rays_ori", "rays_dirs", "rays_rgb"))))
+    (new_p, _, loss), (_, grads, _) = outs
+    new_p, grads = (worker.flat(jax.tree_util.tree_map(np.asarray, t))
+                    for t in (new_p, grads))
+    before = worker.flat(jax.tree_util.tree_map(np.asarray, jp))
+    ref["id"] = (new_p, float(loss),
+                 {k: new_p[k] - v for k, v in before.items()}, grads)
     return ref
+
+
+def _kept_gradients():
+    """An optax transformation that applies no update and keeps the
+    gradients it is given as its state: the ID step's gradients (after
+    its division by the accumulation) come back as its optimizer state."""
+    return optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda g, state, params=None: (
+            jax.tree_util.tree_map(jnp.zeros_like, g), g))
 
 
 @pytest.fixture(scope="module")
@@ -342,7 +389,126 @@ def test_pose_estimation_mesh_matches_no_mesh(runs, case):
         assert dump.exists() == (r == 0)
 
 
-@pytest.mark.parametrize("what", ["estimate", "render", "train", "pose"])
+def _id_run(out, tag, case):
+    prefix = f"{tag}/id_{case}/"
+    return {k[len(prefix):]: v for k, v in out.items() if k.startswith(prefix)}
+
+
+def test_sharded_id_step_matches_jax(runs):
+    """One ID-module step on 4 ranks (ViT dim 32, depth 1, 1 600 rays, two
+    40x40 images, accumulation 2) against the JAX package's
+    make_id_train_step with the rays placed by NamedSharding(P("data")) on
+    4 devices. The loss within rtol 1e-5. Each leaf's gradient (the same
+    JAX step with Adam's place taken by _kept_gradients) within 1e-4 of
+    its largest magnitude, an invariant bias's noise under 1e-4 of its
+    layer's weight gradient in both (tests/test_torch_id_train.py's rule
+    for the port against JAX). Every parameter within rtol 1e-4 and atol
+    1e-6, except entries whose first JAX update is not 0 and under 0.9 of
+    their rate in magnitude (Adam's lr g / (|g| + eps) on a gradient within
+    9 eps, where float32 summation order moves the update by a share of
+    the rate: test_sharded_train_steps_match_jax's rule), held within 1e-3
+    of the rate. At these shapes the gradients are about 1e-8, so such
+    entries are 245 286 of the 246 688 (measured on the CPU): the
+    parameters check little, and the gradients carry the test."""
+    ranks, ref, _, _ = runs
+    want, jloss, first, jgrads = ref["id"]
+    got = _id_run(ranks[0], "rep", "even")
+    np.testing.assert_allclose(float(got["loss"]), jloss, rtol=1e-5)
+    for name, g in jgrads.items():
+        mine = got["g/" + name]
+        if name in ID_INVARIANT:
+            scale = np.abs(jgrads[name[:-1] + "w"]).max()
+            assert max(np.abs(g).max(), np.abs(mine).max()) < 1e-4 * scale
+        else:
+            assert np.abs(g).max() > 0, name
+            err = np.abs(mine - g).max()
+            assert err <= 1e-4 * np.abs(g).max(), (name, err)
+    for name, w in want.items():
+        lr = LEARNING_RATES[name.split("/")[0]]
+        near_eps = (first[name] != 0) & (np.abs(first[name]) < 0.9 * lr)
+        atol = np.where(near_eps, 1e-3 * lr, 1e-6)
+        diff = np.abs(got["p/" + name] - w)
+        assert (diff <= atol + 1e-4 * np.abs(w)).all(), (name, diff.max())
+
+
+def _grads_close(got, want, name):
+    """rtol 1e-5 and atol 1e-6 x max|g| of the leaf; an invariant bias
+    (its gradient is float32 cancellation noise in any summation order)
+    within 1e-6 of its layer's largest weight gradient."""
+    g, w = got["g/" + name], want["g/" + name]
+    if name in ID_INVARIANT:
+        scale = np.abs(want["g/" + name[:-1] + "w"]).max()
+        assert np.abs(g - w).max() <= 1e-6 * scale, (name, np.abs(g - w).max())
+    else:
+        np.testing.assert_allclose(g, w, rtol=1e-5,
+                                   atol=1e-6 * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["even", "uneven", "nan"])
+def test_sharded_id_step_matches_unsharded(runs, case):
+    """One ID-module step on 4 ranks against the port's step without a
+    mesh on the same rays: each leaf's gradient after the step (Adam is
+    nearly blind to a gradient's scale, so the gradients are held, not
+    only the parameters) under _grads_close's rule, the loss within rtol
+    1e-5, the parameters within rtol 1e-4 and atol 1e-6 (the invariant
+    biases within 1e-3 of their rate). "uneven": 1 598 rays, split
+    399/400/399/400; "nan": the second image's pose NaN, so its loss is
+    not finite on any rank and the step is the first image's alone."""
+    ranks, _, _, _ = runs
+    got = _id_run(ranks[0], "rep", case)
+    want = _id_run(ranks[0], "plain", case)
+    assert got.keys() == want.keys() and len(got) > 3
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    assert np.isfinite(got["loss"])
+    for key in want:
+        if key.startswith("g/"):
+            _grads_close(got, want, key[2:])
+        elif key.startswith("p/"):
+            name = key[2:]
+            atol = (1e-3 * LEARNING_RATES[name.split("/")[0]]
+                    if name in ID_INVARIANT else 1e-6)
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                       atol=atol, err_msg=name)
+
+
+def test_sharded_id_step_drops_the_nan_image(runs):
+    """With the second image's pose NaN the step is the first image's
+    alone with the same accumulation: without a mesh bit-equal (loss,
+    gradients, parameters); on each of the 4 ranks under
+    test_sharded_id_step_matches_unsharded's rule."""
+    ranks, _, _, _ = runs
+    first = _id_run(ranks[0], "plain", "first")
+    for out in ranks:
+        plain = _id_run(out, "plain", "nan")
+        assert plain.keys() == first.keys()
+        for key in first:
+            np.testing.assert_array_equal(plain[key], first[key], err_msg=key)
+        got = _id_run(out, "rep", "nan")
+        np.testing.assert_allclose(got["loss"], first["loss"], rtol=1e-5)
+        for key in first:
+            if key.startswith("g/"):
+                _grads_close(got, first, key[2:])
+
+
+def test_psum_gradient_matches_one_process_sum(runs):
+    """The differentiable psum on 4 ranks: its value and each rank's input
+    gradient against one process summing the four inputs and
+    differentiating the sum of the four ranks' losses."""
+    ranks, _, _, _ = runs
+    xs = [(torch.arange(6.0) * (r + 1)).requires_grad_(True)
+          for r in range(RANKS)]
+    y = torch.stack(xs).sum(0)
+    sum((torch.tensor([1.0, -1.0, 2.0, 0.5, 3.0, -2.0]) * (r + 1) ** 2 * y)
+        .sum() for r in range(RANKS)).backward()
+    for r, out in enumerate(ranks):
+        np.testing.assert_allclose(out["shard/psum_value"], y.detach().numpy(),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(out["shard/psum_grad"], xs[r].grad.numpy(),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("what", ["estimate", "render", "train", "pose",
+                                  "id"])
 def test_ranks_return_the_same(runs, what):
     """What every rank returns (the estimates, the render, the trained
     parameters, the pose rows) is bit-equal to rank 0's."""
@@ -355,11 +521,13 @@ def test_ranks_return_the_same(runs, what):
 
 
 @pytest.mark.parametrize("what", ["estimate_unbanked", "estimate_banked",
-                                  "render", f"train_{worker.UNEVEN_BATCH}"])
+                                  "render", f"train_{worker.UNEVEN_BATCH}",
+                                  "id_even"])
 def test_one_rank_group_equals_no_mesh(runs, what):
     """On a group of one rank, each route is bit-equal to its call without
     a mesh (the sharded estimates to the exact unbanked and banked routes;
-    the uneven batch's two steps)."""
+    the uneven batch's two steps; the ID-module step's loss, gradients and
+    parameters)."""
     ranks, _, _, _ = runs
     for out in ranks:
         keys = [k[4:] for k in out if k.startswith(f"one/{what}/")]

@@ -28,8 +28,13 @@ from iffnerf_tpu_torch.checkpoint import (
     load_field,
     load_pytree,
 )
-from iffnerf_tpu_torch.device import trainable
-from iffnerf_tpu_torch.parallel import make_mesh, pad_to_multiple, shard_rays
+from iffnerf_tpu_torch.device import trainable, tree_map
+from iffnerf_tpu_torch.parallel import (
+    make_mesh,
+    pad_to_multiple,
+    psum,
+    shard_rays,
+)
 from iffnerf_tpu_torch.parallel.mesh import shard_bounds
 from iffnerf_tpu_torch.pose.id_module import (
     IDConfig,
@@ -43,6 +48,7 @@ from iffnerf_tpu_torch.pose.solve import (
     estimate_pose_single_sharded,
 )
 from iffnerf_tpu_torch.pose.test import test_pose_estimation
+from iffnerf_tpu_torch.pose.trainer import id_train_step, make_id_optimizer
 from iffnerf_tpu_torch.pose.vit import ViTConfig
 from iffnerf_tpu_torch.render.renderer import render_chunked
 from iffnerf_tpu_torch.train import trainer
@@ -62,6 +68,11 @@ TRAIN_WEIGHTS = ({"l1": 8e-5, "tv_d": 0.5, "tv_a": 0.25},
 TRAIN_SPEC = dict(ortho_weight=1e-3, use_l1=True, use_tv_density=True,
                   use_tv_app=True)
 PADDED = (1000, 1024)
+# tests/test_parallel.py's ID-module step: two 40x40 images, accumulation
+# 2, over the first ID_RAYS[case] candidate rays ("nan": the second
+# image's pose NaN, "first": the first image alone, no mesh)
+ID_ACCUM = 2
+ID_RAYS = {"even": 1600, "uneven": 1598, "nan": 1600, "first": 1600}
 
 
 def flat(params):
@@ -92,6 +103,37 @@ def train(field, inp, mesh, batch):
             n_samples=TRAIN_SAMPLES, jitter=inp["train_jitter"][k][:batch],
             mesh=mesh, **TRAIN_SPEC))
     return params, torch.stack(mses)
+
+
+def id_step(params, inp, mesh, case):
+    """One ID-module optimizer step from ``params`` -> {"loss", "p/<leaf>":
+    the stepped parameters, "g/<leaf>": their gradients after the step}."""
+    n = ID_RAYS[case]
+    p = trainable(params, torch.device("cpu"))
+    opt = make_id_optimizer(p)
+    poses = inp["id_poses_nan" if case == "nan" else "id_poses"]
+    imgs, masks = inp["id_imgs"], inp["id_masks"]
+    if case == "first":
+        imgs, masks, poses = imgs[:1], masks[:1], poses[:1]
+    loss = id_train_step(p, opt, imgs, masks, poses, inp["rays_ori"][:n],
+                         inp["rays_dirs"][:n], inp["rays_rgb"][:n], ID_CONFIG,
+                         ID_ACCUM, mesh=mesh)
+    out = {"loss": loss.numpy()}
+    out.update({f"p/{k}": a for k, a in flat(p).items()})
+    out.update({f"g/{k}": a for k, a in
+                flat(tree_map(lambda t: t.grad, p)).items()})
+    return out
+
+
+def psum_grad(mesh, rank):
+    """psum's gradient: x_r = (r + 1) * arange(6), the loss w_r . psum(x)
+    with w_r = (r + 1)^2 * [1, -1, 2, 0.5, 3, -2] -> (psum(x), x_r's
+    gradient)."""
+    x = (torch.arange(6.0) * (rank + 1)).requires_grad_(True)
+    w = torch.tensor([1.0, -1.0, 2.0, 0.5, 3.0, -2.0]) * (rank + 1) ** 2
+    y = psum(x, mesh)
+    (w * y).sum().backward()
+    return y.detach().numpy(), x.grad.numpy()
 
 
 def pose_dataset(inp):
@@ -170,6 +212,14 @@ def main(workdir: str, rank: int, world: int) -> None:
 
     pose_runs(params, inp, mesh, workdir, rank, out)
 
+    out["shard/psum_value"], out["shard/psum_grad"] = psum_grad(mesh, rank)
+    for case in ID_RAYS:
+        for tag, m in (("rep", mesh), ("plain", None)):
+            if case == "first" and m is not None:
+                continue
+            for k, a in id_step(params, inp, m, case).items():
+                out[f"{tag}/id_{case}/{k}"] = a
+
     # a group of one rank (each rank its own) against no mesh
     groups = [dist.new_group([r]) for r in range(world)]
     one = make_mesh(group=groups[rank])
@@ -191,6 +241,8 @@ def main(workdir: str, rank: int, world: int) -> None:
     out[f"one/train_{UNEVEN_BATCH}/mse"] = mses.numpy()
     for name, a in flat(p).items():
         out[f"one/train_{UNEVEN_BATCH}/{name}"] = a
+    for k, a in id_step(params, inp, one, "even").items():
+        out[f"one/id_even/{k}"] = a
 
     out["log/imports"] = np.asarray(" ".join(sorted(
         m for m in sys.modules if m.split(".")[0] in ("jax", "iffnerf_tpu"))))
