@@ -53,6 +53,7 @@ from iffnerf_tpu_torch.ops.field_features import (
 )
 from iffnerf_tpu_torch.ops.grid_sample import grid_sample_3d
 from iffnerf_tpu_torch.ops.interpolate import resize_bilinear_ac, resize_linear_ac
+from iffnerf_tpu_torch.tracing import span
 
 # lattice points a chunk of get_dense_alpha (bounds its device temporaries)
 DENSE_ALPHA_CHUNK = 1 << 22
@@ -176,13 +177,14 @@ def power_transformation_inv(center_metric: torch.Tensor,
 
 def sample_alpha(mask: AlphaMask, xyz: torch.Tensor) -> torch.Tensor:
     """Trilinear alpha-mask lookup at world coords xyz [..., 3] -> [...]."""
-    if mask.unisphere:
-        center = (mask.aabb[0] + mask.aabb[1]) / 2.0
-        coords = power_transformation(xyz - center, alpha=-1.5)
-    else:
-        inv_size = 2.0 / (mask.aabb[1] - mask.aabb[0])
-        coords = (xyz - mask.aabb[0]) * inv_size - 1.0
-    return grid_sample_3d(mask.volume, coords)
+    with span("field.mask_lookup"):
+        if mask.unisphere:
+            center = (mask.aabb[0] + mask.aabb[1]) / 2.0
+            coords = power_transformation(xyz - center, alpha=-1.5)
+        else:
+            inv_size = 2.0 / (mask.aabb[1] - mask.aabb[0])
+            coords = (xyz - mask.aabb[0]) * inv_size - 1.0
+        return grid_sample_3d(mask.volume, coords)
 
 
 def normalize_coord(config: FieldConfig, xyz: torch.Tensor) -> torch.Tensor:
@@ -230,25 +232,33 @@ def compute_densityfeature(config: FieldConfig, params,
                            xyz: torch.Tensor) -> torch.Tensor:
     """sigma feature at normalized coords xyz [..., 3] -> [...]
     (reference tensoRF.py:216-235 VM / :344-359 CP)."""
-    if config.model_name == "TensorVMSplit":
-        return vm_density(params, xyz)
-    # CP: elementwise product of the three line features, summed over rank
-    if use_cp_kernel(config, xyz.device):
-        return cp_features(config, params, xyz, with_app=False)[0]
-    return cp_density(params, xyz)
+    with span("field.features"):
+        if config.model_name == "TensorVMSplit":
+            return vm_density(params, xyz)
+        # CP: elementwise product of the three line features, summed over rank
+        if use_cp_kernel(config, xyz.device):
+            return cp_features(config, params, xyz, with_app=False)[0]
+        return cp_density(params, xyz)
 
 
 def compute_appfeature(config: FieldConfig, params,
                        xyz: torch.Tensor) -> torch.Tensor:
     """Appearance feature at normalized coords xyz [..., 3] -> [..., app_dim]
     (reference tensoRF.py:237-256 VM / :361-375 CP)."""
-    if config.model_name == "TensorVMSplit":
-        feat = vm_app_products(params, xyz)
-    elif use_cp_kernel(config, xyz.device):
-        feat = cp_features(config, params, xyz)[1]
-    else:
-        feat = cp_app_products(params, xyz)
-    return linear_apply(params["basis_mat"], feat)
+    with span("field.features"):
+        if config.model_name == "TensorVMSplit":
+            feat = vm_app_products(params, xyz)
+        elif use_cp_kernel(config, xyz.device):
+            feat = cp_features(config, params, xyz)[1]
+        else:
+            feat = cp_app_products(params, xyz)
+    return _basis_mat(params, feat)
+
+
+def _basis_mat(params, products: torch.Tensor) -> torch.Tensor:
+    """The appearance features from their rank products: ``basis_mat``."""
+    with span("field.basis_mat"):
+        return linear_apply(params["basis_mat"], products)
 
 
 def compute_features_fused(config: FieldConfig, params, xyz: torch.Tensor,
@@ -259,10 +269,11 @@ def compute_features_fused(config: FieldConfig, params, xyz: torch.Tensor,
     [...], appearance feature [..., app_dim], or None without
     ``with_app``). The same values as ``compute_densityfeature`` and
     ``compute_appfeature`` up to the order of sigma's sum over ranks."""
-    sigma, products = field_features(config, params, xyz, with_app)
+    with span("field.features"):
+        sigma, products = field_features(config, params, xyz, with_app)
     if products is None:
         return sigma, None
-    return sigma, linear_apply(params["basis_mat"], products)
+    return sigma, _basis_mat(params, products)
 
 
 def compute_features(config: FieldConfig, params, xyz: torch.Tensor,
@@ -276,10 +287,10 @@ def compute_features(config: FieldConfig, params, xyz: torch.Tensor,
         sigma, app = compute_features_fused(config, params, xyz, with_app)
         return sigma if with_density else None, app
     if use_cp_kernel(config, xyz.device):
-        sigma, products = cp_features(config, params, xyz, with_app)
+        with span("field.features"):
+            sigma, products = cp_features(config, params, xyz, with_app)
         return (sigma if with_density else None,
-                None if products is None
-                else linear_apply(params["basis_mat"], products))
+                None if products is None else _basis_mat(params, products))
     return (compute_densityfeature(config, params, xyz) if with_density
             else None,
             compute_appfeature(config, params, xyz) if with_app else None)

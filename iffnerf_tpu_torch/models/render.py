@@ -27,6 +27,7 @@ from iffnerf_tpu_torch.models.field import (
 )
 from iffnerf_tpu_torch.models.shading import apply_shading
 from iffnerf_tpu_torch.ops.ray_march import raw2alpha
+from iffnerf_tpu_torch.tracing import count, span
 
 
 def _aabb(config: FieldConfig, like: torch.Tensor) -> torch.Tensor:
@@ -212,29 +213,34 @@ def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
     ndc = ndc_ray or sample_mode == "ndc"
     rays_o = rays_chunk[:, :3]
     viewdirs = rays_chunk[:, 3:6]
-    if sample_mode == "point_color":
-        xyz, z_vals, ray_valid = sample_point_color_fn(
-            config, rays_o, viewdirs,
-            n_samples=n_samples if n_samples > 0 else 20)
-    elif ndc:
-        xyz, z_vals, ray_valid = sample_ray_ndc(
-            config, rays_o, viewdirs, gen=gen, jitter=jitter,
-            is_train=is_train, n_samples=n_samples)
-    elif sample_mode == "aabb":
-        xyz, z_vals, ray_valid = sample_ray(
-            config, rays_o, viewdirs, gen=gen, jitter=jitter,
-            is_train=is_train, n_samples=n_samples)
-    else:
-        raise NotImplementedError(f"sample_mode {sample_mode!r} is not ported")
+    with span("render.sample"):
+        if sample_mode == "point_color":
+            xyz, z_vals, ray_valid = sample_point_color_fn(
+                config, rays_o, viewdirs,
+                n_samples=n_samples if n_samples > 0 else 20)
+        elif ndc:
+            xyz, z_vals, ray_valid = sample_ray_ndc(
+                config, rays_o, viewdirs, gen=gen, jitter=jitter,
+                is_train=is_train, n_samples=n_samples)
+        elif sample_mode == "aabb":
+            xyz, z_vals, ray_valid = sample_ray(
+                config, rays_o, viewdirs, gen=gen, jitter=jitter,
+                is_train=is_train, n_samples=n_samples)
+        else:
+            raise NotImplementedError(
+                f"sample_mode {sample_mode!r} is not ported")
 
-    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
-                       torch.zeros_like(z_vals[:, :1])], dim=-1)
-    if ndc:
-        rays_norm = torch.linalg.vector_norm(viewdirs, dim=-1, keepdim=True)
-        dists = dists * rays_norm
-        viewdirs = viewdirs / rays_norm
-    if mask is not None:
-        ray_valid = ray_valid & (sample_alpha(mask, xyz.detach()) > 0)
+        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                           torch.zeros_like(z_vals[:, :1])], dim=-1)
+        if ndc:
+            rays_norm = torch.linalg.vector_norm(viewdirs, dim=-1,
+                                                 keepdim=True)
+            dists = dists * rays_norm
+            viewdirs = viewdirs / rays_norm
+        if mask is not None:
+            ray_valid = ray_valid & (sample_alpha(mask, xyz.detach()) > 0)
+        count("render.samples", ray_valid.numel())
+        count("render.live_samples", ray_valid)
 
     sigma_feature, app_features = compute_features(
         config, params, normalize_coord(config, xyz))
@@ -242,15 +248,17 @@ def render_rays(config: FieldConfig, params, mask: AlphaMask | None,
     alpha, weight, _ = raw2alpha(sigma, dists * config.distance_scale)
 
     app_mask = weight > config.ray_march_weight_thres
+    count("render.app_samples", app_mask)
     app_features = torch.where(app_mask[..., None], app_features, 0.0)
     acc_map = torch.sum(weight, dim=-1)
     cum_app_features = torch.sum(weight[..., None] * app_features, dim=-2)
     rays_to_consider = torch.any(app_mask, dim=-1)
 
-    rgb, _ = apply_shading(
-        params["shading"], config.shading_mode, None, viewdirs,
-        cum_app_features, view_pe=config.view_pe, pos_pe=config.pos_pe,
-        fea_pe=config.fea_pe)
+    with span("render.shading"):
+        rgb, _ = apply_shading(
+            params["shading"], config.shading_mode, None, viewdirs,
+            cum_app_features, view_pe=config.view_pe, pos_pe=config.pos_pe,
+            fea_pe=config.fea_pe)
     rgb_map = torch.where(rays_to_consider[..., None], rgb, 0.0)
     if bg_color is None:
         bg_color = 1.0 if white_bg else 0.0

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from iffnerf_tpu_torch.tracing import span
+
 
 def exact_topk(scores: torch.Tensor, k: int):
     """-> (values [k], indices [k] int64) of 1-D float32 ``scores``, in
@@ -22,11 +24,13 @@ def exact_topk(scores: torch.Tensor, k: int):
     if scores.dtype != torch.float32 or scores.dim() != 1:
         raise ValueError(f"exact_topk takes a 1-D float32 vector, got "
                          f"{scores.dtype} {tuple(scores.shape)}")
-    bits = scores.contiguous().view(torch.int32)
-    # negative floats order backwards as signed ints: flip their magnitude
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
-    idx = torch.arange(scores.shape[0], device=scores.device,
-                       dtype=torch.int64)
-    key = ordered * (1 << 32) + ((1 << 32) - 1 - idx)
-    sel = torch.topk(key, k).indices
-    return scores[sel], sel
+    with span("pose.topk"):
+        bits = scores.contiguous().view(torch.int32)
+        # negative floats order backwards as signed ints: flip their magnitude
+        ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF,
+                              bits).to(torch.int64)
+        idx = torch.arange(scores.shape[0], device=scores.device,
+                           dtype=torch.int64)
+        key = ordered * (1 << 32) + ((1 << 32) - 1 - idx)
+        sel = torch.topk(key, k).indices
+        return scores[sel], sel

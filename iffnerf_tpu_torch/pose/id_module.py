@@ -27,6 +27,7 @@ from iffnerf_tpu_torch.nn import linear_apply, mlp_init, uniform
 from iffnerf_tpu_torch.ops.encoding import positional_encoding
 from iffnerf_tpu_torch.parallel.mesh import mesh_of, pmax, psum
 from iffnerf_tpu_torch.pose.vit import ViTConfig, init_vit, vit_forward_features
+from iffnerf_tpu_torch.tracing import span
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -212,10 +213,13 @@ def ray_features(params, config: IDConfig, rays_ori, rays_dir, rays_rgb):
 def image_queries(params, config: IDConfig, img, mask):
     """Image-side half of the scoring: -> (q [P, D] in the compute dtype,
     patch_valid [P], features_img [P, D])."""
-    feats_w_pe, patch_valid, feats = image_features(params, config, img, mask)
-    dt = config.dtype
-    q = linear_apply(_cast_linear(params["q_proj"], dt), feats_w_pe.to(dt))
-    return q, patch_valid, feats
+    with span("pose.image_queries"):
+        feats_w_pe, patch_valid, feats = image_features(params, config, img,
+                                                        mask)
+        dt = config.dtype
+        q = linear_apply(_cast_linear(params["q_proj"], dt),
+                         feats_w_pe.to(dt))
+        return q, patch_valid, feats
 
 
 def ray_bank(params, config: IDConfig, rays_ori, rays_dir, rays_rgb,
@@ -256,18 +260,19 @@ def score_rays(params, config: IDConfig, q, patch_valid, rays_ori, rays_dir,
     the full softmax's.
 
     Returns (scores [R], attention [P, R] | None)."""
-    if bank is not None and config.fused_bank and axis_name is None:
-        from iffnerf_tpu_torch.ops import banked_attention as banked
+    with span("pose.score"):
+        if bank is not None and config.fused_bank and axis_name is None:
+            from iffnerf_tpu_torch.ops import banked_attention as banked
 
-        if bank.shape[0] > 0 and banked.kernel_takes(
-                bank.dtype, q.shape[0], bank.shape[1]):
-            return banked.banked_scores_fused(bank, q, patch_valid), None
-    k = (bank if bank is not None
-         else _ray_keys(params, config, rays_ori, rays_dir, rays_rgb))
-    logits = (q.float() @ k.float().T) / math.sqrt(q.shape[-1])  # [P, R]
-    attention = softmax_over_rays(logits, axis_name)
-    scores = torch.where(patch_valid[:, None], attention, 0.0).sum(dim=0)
-    return scores, attention
+            if bank.shape[0] > 0 and banked.kernel_takes(
+                    bank.dtype, q.shape[0], bank.shape[1]):
+                return banked.banked_scores_fused(bank, q, patch_valid), None
+        k = (bank if bank is not None
+             else _ray_keys(params, config, rays_ori, rays_dir, rays_rgb))
+        logits = (q.float() @ k.float().T) / math.sqrt(q.shape[-1])  # [P, R]
+        attention = softmax_over_rays(logits, axis_name)
+        scores = torch.where(patch_valid[:, None], attention, 0.0).sum(dim=0)
+        return scores, attention
 
 
 def softmax_over_rays(logits, axis_name: str | None = None):

@@ -30,6 +30,7 @@ from iffnerf_tpu_torch.pose.id_module import (
     run_attention,
     score_rays,
 )
+from iffnerf_tpu_torch.tracing import span
 
 
 def _scores_maybe_fused(params, config: IDConfig, img, mask, rays_ori,
@@ -50,8 +51,9 @@ def _scores_maybe_fused(params, config: IDConfig, img, mask, rays_ori,
                               fused.layer_widths(params)):
         return score_rays(params, config, q, patch_valid, rays_ori,
                           rays_dirs, rays_rgb)[0]
-    x = ray_mlp_inputs(config, rays_ori, rays_dirs, rays_rgb)
-    return fused.fused_ray_scores(params, q, patch_valid, x)
+    with span("pose.score"):
+        x = ray_mlp_inputs(config, rays_ori, rays_dirs, rays_rgb)
+        return fused.fused_ray_scores(params, q, patch_valid, x)
 
 
 def solve_pose_from_topk(ori_k: torch.Tensor, dirs_k: torch.Tensor,
@@ -59,37 +61,38 @@ def solve_pose_from_topk(ori_k: torch.Tensor, dirs_k: torch.Tensor,
     """Closed-form camera pose from the top-k scored rays
     (reference test.py:133-194). All [k, 3] / [k] inputs; returns c2w [4,4].
     """
-    # drop rays sharing an origin with another ray (test.py:133-138):
-    # keep i  iff  no j != i has the identical origin
-    same = (ori_k[:, None, :] == ori_k[None, :, :]).all(dim=-1)
-    keep = same.sum(dim=-1) == 1
+    with span("pose.solve"):
+        # drop rays sharing an origin with another ray (test.py:133-138):
+        # keep i  iff  no j != i has the identical origin
+        same = (ori_k[:, None, :] == ori_k[None, :, :]).all(dim=-1)
+        keep = same.sum(dim=-1) == 1
 
-    w = weights_k * keep
-    w = w / w.sum()
-    center = compute_line_intersection_impl2(
-        ori_k, dirs_k, weights=keep.to(ori_k.dtype)
-    )
-    neg = exclude_negatives(center, ori_k, dirs_k)
-    w = w * neg
-    w = w / w.sum()
-    # The reference re-solves with identical arguments after the reweight
-    # (test.py:153-155, weights commented out): the center is unchanged,
-    # so only the watch direction uses ``w``.
+        w = weights_k * keep
+        w = w / w.sum()
+        center = compute_line_intersection_impl2(
+            ori_k, dirs_k, weights=keep.to(ori_k.dtype)
+        )
+        neg = exclude_negatives(center, ori_k, dirs_k)
+        w = w * neg
+        w = w / w.sum()
+        # The reference re-solves with identical arguments after the reweight
+        # (test.py:153-155, weights commented out): the center is unchanged,
+        # so only the watch direction uses ``w``.
 
-    watch_dir = (dirs_k * w[:, None]).sum(dim=0)
-    watch_dir = watch_dir / torch.linalg.norm(watch_dir)
+        watch_dir = (dirs_k * w[:, None]).sum(dim=0)
+        watch_dir = watch_dir / torch.linalg.norm(watch_dir)
 
-    model_up = model_up / torch.linalg.norm(model_up)
-    w2c_rot = make_rotation_mat(-watch_dir, model_up)
-    eye3 = torch.eye(3, dtype=w2c_rot.dtype, device=w2c_rot.device)
-    w2c_rot = torch.where(det3(w2c_rot).abs() < 1e-7, eye3, w2c_rot)
+        model_up = model_up / torch.linalg.norm(model_up)
+        w2c_rot = make_rotation_mat(-watch_dir, model_up)
+        eye3 = torch.eye(3, dtype=w2c_rot.dtype, device=w2c_rot.device)
+        w2c_rot = torch.where(det3(w2c_rot).abs() < 1e-7, eye3, w2c_rot)
 
-    c2w = torch.eye(4, dtype=ori_k.dtype, device=ori_k.device)
-    c2w[:3, :3] = inv3(w2c_rot)
-    c2w[:3, 3] = center
+        c2w = torch.eye(4, dtype=ori_k.dtype, device=ori_k.device)
+        c2w[:3, :3] = inv3(w2c_rot)
+        c2w[:3, 3] = center
 
-    eye4 = torch.eye(4, dtype=c2w.dtype, device=c2w.device)
-    return torch.where(torch.isnan(c2w).any(), eye4, c2w)
+        eye4 = torch.eye(4, dtype=c2w.dtype, device=c2w.device)
+        return torch.where(torch.isnan(c2w).any(), eye4, c2w)
 
 
 def _inputs(device, params, *arrays):
@@ -105,16 +108,17 @@ def estimate_pose_single(params, config: IDConfig, img, mask, rays_ori,
     """Full single-image estimate on ``device`` (CUDA unless
     ``device="cpu"``). Returns (c2w [4,4], scores [N_rays], topk_idx [k],
     topk_weights [k])."""
-    params, img, mask, rays_ori, rays_dirs, rays_rgb, model_up = _inputs(
-        device, params, img, mask, rays_ori, rays_dirs, rays_rgb, model_up)
-    scores = _scores_maybe_fused(
-        params, config, img, mask, rays_ori, rays_dirs, rays_rgb
-    )
-    weights_k, idx = exact_topk(scores, k)
-    c2w = solve_pose_from_topk(
-        rays_ori[idx], rays_dirs[idx], weights_k, model_up
-    )
-    return c2w, scores, idx, weights_k
+    with span("pose.estimate"):
+        params, img, mask, rays_ori, rays_dirs, rays_rgb, model_up = _inputs(
+            device, params, img, mask, rays_ori, rays_dirs, rays_rgb, model_up)
+        scores = _scores_maybe_fused(
+            params, config, img, mask, rays_ori, rays_dirs, rays_rgb
+        )
+        weights_k, idx = exact_topk(scores, k)
+        c2w = solve_pose_from_topk(
+            rays_ori[idx], rays_dirs[idx], weights_k, model_up
+        )
+        return c2w, scores, idx, weights_k
 
 
 @torch.no_grad()
@@ -125,18 +129,19 @@ def estimate_pose_single_banked(params, config: IDConfig, img, mask, bank,
     (``id_module.ray_bank``): per image only ViT -> q, the banked scoring,
     top-k and the closed-form solve run. Returns (c2w, scores, topk_idx,
     topk_weights)."""
-    params, img, mask, rays_ori, rays_dirs, model_up = _inputs(
-        device, params, img, mask, rays_ori, rays_dirs, model_up)
-    bank = bank.to(rays_ori.device)
-    q, patch_valid, _ = image_queries(params, config, img, mask)
-    scores, _ = score_rays(
-        params, config, q, patch_valid, None, None, None, bank=bank
-    )
-    weights_k, idx = exact_topk(scores, k)
-    c2w = solve_pose_from_topk(
-        rays_ori[idx], rays_dirs[idx], weights_k, model_up
-    )
-    return c2w, scores, idx, weights_k
+    with span("pose.estimate"):
+        params, img, mask, rays_ori, rays_dirs, model_up = _inputs(
+            device, params, img, mask, rays_ori, rays_dirs, model_up)
+        bank = bank.to(rays_ori.device)
+        q, patch_valid, _ = image_queries(params, config, img, mask)
+        scores, _ = score_rays(
+            params, config, q, patch_valid, None, None, None, bank=bank
+        )
+        weights_k, idx = exact_topk(scores, k)
+        c2w = solve_pose_from_topk(
+            rays_ori[idx], rays_dirs[idx], weights_k, model_up
+        )
+        return c2w, scores, idx, weights_k
 
 
 @torch.no_grad()
@@ -156,28 +161,29 @@ def estimate_pose_single_sharded(params, config: IDConfig, img, mask,
     (540 000 = 20 000 points x 27 directions divides any power of two up
     to 32), and ``k`` must not exceed a shard. Returns (c2w, scores
     [N_rays], topk_idx, topk_weights), the same on every rank."""
-    params, img, mask, rays_ori, rays_dirs, rays_rgb, model_up = _inputs(
-        device, params, img, mask, rays_ori, rays_dirs, rays_rgb, model_up)
-    n = rays_ori.shape[0]
-    if n % mesh.size:
-        raise ValueError(f"{n} rays do not divide over {mesh.size} ranks")
-    lo, hi = shard_bounds(mesh, n)
-    q, patch_valid, _ = image_queries(params, config, img, mask)
-    with bound(mesh):
-        if bank is not None:
-            scores, _ = score_rays(
-                params, config, q, patch_valid, None, None, None,
-                axis_name=mesh.axis, bank=bank.to(rays_ori.device)[lo:hi])
-        else:
-            scores, _ = score_rays(
-                params, config, q, patch_valid, rays_ori[lo:hi],
-                rays_dirs[lo:hi], rays_rgb[lo:hi], axis_name=mesh.axis)
-    w_loc, i_loc = exact_topk(scores, k)
-    w_cand = all_gather(w_loc, mesh)
-    gidx_cand = all_gather(i_loc + lo, mesh)
-    weights_k, sel = exact_topk(w_cand, k)  # merge the shards' top-k's
-    idx = gidx_cand[sel]
-    c2w = solve_pose_from_topk(
-        rays_ori[idx], rays_dirs[idx], weights_k, model_up
-    )
-    return c2w, all_gather(scores, mesh), idx, weights_k
+    with span("pose.estimate"):
+        params, img, mask, rays_ori, rays_dirs, rays_rgb, model_up = _inputs(
+            device, params, img, mask, rays_ori, rays_dirs, rays_rgb, model_up)
+        n = rays_ori.shape[0]
+        if n % mesh.size:
+            raise ValueError(f"{n} rays do not divide over {mesh.size} ranks")
+        lo, hi = shard_bounds(mesh, n)
+        q, patch_valid, _ = image_queries(params, config, img, mask)
+        with bound(mesh):
+            if bank is not None:
+                scores, _ = score_rays(
+                    params, config, q, patch_valid, None, None, None,
+                    axis_name=mesh.axis, bank=bank.to(rays_ori.device)[lo:hi])
+            else:
+                scores, _ = score_rays(
+                    params, config, q, patch_valid, rays_ori[lo:hi],
+                    rays_dirs[lo:hi], rays_rgb[lo:hi], axis_name=mesh.axis)
+        w_loc, i_loc = exact_topk(scores, k)
+        w_cand = all_gather(w_loc, mesh)
+        gidx_cand = all_gather(i_loc + lo, mesh)
+        weights_k, sel = exact_topk(w_cand, k)  # merge the shards' top-k's
+        idx = gidx_cand[sel]
+        c2w = solve_pose_from_topk(
+            rays_ori[idx], rays_dirs[idx], weights_k, model_up
+        )
+        return c2w, all_gather(scores, mesh), idx, weights_k

@@ -61,6 +61,7 @@ from iffnerf_tpu_torch.pose.id_module import (
     ray_features,
     softmax_over_rays,
 )
+from iffnerf_tpu_torch.tracing import span
 from iffnerf_tpu_torch.train.trainer import _NullWriter, make_summary_writer
 
 LEARNING_RATES = {"ray_mlp": 4.0e-3, "ray_mlp2": 4.0e-3, "q_proj": 4.0e-3,
@@ -120,55 +121,63 @@ def id_train_step(params, opt: torch.optim.Optimizer, imgs, masks, poses,
     a device-side select here too, where a host ``if`` would sync once an
     image). ``mark(label)``, when given, is called after each part of the
     step (ray features, image losses, ray backward, Adam), e.g. to record
-    CUDA events.
+    CUDA events: as the spans ``id.ray_features``, ``id.image_losses``,
+    ``id.ray_backward`` and ``id.adam`` close.
 
     With ``mesh`` the rays are the whole set, alike on every rank; this
     rank takes its rows, the softmax's reductions run over the mesh
     (``per_image_loss``) and the ranks' gradients are summed before Adam
     (the module's docstring). Every rank returns the whole loss."""
-    tick = mark or (lambda label: None)
-    opt.zero_grad(set_to_none=True)
-    n_rays = rays_ori.shape[0]
-    if mesh is not None:
-        lo, hi = shard_bounds(mesh, n_rays)
-        rays_ori, rays_dirs, rays_rgb = (a[lo:hi] for a in
-                                         (rays_ori, rays_dirs, rays_rgb))
-    feats = ray_features(params, config, rays_ori, rays_dirs, rays_rgb)
-    feats_in = feats.detach().requires_grad_(True)
-    tick("ray_features")
-    # the per-image loss never reaches ray_mlp or ray_mlp2, whose leaves
-    # autograd.grad would refuse as unused: ask for the image side alone
-    image_leaves = [t for key in IMAGE_SIDE for t in leaves(params[key])]
-    grads = [torch.zeros_like(t) for t in image_leaves]
-    dfeats = torch.zeros_like(feats_in)
-    loss_sum = torch.zeros((), device=feats.device)
-    for i in range(imgs.shape[0]):
-        loss = per_image_loss(params, config, feats_in, imgs[i], masks[i],
-                              poses[i], rays_ori, rays_dirs, axis_name=mesh,
-                              n_rays=n_rays)
-        *g_params, g_feats = torch.autograd.grad(loss,
-                                                 image_leaves + [feats_in])
-        whole = loss.detach() if mesh is None else psum(loss.detach(), mesh)
-        ok = torch.isfinite(whole)
-        for acc, g in zip(grads, g_params):
-            acc.add_(torch.where(ok, g, 0.0))
-        dfeats.add_(torch.where(ok, g_feats, 0.0))
-        loss_sum = loss_sum + torch.where(ok, whole, 0.0)
-    tick("image_losses")
-    feats.backward(dfeats)
-    tick("ray_backward")
-    for t, g in zip(image_leaves, grads):
-        t.grad = g
-    ts = [t for group in opt.param_groups for t in group["params"]]
-    with torch.no_grad():
-        if mesh is not None:
-            for t, g in zip(ts, psum_flat([t.grad for t in ts], mesh)):
+    with span("id.step"):
+        opt.zero_grad(set_to_none=True)
+        n_rays = rays_ori.shape[0]
+        with span("id.ray_features", mark):
+            if mesh is not None:
+                lo, hi = shard_bounds(mesh, n_rays)
+                rays_ori, rays_dirs, rays_rgb = (
+                    a[lo:hi] for a in (rays_ori, rays_dirs, rays_rgb))
+            feats = ray_features(params, config, rays_ori, rays_dirs,
+                                 rays_rgb)
+            feats_in = feats.detach().requires_grad_(True)
+        with span("id.image_losses", mark):
+            # the per-image loss never reaches ray_mlp or ray_mlp2, whose
+            # leaves autograd.grad would refuse as unused: ask for the
+            # image side alone
+            image_leaves = [t for key in IMAGE_SIDE
+                            for t in leaves(params[key])]
+            grads = [torch.zeros_like(t) for t in image_leaves]
+            dfeats = torch.zeros_like(feats_in)
+            loss_sum = torch.zeros((), device=feats.device)
+            for i in range(imgs.shape[0]):
+                with span("id.image_loss"):
+                    loss = per_image_loss(params, config, feats_in, imgs[i],
+                                          masks[i], poses[i], rays_ori,
+                                          rays_dirs, axis_name=mesh,
+                                          n_rays=n_rays)
+                    *g_params, g_feats = torch.autograd.grad(
+                        loss, image_leaves + [feats_in])
+                    whole = (loss.detach() if mesh is None
+                             else psum(loss.detach(), mesh))
+                    ok = torch.isfinite(whole)
+                    for acc, g in zip(grads, g_params):
+                        acc.add_(torch.where(ok, g, 0.0))
+                    dfeats.add_(torch.where(ok, g_feats, 0.0))
+                    loss_sum = loss_sum + torch.where(ok, whole, 0.0)
+        with span("id.ray_backward", mark):
+            feats.backward(dfeats)
+        with span("id.adam", mark):
+            for t, g in zip(image_leaves, grads):
                 t.grad = g
-        for t in ts:
-            t.grad.div_(accum_steps)
-    opt.step()
-    tick("adam")
-    return loss_sum / accum_steps
+            ts = [t for group in opt.param_groups for t in group["params"]]
+            with torch.no_grad():
+                if mesh is not None:
+                    for t, g in zip(ts, psum_flat([t.grad for t in ts],
+                                                  mesh)):
+                        t.grad = g
+                for t in ts:
+                    t.grad.div_(accum_steps)
+            opt.step()
+        return loss_sum / accum_steps
 
 
 def blend_batch(batch: torch.Tensor):

@@ -88,6 +88,7 @@ from iffnerf_tpu_torch.models.render import (
     render_rays,
     sample_ray,
 )
+from iffnerf_tpu_torch.tracing import span
 from iffnerf_tpu_torch.utils.misc import N_to_reso, cal_n_samples, n_voxel_schedule
 
 NETWORK = ("basis_mat", "shading")  # the parameters at lr_basis
@@ -208,28 +209,29 @@ def train_step(config: FieldConfig, params, opt: FieldOptimizer, mask, rays,
                rgbs, bg_color, weights, *, mark=None, mesh=None, **loss_kw):
     """One optimizer step on a ray batch -> its mse (a detached tensor).
     ``mark(label)``, when given, is called after the forward, the backward
-    and the Adam update (for CUDA-event timing).
+    and the Adam update (for CUDA-event timing): as the spans
+    ``train.forward``, ``train.backward`` and ``train.adam`` close.
 
     With ``mesh`` the batch and its jitter (``jitter``, or the whole
     batch's draw from ``gen``) are the whole batch's: this rank takes its
     rows, and the gradients are averaged over the ranks after the
     backward; the mse returned is the whole batch's."""
-    opt.zero_grad()
-    if mesh is not None:
-        rays, rgbs, loss_kw = _shard_batch(mesh, config, rays, rgbs, loss_kw)
-    total, mse = field_loss(config, params, mask, rays, rgbs, bg_color,
-                            weights, **loss_kw)
-    if mark is not None:
-        mark("forward")
-    total.backward()
-    if mesh is not None:
-        mse = _average_gradients(mesh, params, mse, loss_kw["ray_share"])
-    if mark is not None:
-        mark("backward")
-    opt.step()
-    if mark is not None:
-        mark("adam")
-    return mse.detach()
+    with span("train.step"):
+        opt.zero_grad()
+        with span("train.forward", mark):
+            if mesh is not None:
+                rays, rgbs, loss_kw = _shard_batch(mesh, config, rays, rgbs,
+                                                   loss_kw)
+            total, mse = field_loss(config, params, mask, rays, rgbs,
+                                    bg_color, weights, **loss_kw)
+        with span("train.backward", mark):
+            total.backward()
+            if mesh is not None:
+                mse = _average_gradients(mesh, params, mse,
+                                         loss_kw["ray_share"])
+        with span("train.adam", mark):
+            opt.step()
+        return mse.detach()
 
 
 def _shard_batch(mesh, config: FieldConfig, rays, rgbs, loss_kw):
